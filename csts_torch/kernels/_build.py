@@ -1,0 +1,139 @@
+"""Build and load the CUDA kernels of ``csts_torch/csrc``.
+
+Each ``*.cu`` source compiles with ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface, loaded with ``ctypes`` (pointers and the
+stream pass as ``c_void_p``; each C function returns ``cudaGetLastError()``).
+The build happens at first use, from the sources in the checkout only, into
+``build/csts_torch_kernels/`` at the repository root. A library's file name
+carries a hash of its sources and flags, so an edited source never loads a
+stale build. All missing libraries compile in parallel, one ``nvcc`` each.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "csts_torch_kernels"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+
+# library -> {C function: argument types}
+SIGNATURES: Dict[str, Dict[str, list]] = {
+    "attention": {
+        "csts_attention_fwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I]
+        + [_LL] * 12 + [_F, _P],
+    },
+    "mlp_tail": {
+        "csts_mlp_tail": [_I] + [_P] * 10 + [_I, _I, _I, _I, _F, _P],
+    },
+    "upsample": {
+        "csts_t2_upsample": [_I, _P, _P, _I, _I, _LL, _P],
+    },
+}
+
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit to build")
+    return path
+
+
+def _target(name: str) -> Path:
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"{name}_{h.hexdigest()[:12]}.so"
+
+
+def build_all() -> Dict[str, str]:
+    """Compile every library not yet built, all in parallel, and load them.
+
+    Returns {library: compiler output} for the ones compiled by this call
+    (``-Xptxas -v`` reports registers, shared memory and spills per kernel).
+    Raises if any compile fails.
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    todo = {n: _target(n) for n in SIGNATURES if n not in _libs}
+    procs = {}
+    for name, target in todo.items():
+        if target.exists():
+            continue
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, target)
+    logs, failed = {}, []
+    for name, (proc, tmp, target) in procs.items():
+        out, _ = proc.communicate()
+        logs[name] = out
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{out}")
+        else:
+            os.replace(tmp, target)
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    for name, target in todo.items():
+        lib = ctypes.CDLL(str(target))
+        for fn, argtypes in SIGNATURES[name].items():
+            f = getattr(lib, fn)
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+        _libs[name] = lib
+    return logs
+
+
+def function(lib: str, fn: str):
+    """The C entry point ``fn`` of library ``lib``, building it on first use."""
+    if lib not in _libs:
+        build_all()
+    return getattr(_libs[lib], fn)
+
+
+# --- what every wrapper checks before it launches -----------------------------
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def dtype_code(t: torch.Tensor) -> int:
+    if t.dtype not in _DTYPE_CODES:
+        raise TypeError(f"kernels take float32 or bfloat16, got {t.dtype}")
+    return _DTYPE_CODES[t.dtype]
+
+
+def check_cuda_inputs(name: str, *tensors: torch.Tensor) -> None:
+    """Same CUDA device and dtype for all inputs, and inference only: the
+    backward kernels come with training, so an input that wants a gradient is
+    refused rather than silently cut from the graph."""
+    first = tensors[0]
+    for t in tensors:
+        if t.device != first.device or t.dtype != first.dtype:
+            raise ValueError(f"{name}: inputs must share one CUDA device and dtype")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the CUDA kernel is forward-only (inference)")
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_launch(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with cudaError {err}")

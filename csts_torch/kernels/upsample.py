@@ -1,0 +1,52 @@
+"""K3: x2 half-pixel linear interpolation along T on a token grid.
+
+Port of ``csts_tpu/kernels/upsample.py`` ``_t2_kernel`` (``t2_upsample_padded``
+without its 128-lane padding). It serves d4's stride-(2,1,1) skip and the
+stem-skip T-resize at the head. On a CUDA tensor :func:`t2_upsample`
+launches ``csrc/upsample.cu``; on a CPU tensor it runs
+:func:`t2_upsample_plain`.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from csts_torch.kernels import _build
+from csts_torch.ops.resize import upsample2x
+
+
+def t2_upsample_plain(x: torch.Tensor, thw: Sequence[int]) -> torch.Tensor:
+    """x: (B, T·H·W, C) on the (T, H, W) grid -> (B, 2T·H·W, C).
+
+    out[2m] = 0.25·x[m-1] + 0.75·x[m], out[2m+1] = 0.75·x[m] + 0.25·x[m+1] in
+    fp32 with one rounding; the clamped edge planes are exact copies."""
+    b, l, c = x.shape
+    t = int(thw[0])
+    g = x.reshape(b, t, l // t * c).float()
+    return upsample2x(g, 1).reshape(b, 2 * l, c).to(x.dtype)
+
+
+def t2_upsample(x: torch.Tensor, thw: Sequence[int]) -> torch.Tensor:
+    """x: (B, T·H·W, C) tokens -> (B, 2T·H·W, C), see :func:`t2_upsample_plain`."""
+    if x.device.type == "cpu":
+        return t2_upsample_plain(x, thw)
+    if x.device.type != "cuda":
+        raise ValueError(f"t2_upsample: unsupported device {x.device}")
+    _build.check_cuda_inputs("t2_upsample", x)
+    b, l, c = x.shape
+    t = int(thw[0])
+    if l % t:
+        raise ValueError(f"t2_upsample: {l} tokens do not split into {t} planes")
+    x = x.contiguous()
+    out = torch.empty((b, 2 * l, c), dtype=x.dtype, device=x.device)
+    fn = _build.function("upsample", "csts_t2_upsample")
+    err = fn(_build.dtype_code(x), x.data_ptr(), out.data_ptr(), b, t, l // t * c,
+             _build.stream_ptr(x))
+    _build.check_launch("t2_upsample", err)
+    t2_upsample.launches += 1
+    return out
+
+
+t2_upsample.launches = 0
