@@ -9,10 +9,12 @@ Phases (any failure exits non-zero; nothing is caught):
   2. the flagship CSTS-B 16x4 (256², 16+4 blocks, bf16) with seeded random
      weights behind a ``GazePredictor(batch_sizes=(1, 8))``; one warm-up
      request per bucket records the inputs of every kernel launch;
-  3. each kernel (K1 attention, K2 MLP tail, K3 T×2 upsample) against its
-     plain PyTorch version at every distinct shape the forward launched it
-     with, in bf16 and in fp32 (TF32 off), with the kernel's, the plain
-     version's and one library call's time at the batch-8 shapes;
+  3. each kernel (K1 attention, K2 MLP tail, K3 T×2 upsample, and the
+     whole-block kernels B3 block, B4 pool_block, B5 decoder_block) against
+     its plain PyTorch version at every distinct shape the forward launched
+     it with, in bf16 and in fp32 (TF32 off), with the kernel's, the plain
+     version's and one library call's time at the batch-8 shapes, and for
+     the whole-block kernels the same block through the K1+K2 route;
   4. the serving path: three requests (1, 5 and 8 clips) once to warm up,
      then launch counters set to 0, the same requests timed, counters read
      (each must equal its launches per forward times 3); outputs checked
@@ -43,6 +45,7 @@ from csts_torch.kernels import _build  # noqa: E402
 from csts_torch.kernels import attention as ka  # noqa: E402
 from csts_torch.kernels import block as kb  # noqa: E402
 from csts_torch.kernels import upsample as kup  # noqa: E402
+from csts_torch.models import mvit as tmvit  # noqa: E402
 from csts_torch.models.csts import CSTS, build_spec, init_params  # noqa: E402
 from csts_torch.presets import flagship_cfg  # noqa: E402
 from csts_torch.serving import GazePredictor  # noqa: E402
@@ -54,9 +57,11 @@ PEAK_BF16_FLOPS = 989e12
 
 SEED = 0
 REQUESTS = (1, 5, 8)
-# launches per forward on the flagship: 26 attention sites, 26 block tails
-# (the two fusion blocks take K2 too), K3 at d4's skip and the head's stem skip
-PER_FORWARD = {"attention": 26, "mlp_tail": 26, "t2_upsample": 2}
+# launches per forward on the flagship: B3 takes v0, a0 and v2, B4 v1, v3, a1
+# and a2, B5 d2-d4; the 16 other blocks (the two fusion blocks among them) run
+# K1 and K2; K3 serves d4's skip and the head's stem skip
+PER_FORWARD = {"attention": 16, "mlp_tail": 16, "t2_upsample": 2,
+               "block": 3, "pool_block": 4, "decoder_block": 3}
 
 # Tolerances of kernel vs plain version on the same inputs.
 #  fp32: the CPU bars of tests/test_torch_kernels.py (K1 2e-5, K2 3e-5 + 1e-4
@@ -72,14 +77,24 @@ PER_FORWARD = {"attention": 26, "mlp_tail": 26, "t2_upsample": 2}
 #        order, which can flip one rounding. K3 one bf16 ulp, 2**-7·max(1,
 #        max|ref|): the same two-tap fp32 formula, the kernel's fused
 #        multiply-add may differ in the last fp32 bit and flip one rounding.
-FP32_ATOL = {"attention": 2e-5, "mlp_tail": 3e-5, "t2_upsample": 1e-6}
-FP32_RTOL = {"attention": 0.0, "mlp_tail": 1e-4, "t2_upsample": 0.0}
+#  B3, B4, B5 (whole blocks): fp32 the CPU bars of tests/test_torch_blocks.py
+#        (B3 3e-5, B4 and B5 5e-5, each + 1e-4 relative). bf16 four ulps of the
+#        largest output, 2**-5·max(1, max|ref|): both sides round LN1, q, the
+#        probabilities, av, LN2 and the hidden at the same points, but the
+#        kernel rounds the probabilities unnormalised (as K1, whose bar is
+#        3e-2) and sums in another order, so a rounding of q or av may flip;
+#        res1 is fp32 on both sides and adds no rounding of its own.
+FP32_ATOL = {"attention": 2e-5, "mlp_tail": 3e-5, "t2_upsample": 1e-6,
+             "block": 3e-5, "pool_block": 5e-5, "decoder_block": 5e-5}
+FP32_RTOL = {"attention": 0.0, "mlp_tail": 1e-4, "t2_upsample": 0.0,
+             "block": 1e-4, "pool_block": 1e-4, "decoder_block": 1e-4}
 
 
 def bf16_bar(name: str, ref: torch.Tensor) -> float:
     scale = max(1.0, float(ref.float().abs().max()))
     return {"attention": 3e-2 * scale, "mlp_tail": 2.0 ** -6 * scale,
-            "t2_upsample": 2.0 ** -7 * scale}[name]
+            "t2_upsample": 2.0 ** -7 * scale, "block": 2.0 ** -5 * scale,
+            "pool_block": 2.0 ** -5 * scale, "decoder_block": 2.0 ** -5 * scale}[name]
 
 
 def _attn_library(q, k, v, scale, mask=None):
@@ -117,6 +132,39 @@ def _t2_cost(x, thw):
     return 3 * x.numel() * x.element_size(), 3 * 2 * x.numel()
 
 
+def _whole_block_cost(rows, q_in, skip, k, v, weights, taps_flops):
+    """Bytes: the block's activation inputs, K/V and weights read once, the
+    output written once. Operations: the Q conv's taps, attention (4·Lk·C a
+    row), proj (2·C²), fc1, fc2 and the dim-change proj."""
+    wproj, bproj, ln2_w, ln2_b, w1, b1, w2, b2, wp, bp = weights[-10:]
+    b, n, lk, hd = k.shape
+    c, cout, hidden = wproj.shape[0], w2.shape[0], w1.shape[0]
+    m = b * rows
+    item = k.element_size()
+    nbytes = (sum(t.numel() for t in (q_in, skip, k, v) if t is not None) + m * cout) * item
+    nbytes += sum(t.numel() * t.element_size() for t in weights if isinstance(t, torch.Tensor))
+    flops = m * (taps_flops + 4 * lk * c + 2 * c * c
+                 + 2 * (c * hidden + hidden * cout + (c * cout if wp is not None else 0)))
+    return nbytes, flops
+
+
+def _block_cost(x, k, v, scale, *weights):
+    c = x.shape[-1]
+    return _whole_block_cost(x.shape[1], x, None, k, v, weights, 2 * c * c)  # Q = LN1(x)·Wq
+
+
+def _pool_block_cost(q, thw, skip, k, v, scale, *weights):
+    # 27 taps a channel (the grid's edges skip a few, not counted off)
+    return _whole_block_cost(skip.shape[1], q, skip, k, v, weights, 2 * 27 * q.shape[-1])
+
+
+def _decoder_block_cost(q, thw, stride, skip, k, v, scale, *weights):
+    # sub-pixel phases: a stride-2 axis gives a fine token 1 or 2 taps (1.5 on
+    # average), a stride-1 axis 3
+    taps = float(np.prod([1.5 if s == 2 else 3.0 for s in stride]))
+    return _whole_block_cost(skip.shape[1], q, skip, k, v, weights, 2 * taps * q.shape[-1])
+
+
 KERNELS = {
     "attention": dict(
         module=ka, attr="fused_attention", plain=ka.fused_attention_plain,
@@ -136,8 +184,28 @@ KERNELS = {
         source="csts_torch/csrc/upsample.cu",
         replaces="csts_tpu/kernels/upsample.py:60 (_t2_kernel; pallas_call at :183)",
     ),
+    "block": dict(
+        module=kb, attr="fused_block", plain=kb.fused_block_plain,
+        library=None, cost=_block_cost, route="cuda",
+        source="csts_torch/csrc/block.cu",
+        replaces="csts_tpu/kernels/block.py:82 (_block_kernel; pallas_call at :250)",
+    ),
+    "pool_block": dict(
+        module=kb, attr="fused_pool_block", plain=kb.fused_pool_block_plain,
+        library=None, cost=_pool_block_cost, route="cuda",
+        source="csts_torch/csrc/pool_block.cu",
+        replaces="csts_tpu/kernels/block.py:1302 (_pool_block_kernel; pallas_call at :1528)",
+    ),
+    "decoder_block": dict(
+        module=kb, attr="fused_decoder_block", plain=kb.fused_decoder_block_plain,
+        library=None, cost=_decoder_block_cost, route="cuda",
+        source="csts_torch/csrc/decoder_block.cu",
+        replaces="csts_tpu/kernels/block.py:771 (_decoder_kernel; pallas_call at :1222)",
+    ),
 }
+WHOLE_BLOCKS = ("block", "pool_block", "decoder_block")
 WRAPPERS = {name: getattr(k["module"], k["attr"]) for name, k in KERNELS.items()}
+CARD = ""  # nvidia-smi's name and power limit, printed beside every time
 
 
 def log(msg: str) -> None:
@@ -157,25 +225,45 @@ def _signature(args) -> tuple:
         (tuple(a.shape), str(a.dtype)) if isinstance(a, torch.Tensor) else a for a in args)
 
 
+def _clone(args) -> tuple:
+    return tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
+
+
 @contextlib.contextmanager
 def recording(calls: dict):
-    """Swap each wrapper for one that records the inputs of the first launch
-    of every distinct signature (and counts launches per signature), then
-    launches the real kernel."""
+    """Swap each wrapper for one that records a copy of the inputs of the
+    first launch of every distinct signature, as they were at the launch
+    (and counts launches per signature), then launches the real kernel. A
+    whole-block kernel's record also keeps its block and the block's input,
+    for the block's time through the K1+K2 route."""
+    block_in: list = []
+    block_forward = tmvit.MultiScaleBlock.forward
+
+    def forward(self, x, thw, mask=None):
+        block_in[:] = [self, x, thw]
+        return block_forward(self, x, thw, mask)
+
     def make(name, fn):
         def rec(*args):
-            entry = calls[name].setdefault(_signature(args), [0, args])
-            entry[0] += 1
+            sig = _signature(args)
+            if sig not in calls[name]:
+                ctx = None
+                if name in WHOLE_BLOCKS:
+                    ctx = (block_in[0], block_in[1].clone(), block_in[2])
+                calls[name][sig] = [0, _clone(args), ctx]
+            calls[name][sig][0] += 1
             return fn(*args)
         # the wrapper counts its launches on the module attribute of its own
         # name, which is this recorder while it is installed
         rec.launches = 0
         return rec
     try:
+        tmvit.MultiScaleBlock.forward = forward
         for name, k in KERNELS.items():
             setattr(k["module"], k["attr"], make(name, WRAPPERS[name]))
         yield
     finally:
+        tmvit.MultiScaleBlock.forward = block_forward
         for name, k in KERNELS.items():
             setattr(k["module"], k["attr"], WRAPPERS[name])
 
@@ -215,6 +303,7 @@ FAMILIES = (
     ("K1 attention", ("attn_mma_kernel", "attn_f32_kernel")),
     ("K2 mlp_tail", ("mlp_tail_mma_kernel", "mlp_tail_f32_kernel")),
     ("K3 t2_upsample", ("t2_upsample_kernel",)),
+    ("B3-B5 whole blocks", ("block_mma_kernel", "block_f32_kernel")),
     ("convolution", ("conv", "cudnn", "implicit", "dgrad", "fprop", "winograd")),
     ("matmul", ("gemm", "cutlass", "xmma", "matmul", "nvjet")),
     ("reduction", ("reduce",)),
@@ -288,7 +377,7 @@ def check_kernels(calls_by_bucket: dict) -> dict:
         for name, sigs in calls.items():
             k = KERNELS[name]
             kern, plain = WRAPPERS[name], k["plain"]
-            for sig, (count, args) in sigs.items():
+            for sig, (count, args, ctx) in sigs.items():
                 got = kern(*args)
                 torch.cuda.synchronize()
                 ref = plain(*args)
@@ -323,9 +412,19 @@ def check_kernels(calls_by_bucket: dict) -> dict:
                         ops_ms=flops / PEAK_BF16_FLOPS * 1e3,
                     )
                     row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+                    if ctx is not None:
+                        # the whole block, phase 1 included, through this
+                        # kernel and through the K1+K2 route
+                        blk, x_in, thw = ctx
+                        row["block_ms"] = time_ms(lambda: blk(x_in, thw))
+                        row["composite_ms"] = time_ms(lambda: blk.forward_composite(x_in, thw))
                     log(f"  {name} {sig[0]} x{count}: {row['ms']:.4f} ms (plain "
                         f"{row['plain_ms']:.4f}, library {row['library_ms']}, bound "
-                        f"{row['bound_ms']:.4f}) max|Δ| bf16 {err:.3g} fp32 {err32:.3g}")
+                        f"{row['bound_ms']:.4f} = bytes {row['bytes_ms']:.4f} / ops "
+                        f"{row['ops_ms']:.4f}"
+                        + (f"; whole block {row['block_ms']:.4f} vs K1+K2 route "
+                           f"{row['composite_ms']:.4f}" if ctx is not None else "")
+                        + f") max|Δ| bf16 {err:.3g} fp32 {err32:.3g} ({CARD})")
                 report[name]["shapes"].append(row)
                 report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
                 report[name]["max_abs_err_fp32"] = max(report[name]["max_abs_err_fp32"], err32)
@@ -345,8 +444,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
         return 1
+    global CARD
     t_start = time.perf_counter()
-    card = card_line()
+    card = CARD = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} {torch.cuda.get_device_name(0)}")
 
@@ -470,6 +570,10 @@ def main() -> int:
             "ms": per("ms"), "plain_ms": per("plain_ms"), "bound_ms": per("bound_ms"),
             "bound_by": "bytes" if per("bytes_ms") >= per("ops_ms") else "operations",
             "library_ms": lib,
+            # the whole blocks, phase 1 included, through this kernel and
+            # through the K1+K2 route (whole-block kernels only)
+            "block_ms": per("block_ms") if name in WHOLE_BLOCKS else None,
+            "composite_ms": per("composite_ms") if name in WHOLE_BLOCKS else None,
         })
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:

@@ -117,6 +117,15 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
+// wait until at most n (0..2) committed groups are still in flight
+__device__ __forceinline__ void cp_async_wait_pending(int n) {
+  if (n >= 2)
+    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+  else if (n == 1)
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
 
 // One warp: acc[2][NT] (m16 x n8 tiles) += A[row0 .. row0+32, 0..K) * Bt[col0 .. col0+8·NT, 0..K)ᵀ
 // A and Bt are bf16 row-major in shared memory (Bt is the weight in nn.Linear

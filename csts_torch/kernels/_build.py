@@ -45,6 +45,14 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "csts_t2_upsample": [_I, _P, _P, _I, _I, _LL, _P],
     },
 }
+# the whole-block kernels B3, B4 and B5 share one C signature (fused_block.cuh):
+# dtype, 22 input pointers and the output, q's row stride, 17 sizes, scale, stream
+_FUSED_BLOCK_ARGS = [_I] + [_P] * 23 + [_LL] + [_I] * 17 + [_F, _P]
+SIGNATURES.update({
+    "block": {"csts_fused_block": _FUSED_BLOCK_ARGS},
+    "pool_block": {"csts_fused_pool_block": _FUSED_BLOCK_ARGS},
+    "decoder_block": {"csts_fused_decoder_block": _FUSED_BLOCK_ARGS},
+})
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -134,6 +142,11 @@ def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+NO_INSTANCE = 100000  # fused_block.cuh kNoInstance
+
+
 def check_launch(name: str, err: int) -> None:
+    if err == NO_INSTANCE:
+        raise ValueError(f"{name}: no compiled bf16 instance covers these widths")
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError {err}")

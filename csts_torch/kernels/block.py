@@ -1,11 +1,21 @@
-"""K2: the MLP tail of an MViT block, LN2 → fc1 → GELU → fc2, plus the base
-(``proj(LN2(x))`` when dim ≠ dim_out, else x).
+"""The kernels of ``csts_tpu/kernels/block.py``:
 
-Port of ``csts_tpu/kernels/block.py`` ``_mlp_tail_kernel`` only; the
-whole-block kernels of that module come in a later part of the port. On a
-CUDA tensor :func:`fused_mlp_tail` launches ``csrc/mlp_tail.cu``; on a CPU
-tensor it runs :func:`fused_mlp_tail_plain`. Weights are in ``nn.Linear``
-layout, (out, in).
+* K2 :func:`fused_mlp_tail` (``_mlp_tail_kernel``): the MLP tail of an MViT
+  block, LN2 → fc1 → GELU → fc2, plus the base (``proj(LN2(x))`` when
+  dim ≠ dim_out, else x); ``csrc/mlp_tail.cu``.
+* B3 :func:`fused_block` (``_block_kernel``): a whole identity-skip block
+  from x and the pooled K/V; ``csrc/block.cu``.
+* B4 :func:`fused_pool_block` (``_pool_block_kernel``): a whole Q-pool block
+  from the fine pre-pool Q, the max-pooled skip and the pooled K/V;
+  ``csrc/pool_block.cu``.
+* B5 :func:`fused_decoder_block` (``_decoder_kernel``): a whole upsample-Q
+  decoder block from the coarse pre-upsample Q, the trilinear skip and the
+  pooled K/V; ``csrc/decoder_block.cu``.
+
+On a CUDA tensor each wrapper launches its kernel (or raises); on a CPU
+tensor it runs its ``*_plain`` twin, which computes the same function in
+plain PyTorch with the kernel's rounding points (those of the TPU kernels).
+Weights are in ``nn.Linear`` / ``nn.Conv3d`` layout.
 """
 
 from __future__ import annotations
@@ -13,11 +23,35 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from csts_torch.kernels import _build
 from csts_torch.ops.common import gelu
 
 LN_EPS = 1e-6
+Q_NORM_EPS = 1e-5  # norm_q: torch's default, as the reference hard-codes it
+
+
+def _layer_norm32(x32: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float) -> torch.Tensor:
+    """fp32 LayerNorm with two-pass statistics, the kernels' form."""
+    mean = x32.mean(dim=-1, keepdim=True)
+    centered = x32 - mean
+    var = centered.square().mean(dim=-1, keepdim=True)
+    return centered * torch.rsqrt(var + eps) * w.float() + b.float()
+
+
+def _tail_plain(x32, dtype, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, proj_w, proj_b):
+    """LN2 → MLP (+proj) + base on fp32 rows, rounding LN2 and the hidden to
+    ``dtype`` before their products and the sum once at the end."""
+    xn = _layer_norm32(x32, ln_w, ln_b, LN_EPS).to(dtype).float()
+    hid = torch.matmul(xn, fc1_w.float().t()) + fc1_b.float()
+    hid = gelu(hid).to(dtype).float()
+    mlp = torch.matmul(hid, fc2_w.float().t()) + fc2_b.float()
+    if proj_w is not None:
+        base = torch.matmul(xn, proj_w.float().t()) + proj_b.float()
+    else:
+        base = x32
+    return (base + mlp).to(dtype)
 
 
 def fused_mlp_tail_plain(
@@ -30,20 +64,8 @@ def fused_mlp_tail_plain(
     """Plain PyTorch version with the kernel's rounding points: fp32 LN2
     statistics, LN2(x) and GELU(hidden) rounded to x's dtype before their
     products, fp32 accumulation and bias adds, one rounding of the result."""
-    x32 = x.float()
-    mean = x32.mean(dim=-1, keepdim=True)
-    centered = x32 - mean
-    var = centered.square().mean(dim=-1, keepdim=True)
-    xn = centered * torch.rsqrt(var + LN_EPS) * ln_w.float() + ln_b.float()
-    xn = xn.to(x.dtype).float()
-    hid = torch.matmul(xn, fc1_w.float().t()) + fc1_b.float()
-    hid = gelu(hid).to(x.dtype).float()
-    mlp = torch.matmul(hid, fc2_w.float().t()) + fc2_b.float()
-    if proj_w is not None:
-        base = torch.matmul(xn, proj_w.float().t()) + proj_b.float()
-    else:
-        base = x32
-    return (base + mlp).to(x.dtype)
+    return _tail_plain(x.float(), x.dtype, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b,
+                       proj_w, proj_b)
 
 
 def fused_mlp_tail(
@@ -95,3 +117,210 @@ def fused_mlp_tail(
 
 
 fused_mlp_tail.launches = 0
+
+
+# ----------------------------------------------------------------------------------
+# B3, B4, B5: whole blocks. The weights after the attention are the same for all
+# three: wproj, bproj, ln2_w, ln2_b, fc1_w, fc1_b, fc2_w, fc2_b, proj_w, proj_b
+# (proj_* None when dim == dim_out).
+# ----------------------------------------------------------------------------------
+
+
+def _attend_plain(q, k, v, scale, skip32, wproj, bproj, *tail):
+    """q: (B, N, Lq, hd) rounded per head; k, v: (B, N, Lk, hd). fp32 logits
+    and softmax, normalised probabilities and av rounded to q's dtype, res1 =
+    skip + av·Wprojᵀ + bproj kept in fp32 into the tail."""
+    dt = q.dtype
+    b, n, lq, hd = q.shape
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    probs = torch.softmax(logits, dim=-1).to(dt).float()
+    av = torch.matmul(probs, v.float()).to(dt).float()
+    av = av.transpose(1, 2).reshape(b, lq, n * hd)
+    res1 = skip32 + torch.matmul(av, wproj.float().t()) + bproj.float()
+    return _tail_plain(res1, dt, *tail)
+
+
+def fused_block_plain(x, k, v, scale, ln1_w, ln1_b, wq, bq, wproj, bproj, *tail):
+    """B3 in plain PyTorch. x: (B, L, C); k, v: (B, N, Lk, hd) pooled;
+    wq, bq: the Q rows of the qkv projection. Returns (B, L, dim_out)."""
+    dt = x.dtype
+    b, l, c = x.shape
+    n, hd = k.shape[1], k.shape[3]
+    xn = _layer_norm32(x.float(), ln1_w, ln1_b, LN_EPS).to(dt).float()
+    q = torch.matmul(xn, wq.float().t()) + bq.float()
+    q = q.to(dt).reshape(b, l, n, hd).transpose(1, 2)
+    return _attend_plain(q, k, v, scale, x.float(), wproj, bproj, *tail)
+
+
+def _q_conv_plain(q, thw, stride, wconv, nq_w, nq_b, n, transposed):
+    """The (transposed) depthwise 3x3x3 conv of the token-major Q (B, L, N·hd)
+    on grid ``thw`` in fp32, then norm_q per head, rounded to q's dtype.
+    Returns (B, N, L', hd)."""
+    b, l, c = q.shape
+    hd = c // n
+    grid = q.float().reshape(b, *thw, n, hd).permute(0, 4, 5, 1, 2, 3).reshape(b * n, hd, *thw)
+    stride = tuple(int(s) for s in stride)
+    if transposed:
+        out = F.conv_transpose3d(grid, wconv.float(), None, stride, 1,
+                                 tuple(s - 1 for s in stride), hd)
+    else:
+        out = F.conv3d(grid, wconv.float(), None, stride, 1, 1, hd)
+    out = out.reshape(b, n, hd, -1).transpose(2, 3)
+    return _layer_norm32(out, nq_w, nq_b, Q_NORM_EPS).to(q.dtype)
+
+
+def fused_pool_block_plain(q, thw, skip, k, v, scale, wconv, nq_w, nq_b, wproj, bproj, *tail):
+    """B4 in plain PyTorch. q: (B, L_fine, C) post-Wq fine Q on grid ``thw``;
+    skip: (B, L_coarse, C) the max-pooled x; wconv: (hd, 1, 3, 3, 3)."""
+    qh = _q_conv_plain(q, thw, (1, 2, 2), wconv, nq_w, nq_b, k.shape[1], False)
+    return _attend_plain(qh, k, v, scale, skip.float(), wproj, bproj, *tail)
+
+
+def fused_decoder_block_plain(q, thw, stride, skip, k, v, scale, wconv, nq_w, nq_b,
+                              wproj, bproj, *tail):
+    """B5 in plain PyTorch. q: (B, L_coarse, C) post-Wq coarse Q on grid
+    ``thw``; stride: the upsample's (1,2,2) or (2,1,1); skip: (B, L_fine, C)
+    the trilinear skip; wconv: the ConvTranspose3d weight (hd, 1, 3, 3, 3)."""
+    qh = _q_conv_plain(q, thw, stride, wconv, nq_w, nq_b, k.shape[1], True)
+    return _attend_plain(qh, k, v, scale, skip.float(), wproj, bproj, *tail)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous and on a 16-byte boundary (the kernels copy 16-byte pieces)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch_block(name, lib, fn, *, x=None, q=None, q_rs=0, skip=None, k, v, ln1=(None, None),
+                  wq=None, bq=None, wconv=None, nq=(None, None), wproj, bproj, tail,
+                  out_rows, grid_out=(0, 0, 0), grid_src=(0, 0, 0), stride=(1, 1, 1), scale):
+    ln2_w, ln2_b, fc1_w, fc1_b, fc2_w, fc2_b, proj_w, proj_b = tail
+    if (proj_w is None) != (proj_b is None):
+        raise ValueError(f"{name}: proj weight and bias go together")
+    tensors = [t for t in (x, q, skip, k, v, *ln1, wq, bq, wconv, *nq, wproj, bproj, *tail)
+               if t is not None]
+    _build.check_cuda_inputs(name, *tensors)
+    b, n, lk, hd = k.shape
+    c, cout, hidden = wproj.shape[0], fc2_w.shape[0], fc1_w.shape[0]
+    if v.shape != k.shape or wproj.shape != (c, c) or n * hd != c:
+        raise ValueError(f"{name}: k {tuple(k.shape)} v {tuple(v.shape)} wproj "
+                         f"{tuple(wproj.shape)} do not fit")
+    if fc1_w.shape != (hidden, c) or fc2_w.shape != (cout, hidden):
+        raise ValueError(f"{name}: fc1 {tuple(fc1_w.shape)} / fc2 {tuple(fc2_w.shape)}")
+    if proj_w is None and cout != c:
+        raise ValueError(f"{name}: dim != dim_out needs the proj weights")
+    if proj_w is not None and proj_w.shape != (cout, c):
+        raise ValueError(f"{name}: proj {tuple(proj_w.shape)} is not ({cout}, {c})")
+    if c % 16 or cout % 16 or hidden % 16 or hd % 16 or hd > 256 or c > 768 or lk < 1:
+        raise ValueError(f"{name}: widths {c}/{cout}/{hidden}, head dim {hd} and Lk {lk} must "
+                         "be multiples of 16 with hd ≤ 256, dim ≤ 768, Lk ≥ 1")
+    if b > 65535:
+        raise ValueError(f"{name}: batch above 65535")
+    dev, dt = k.device, k.dtype
+    out = torch.empty((b, out_rows, cout), dtype=dt, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    x, skip, k, v = (None if t is None else _aligned(t) for t in (x, skip, k, v))
+    ws = [None if t is None else _aligned(t)
+          for t in (*ln1, wq, bq, wconv, *nq, wproj, bproj, *tail)]
+    err = _build.function(lib, fn)(
+        _build.dtype_code(k), ptr(x), ptr(q), ptr(skip), ptr(k), ptr(v), *map(ptr, ws),
+        out.data_ptr(), int(q_rs), b, out_rows, c, cout, hidden, n, hd, lk,
+        *grid_out, *grid_src, *stride, float(scale), _build.stream_ptr(k),
+    )
+    _build.check_launch(name, err)
+    return out
+
+
+def _taps(wconv: torch.Tensor) -> torch.Tensor:
+    """(hd, 1, 3, 3, 3) depthwise weight -> (27, hd) tap-major, the order the
+    kernels read (taps numbered as torch numbers them, no flip)."""
+    if tuple(wconv.shape[1:]) != (1, 3, 3, 3):
+        raise ValueError(f"Q conv weight {tuple(wconv.shape)} is not (hd, 1, 3, 3, 3)")
+    return wconv.reshape(wconv.shape[0], 27).t().contiguous()
+
+
+def _rows_view(q: torch.Tensor) -> torch.Tensor:
+    """q (B, L, C) with unit channel stride and one row stride that keeps
+    16-byte rows (a column slice of the fused qkv projection passes as it
+    is), else an aligned contiguous copy."""
+    b, l, c = q.shape
+    if (q.stride(2) == 1 and q.stride(0) == l * q.stride(1) and q.stride(1) % 8 == 0
+            and q.data_ptr() % 16 == 0):
+        return q
+    return _aligned(q)
+
+
+def fused_block(x, k, v, scale, ln1_w, ln1_b, wq, bq, wproj, bproj, *tail):
+    """B3: a whole identity-skip block. x: (B, L, C); k, v: (B, N, Lk, hd)
+    pooled and normed; wq, bq: the Q rows of the qkv projection; then wproj,
+    bproj, ln2_w, ln2_b, fc1_w, fc1_b, fc2_w, fc2_b, proj_w, proj_b.
+    Returns (B, L, dim_out)."""
+    if x.device.type == "cpu":
+        return fused_block_plain(x, k, v, scale, ln1_w, ln1_b, wq, bq, wproj, bproj, *tail)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_block: unsupported device {x.device}")
+    if x.shape[0] != k.shape[0] or x.shape[2] != wproj.shape[0]:
+        raise ValueError(f"fused_block: x {tuple(x.shape)} does not fit k {tuple(k.shape)}")
+    out = _launch_block("fused_block", "block", "csts_fused_block", x=x, k=k, v=v,
+                        ln1=(ln1_w, ln1_b), wq=wq, bq=bq, wproj=wproj, bproj=bproj, tail=tail,
+                        out_rows=x.shape[1], scale=scale)
+    fused_block.launches += 1
+    return out
+
+
+def fused_pool_block(q, thw, skip, k, v, scale, wconv, nq_w, nq_b, wproj, bproj, *tail):
+    """B4: a whole Q-pool block (stride (1,2,2)). q: (B, T·H·W, C) fine
+    post-Wq Q on grid ``thw``; skip: the max-pooled x on the coarse grid;
+    k, v: pooled; wconv: pool_q (hd, 1, 3, 3, 3). Returns (B, L_coarse, dim_out)."""
+    if q.device.type == "cpu":
+        return fused_pool_block_plain(q, thw, skip, k, v, scale, wconv, nq_w, nq_b,
+                                      wproj, bproj, *tail)
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_pool_block: unsupported device {q.device}")
+    t, h, w = (int(s) for s in thw)
+    out_grid = (t, (h - 1) // 2 + 1, (w - 1) // 2 + 1)
+    l_out = out_grid[0] * out_grid[1] * out_grid[2]
+    if q.shape[1] != t * h * w or skip.shape[:2] != (q.shape[0], l_out):
+        raise ValueError(f"fused_pool_block: q {tuple(q.shape)} / skip {tuple(skip.shape)} "
+                         f"do not fit grid {thw}")
+    q = _rows_view(q)
+    out = _launch_block("fused_pool_block", "pool_block", "csts_fused_pool_block", q=q,
+                        q_rs=q.stride(1), skip=skip, k=k, v=v, wconv=_taps(wconv),
+                        nq=(nq_w, nq_b), wproj=wproj, bproj=bproj, tail=tail, out_rows=l_out,
+                        grid_out=out_grid, grid_src=(t, h, w), stride=(1, 2, 2), scale=scale)
+    fused_pool_block.launches += 1
+    return out
+
+
+def fused_decoder_block(q, thw, stride, skip, k, v, scale, wconv, nq_w, nq_b, wproj, bproj,
+                        *tail):
+    """B5: a whole upsample-Q decoder block. q: (B, T·H·W, C) coarse post-Wq
+    Q on grid ``thw``; stride: (1,2,2) or (2,1,1); skip: the trilinear skip on
+    the fine grid; k, v: pooled; wconv: upsample_q (hd, 1, 3, 3, 3).
+    Returns (B, L_fine, dim_out)."""
+    if q.device.type == "cpu":
+        return fused_decoder_block_plain(q, thw, stride, skip, k, v, scale, wconv, nq_w, nq_b,
+                                         wproj, bproj, *tail)
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_decoder_block: unsupported device {q.device}")
+    src = tuple(int(s) for s in thw)
+    stride = tuple(int(s) for s in stride)
+    if len(stride) != 3 or any(s not in (1, 2) for s in stride):
+        raise ValueError(f"fused_decoder_block: strides {stride} must be 1 or 2")
+    out_grid = tuple(n * s for n, s in zip(src, stride))
+    l_out = out_grid[0] * out_grid[1] * out_grid[2]
+    if q.shape[1] != src[0] * src[1] * src[2] or skip.shape[:2] != (q.shape[0], l_out):
+        raise ValueError(f"fused_decoder_block: q {tuple(q.shape)} / skip "
+                         f"{tuple(skip.shape)} do not fit grid {thw} at stride {stride}")
+    q = _rows_view(q)
+    out = _launch_block("fused_decoder_block", "decoder_block", "csts_fused_decoder_block",
+                        q=q, q_rs=q.stride(1), skip=skip, k=k, v=v, wconv=_taps(wconv),
+                        nq=(nq_w, nq_b), wproj=wproj, bproj=bproj, tail=tail, out_rows=l_out,
+                        grid_out=out_grid, grid_src=src, stride=stride, scale=scale)
+    fused_decoder_block.launches += 1
+    return out
+
+
+fused_block.launches = 0
+fused_pool_block.launches = 0
+fused_decoder_block.launches = 0

@@ -6,10 +6,15 @@ the reference PyTorch model (``slowfast/models/attention.py``), so the
 released ``.pyth`` weights and :func:`csts_torch.convert.from_jax.state_dict_from_jax`
 load with ``strict=True``.
 
-Every block runs LN1 → qkv → pooling convs → attention core (K1) → proj →
-skip → MLP tail (K2); the decoder's stride-(2,1,1) skip is K3. The kernels
-are called through their modules (``ka.fused_attention`` ...) so a check can
-swap in the plain versions on the card.
+A block dispatches as the JAX package's ``multiscale_block_apply`` does
+(``csts_tpu/models/mvit.py:640-703``): an identity-skip block with at most
+two heads runs whole in B3 (``kb.fused_block``), an upsample-Q decoder block
+in B5 (``kb.fused_decoder_block``), a Q-pool block in B4
+(``kb.fused_pool_block``); every other block runs LN1 → qkv → pooling convs →
+attention core (K1) → proj → skip → MLP tail (K2). The decoder's
+stride-(2,1,1) skip is K3. The kernels are called through their modules
+(``ka.fused_attention`` ...) so a check can swap in the plain versions on the
+card. The dispatch depends on the model only, never on the device.
 """
 
 from __future__ import annotations
@@ -176,6 +181,106 @@ def upsample_tokens_trilinear(x: torch.Tensor, thw: THW, stride) -> Tuple[torch.
 
 
 # ----------------------------------------------------------------------------------
+# which blocks run whole in B3, B4 or B5 (csts_tpu/kernels/block.py predicates)
+# ----------------------------------------------------------------------------------
+
+
+def _static_pool_out(thw: THW, kernel, stride, padding) -> THW:
+    return tuple(
+        (d + 2 * p - k) // s + 1 for d, k, s, p in zip(thw, kernel, stride, padding)
+    )
+
+
+def _static_upsample_out(thw: THW, kernel, stride, padding, output_padding) -> THW:
+    return tuple(
+        (d - 1) * s - 2 * p + k + op
+        for d, k, s, p, op in zip(thw, kernel, stride, padding, output_padding)
+    )
+
+
+def _lk(spec: AttentionSpec, thw: THW) -> int:
+    """Pooled K/V length of a block on grid ``thw``."""
+    if not spec.pool_kv_on:
+        return _prod(thw)
+    return _prod(_static_pool_out(thw, spec.kernel_kv, spec.stride_kv, spec.padding_kv))
+
+
+def _fc_bytes(spec: AttentionSpec) -> int:
+    # the JAX kernels keep the fc weights resident and cap them at 8 MiB in
+    # bf16 (block.py:1042, :1413); the cap keeps the dim-768 blocks on K1+K2
+    return (spec.dim * spec.hidden_dim + spec.hidden_dim * spec.dim_out) * 2
+
+
+def block_eligible(spec: AttentionSpec, mask) -> bool:
+    """B3 (``kb.eligible`` and the guards at ``mvit.py:640-646``): identity
+    skip, at most two heads, no mask, no cls token. The JAX package's
+    ``L % 128`` token-tile guard serves the TPU's tiling only and is dropped."""
+    return (
+        not spec.upsample_q
+        and not spec.pool_q_on
+        and not spec.skip_pool_on
+        and not spec.has_cls
+        and mask is None
+        and spec.dim % spec.num_heads == 0
+        and spec.num_heads <= 2
+        and spec.dim <= 768
+    )
+
+
+def pool_block_eligible(spec: AttentionSpec, mask, thw: THW) -> bool:
+    """B4 (``kb.pool_block_eligible``): stride (1,2,2), kernel 3, MaxPool
+    (1,3,3) skip, head dim ≤ 128, Lk ≤ 1024, fc weights ≤ 8 MiB, no mask, no
+    cls token. The row and 128-lane alignment of ``_pool_tile_plan`` is the
+    TPU's tiling and is dropped."""
+    return (
+        not spec.upsample_q
+        and spec.pool_q_on
+        and spec.skip_pool_on
+        and not spec.has_cls
+        and mask is None
+        and tuple(spec.stride_q) == (1, 2, 2)
+        and tuple(spec.kernel_q) == (3, 3, 3)
+        and tuple(spec.skip_kernel) == (1, 3, 3)
+        and spec.dim % spec.num_heads == 0
+        and spec.head_dim <= 128
+        and _fc_bytes(spec) <= 8 * 2 ** 20
+        and _lk(spec, thw) <= 1024
+    )
+
+
+def decoder_eligible(spec: AttentionSpec, mask, thw: THW) -> bool:
+    """B5 (``kb.decoder_eligible``): an upsample-Q block with kernel 3,
+    strides in {1, 2}, head dim ≤ 256, dim ≤ 768, Lk ≤ 512, fc weights ≤ 8
+    MiB, no mask. ``_decoder_tile_plan``'s row and 128-lane alignment is the
+    TPU's tiling and is dropped."""
+    return (
+        spec.upsample_q
+        and spec.pool_q_on
+        and mask is None
+        and spec.dim % spec.num_heads == 0
+        and spec.head_dim <= 256
+        and spec.dim <= 768
+        and len(spec.stride_q) == 3
+        and all(s in (1, 2) for s in spec.stride_q)
+        and tuple(spec.kernel_q) == (3, 3, 3)
+        and _fc_bytes(spec) <= 8 * 2 ** 20
+        and _lk(spec, thw) <= 512
+    )
+
+
+def block_route(spec: AttentionSpec, mask, thw: THW) -> str:
+    """The kernel a block runs in, in the JAX package's order:
+    "block" (B3), "decoder_block" (B5), "pool_block" (B4) or "composite"."""
+    if block_eligible(spec, mask):
+        return "block"
+    if decoder_eligible(spec, mask, thw):
+        return "decoder_block"
+    if pool_block_eligible(spec, mask, thw):
+        return "pool_block"
+    return "composite"
+
+
+# ----------------------------------------------------------------------------------
 # MultiScaleAttention / MultiScaleBlock (attention.py:52-248, 292-479)
 # ----------------------------------------------------------------------------------
 
@@ -204,15 +309,32 @@ class MultiScaleAttention(nn.Module):
                     hd, hd, spec.kernel_kv, spec.stride_kv, spec.padding_kv, groups=hd, bias=False))
                 setattr(self, f"norm_{name}", nn.LayerNorm(hd, eps=1e-5))
 
+    def project(self, xn: torch.Tensor, thw: THW, with_q: bool = True):
+        """xn: LN1'd tokens (B, L, dim) -> Q token-major (B, L, dim), a view of
+        the projection (None unless ``with_q``), and K, V as (B, N, Lk, hd),
+        pooled and normed where the block pools them (the whole-block kernels'
+        phase 1, ``csts_tpu/models/mvit.py`` ``_pooled_kv`` and the Q
+        projection of ``_slot_q_proj``, without the TPU's slot layouts)."""
+        s = self.spec
+        b, l, _ = xn.shape
+        lo = 0 if with_q else s.dim
+        bias = self.qkv.bias[lo:] if self.qkv.bias is not None else None
+        proj = ops.linear(xn, self.qkv.weight[lo:], bias)
+        kv = proj[..., -2 * s.dim:].reshape(b, l, 2, s.num_heads, s.head_dim)
+        k, v = kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2)
+        if s.pool_kv_on:
+            k, _ = _pool_heads(k, self.pool_k, self.norm_k, thw, s.stride_kv, s.padding_kv)
+            v, _ = _pool_heads(v, self.pool_v, self.norm_v, thw, s.stride_kv, s.padding_kv)
+        return (proj[..., :s.dim] if with_q else None), k, v
+
     def forward(
         self, xn: torch.Tensor, thw: THW, mask: Optional[torch.Tensor] = None
     ) -> Tuple[torch.Tensor, THW]:
         """xn: LN1'd tokens (B, L, dim). Returns (out (B, Lq, dim), thw_q)."""
         s = self.spec
         b, l, _ = xn.shape
-        qkv = ops.linear(xn, self.qkv.weight, self.qkv.bias)
-        qkv = qkv.reshape(b, l, 3, s.num_heads, s.head_dim).permute(2, 0, 3, 1, 4)
-        q, k, v = qkv[0], qkv[1], qkv[2]  # (B, N, L, hd) head views
+        q, k, v = self.project(xn, thw)
+        q = q.reshape(b, l, s.num_heads, s.head_dim).transpose(1, 2)  # (B, N, L, hd) view
         q_thw = thw
         if s.pool_q_on:
             if s.upsample_q:
@@ -221,9 +343,6 @@ class MultiScaleAttention(nn.Module):
                                        output_padding=s.output_padding_q)
             else:
                 q, q_thw = _pool_heads(q, self.pool_q, self.norm_q, thw, s.stride_q, s.padding_q)
-        if s.pool_kv_on:
-            k, _ = _pool_heads(k, self.pool_k, self.norm_k, thw, s.stride_kv, s.padding_kv)
-            v, _ = _pool_heads(v, self.pool_v, self.norm_v, thw, s.stride_kv, s.padding_kv)
         out = ka.fused_attention(q, k, v, s.scale, mask)
         out = out.transpose(1, 2).reshape(b, out.shape[2], s.dim)
         return ops.linear(out, self.proj.weight, self.proj.bias), q_thw
@@ -258,9 +377,49 @@ class MultiScaleBlock(nn.Module):
         if spec.dim != spec.dim_out:
             self.proj = nn.Linear(spec.dim, spec.dim_out)
 
+    def _tail_weights(self) -> tuple:
+        """wproj, bproj, then K2's weights: LN2, fc1, fc2 and the dim-change
+        proj (None, None when dim == dim_out)."""
+        proj = getattr(self, "proj", None)
+        return (
+            self.attn.proj.weight, self.attn.proj.bias, self.norm2.weight, self.norm2.bias,
+            self.mlp.fc1.weight, self.mlp.fc1.bias, self.mlp.fc2.weight, self.mlp.fc2.bias,
+            proj.weight if proj is not None else None, proj.bias if proj is not None else None,
+        )
+
     def forward(
         self, x: torch.Tensor, thw: THW, mask: Optional[torch.Tensor] = None
     ) -> Tuple[torch.Tensor, THW]:
+        s, a = self.spec, self.attn
+        route = block_route(s, mask, thw)
+        if route == "composite":
+            return self.forward_composite(x, thw, mask)
+        xn = ops.layer_norm(x, self.norm1.weight, self.norm1.bias)
+        q, k, v = a.project(xn, thw, with_q=route != "block")
+        if route == "block":
+            bq = a.qkv.bias[:s.dim] if a.qkv.bias is not None else a.qkv.weight.new_zeros(s.dim)
+            out = kb.fused_block(x, k, v, s.scale, self.norm1.weight, self.norm1.bias,
+                                 a.qkv.weight[:s.dim], bq, *self._tail_weights())
+            return out, thw
+        if route == "decoder_block":
+            thw_f = _static_upsample_out(thw, s.kernel_q, s.stride_q, s.padding_q,
+                                         s.output_padding_q)
+            skip = upsample_tokens_trilinear(x, thw, s.stride_q)[0] if s.skip_upsample_on else x
+            out = kb.fused_decoder_block(q, thw, s.stride_q, skip, k, v, s.scale,
+                                         a.upsample_q.weight, a.norm_q.weight, a.norm_q.bias,
+                                         *self._tail_weights())
+            return out, thw_f
+        pad = tuple(int(kk // 2) for kk in s.skip_kernel)
+        skip, thw_c = pool_tokens_max(x, thw, s.skip_kernel, s.stride_q, pad)
+        out = kb.fused_pool_block(q, thw, skip, k, v, s.scale, a.pool_q.weight, a.norm_q.weight,
+                                  a.norm_q.bias, *self._tail_weights())
+        return out, thw_c
+
+    def forward_composite(
+        self, x: torch.Tensor, thw: THW, mask: Optional[torch.Tensor] = None
+    ) -> Tuple[torch.Tensor, THW]:
+        """The block through K1 and K2 (the route of every block the
+        whole-block kernels do not take)."""
         s = self.spec
         xn = ops.layer_norm(x, self.norm1.weight, self.norm1.bias)
         x_block, thw_new = self.attn(xn, thw, mask)
@@ -271,14 +430,7 @@ class MultiScaleBlock(nn.Module):
             x_res, _ = pool_tokens_max(x, thw, s.skip_kernel, s.stride_q, pad)
         else:
             x_res = x
-        x = x_res + x_block
-        proj = getattr(self, "proj", None)
-        x = kb.fused_mlp_tail(
-            x, self.norm2.weight, self.norm2.bias,
-            self.mlp.fc1.weight, self.mlp.fc1.bias, self.mlp.fc2.weight, self.mlp.fc2.bias,
-            proj.weight if proj is not None else None, proj.bias if proj is not None else None,
-        )
-        return x, thw_new
+        return kb.fused_mlp_tail(x_res + x_block, *self._tail_weights()[2:]), thw_new
 
 
 def build_inframe_mask(thw: THW, num_audio_tokens: int) -> np.ndarray:

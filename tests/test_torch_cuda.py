@@ -1,11 +1,17 @@
 """The CUDA kernels against their plain versions on the card, at ragged shapes
 the flagship forward does not reach (``chip_smoke.py`` covers the flagship's
 own): partial query and key tiles, head views with strides, head dims 64 and
-128, output widths and hidden widths that leave partial weight tiles.
+128, output widths and hidden widths that leave partial weight tiles; for the
+whole-block kernels B3-B5, token counts that are no multiple of the tile, H
+and W that are no multiple of the row tile, T of 1 and 3, Lk of 64, 256 and
+1024.
 
 They skip without a card. On one, run them without the JAX suite's conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+or under ``compute-sanitizer --tool memcheck python -m pytest ...`` to check
+every kernel's memory accesses.
 """
 
 import pytest
@@ -88,6 +94,72 @@ def test_mlp_tail_ragged(gen, m, c, h, cout, proj):
 def test_t2_upsample_ragged(gen, b, thw, c):
     x = _randn(gen, b, thw[0] * thw[1] * thw[2], c)
     _check("t2_upsample", kup.t2_upsample, kup.t2_upsample_plain, [x, thw])
+
+
+def _tail(gen, c, cout, hidden):
+    """wproj, bproj, LN2, fc1, fc2 and (when c != cout) the dim-change proj."""
+    w = [_randn(gen, c, c, scale=c ** -0.5), _randn(gen, c, scale=0.1),
+         1 + _randn(gen, c, scale=0.1), _randn(gen, c, scale=0.1),
+         _randn(gen, hidden, c, scale=c ** -0.5), _randn(gen, hidden, scale=0.1),
+         _randn(gen, cout, hidden, scale=hidden ** -0.5), _randn(gen, cout, scale=0.1)]
+    if c != cout:
+        return w + [_randn(gen, cout, c, scale=c ** -0.5), _randn(gen, cout, scale=0.1)]
+    return w + [None, None]
+
+
+def _kv(gen, b, n, lk, hd):
+    return _randn(gen, b, n, lk, hd), _randn(gen, b, n, lk, hd)
+
+
+@pytest.mark.parametrize("b,l,c,cout,heads,lk", [
+    (2, 100, 96, 192, 1, 64),     # partial token tile, one head
+    (1, 333, 192, 384, 2, 256),   # two heads, a partial tile of 64
+    (1, 70, 192, 192, 2, 1024),   # identity base
+])
+def test_block_ragged(gen, b, l, c, cout, heads, lk):
+    hd = c // heads
+    k, v = _kv(gen, b, heads, lk, hd)
+    args = [_randn(gen, b, l, c), k, v, hd ** -0.5, 1 + _randn(gen, c, scale=0.1),
+            _randn(gen, c, scale=0.1), _randn(gen, c, c, scale=c ** -0.5),
+            _randn(gen, c, scale=0.1)] + _tail(gen, c, cout, 4 * c)
+    _check("block", kb.fused_block, kb.fused_block_plain, args)
+
+
+def _q_source(gen, b, l, c):
+    """The Q columns of a fused (B, L, 3C) projection: a strided view."""
+    return _randn(gen, b, l, 3 * c)[..., :c]
+
+
+@pytest.mark.parametrize("b,thw,c,cout,heads,lk", [
+    (2, (1, 8, 8), 192, 384, 2, 64),       # T 1
+    (1, (3, 10, 14), 192, 192, 2, 1024),   # T 3, coarse rows 5 x 7
+    (1, (2, 16, 16), 384, 768, 4, 256),    # two output column tiles
+])
+def test_pool_block_ragged(gen, b, thw, c, cout, heads, lk):
+    hd = c // heads
+    t, h, w = thw
+    l_out = t * ((h + 1) // 2) * ((w + 1) // 2)
+    k, v = _kv(gen, b, heads, lk, hd)
+    args = [_q_source(gen, b, t * h * w, c), thw, _randn(gen, b, l_out, c), k, v, hd ** -0.5,
+            _randn(gen, hd, 1, 3, 3, 3, scale=0.2), 1 + _randn(gen, hd, scale=0.1),
+            _randn(gen, hd, scale=0.1)] + _tail(gen, c, cout, 4 * c)
+    _check("pool_block", kb.fused_pool_block, kb.fused_pool_block_plain, args)
+
+
+@pytest.mark.parametrize("b,thw,stride,c,cout,heads,lk", [
+    (1, (1, 4, 6), (1, 2, 2), 768, 384, 4, 64),   # head dim 192, 32-token tiles
+    (2, (3, 5, 7), (2, 1, 1), 192, 96, 2, 64),    # odd coarse T, partial tiles
+    (1, (3, 3, 5), (1, 2, 2), 384, 192, 4, 256),
+])
+def test_decoder_block_ragged(gen, b, thw, stride, c, cout, heads, lk):
+    hd = c // heads
+    t, h, w = thw
+    l_out = t * h * w * stride[0] * stride[1] * stride[2]
+    k, v = _kv(gen, b, heads, lk, hd)
+    args = [_q_source(gen, b, t * h * w, c), thw, stride, _randn(gen, b, l_out, c), k, v,
+            hd ** -0.5, _randn(gen, hd, 1, 3, 3, 3, scale=0.2), 1 + _randn(gen, hd, scale=0.1),
+            _randn(gen, hd, scale=0.1)] + _tail(gen, c, cout, 4 * cout)
+    _check("decoder_block", kb.fused_decoder_block, kb.fused_decoder_block_plain, args)
 
 
 def test_kernels_refuse_gradients(gen):
