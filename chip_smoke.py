@@ -20,7 +20,22 @@ Phases (any failure exits non-zero; nothing is caught):
      (each must equal its launches per forward times 3); outputs checked
      (shapes, finite, each frame's heatmap sums to 1) and held against the
      same weights through the plain versions in fp32 on the card; the
-     batch-8 forward timed and profiled (device time by kernel family).
+     batch-8 forward timed and profiled (device time by kernel family);
+  5. the training path: the flagship from ``flagship_train_cfg`` (fp32
+     master weights, bf16 compute, batch 8, kldiv+egonce, AdamW, drop-path
+     0.2) through ``make_train_step``: one warm-up step records the inputs of
+     every B7 forward (``mlp_tail_train``), B7 backward and B8
+     (``attention_bwd``) call, then launch counters set to 0, three steps
+     timed with CUDA events, counters read (per step: K1 26, K3 2, B7 26, B8
+     25); loss, grad norm and lr finite per step; the step profiled;
+  6. B7 and B8 against their plain versions at every recorded shape (B7's
+     out and stored hidden; B8's dq, dk, dv; B7's hand-written backward
+     against autograd of its plain version), with times, bounds and B8's
+     library time (the backward of ``F.scaled_dot_product_attention``);
+     one fp32 step at batch 2 (TF32 off) through the kernels and through the
+     plain twins from the same weights, masks and batch (loss and every
+     parameter's gradient compared); one bf16 batch-8 step with the plain
+     attention twin in place of K1+B8, timed beside the kernels' step.
 It prints the ``kernels`` JSON line, the card line and, last, the result line.
 Per-shape details go to ``chiprun_out/chip_smoke.json``.
 """
@@ -28,6 +43,7 @@ Per-shape details go to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -47,8 +63,10 @@ from csts_torch.kernels import block as kb  # noqa: E402
 from csts_torch.kernels import upsample as kup  # noqa: E402
 from csts_torch.models import mvit as tmvit  # noqa: E402
 from csts_torch.models.csts import CSTS, build_spec, init_params  # noqa: E402
-from csts_torch.presets import flagship_cfg  # noqa: E402
+from csts_torch.ops import sample_drop_masks  # noqa: E402
+from csts_torch.presets import flagship_cfg, flagship_train_cfg  # noqa: E402
 from csts_torch.serving import GazePredictor  # noqa: E402
+from csts_torch.train import step as train_lib  # noqa: E402
 from csts_torch.train.losses import frame_softmax  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s and bf16 tensor-core FLOP/s
@@ -90,11 +108,57 @@ FP32_RTOL = {"attention": 0.0, "mlp_tail": 1e-4, "t2_upsample": 0.0,
              "block": 1e-4, "pool_block": 1e-4, "decoder_block": 1e-4}
 
 
+#  B7 (mlp_tail_train): K2's bars for out and for the stored hidden (the same
+#        rounding points as K2: LN2(x), the fp32 fc1 sum rounded once, the
+#        GELU, the output once; a summation order can flip one rounding).
+#  B8 (attention_bwd), each of dq, dk, dv against max|ref| of its own:
+#        fp32 1e-4·max(1, max|ref|) at the ragged shapes of the card tests,
+#        whose gradients are O(1), and 1e-4·max|ref| at the flagship's, whose
+#        gradients are far below 1 (both sides exact fp32 up to summation
+#        order over up to 32768 rows, and an lse from K1's online softmax in
+#        place of the plain version's one-pass softmax); bf16 2**-5 (four
+#        ulps) of the same scale: both sides round p and dl to bf16 before
+#        the products at the same points, but p is rebuilt from K1's lse,
+#        one fp32 ulp from the plain softmax, which can flip a rounding of p
+#        or dl, and the sums run in another order before the output's one
+#        rounding.
+#  B7's backward against autograd of its plain version: the relative norm
+#        ‖Δ‖/‖ref‖ of each gradient. fp32 1e-4: both exact fp32, but a weight
+#        gradient sums up to 262144 rows with cancellation, in another order
+#        on each side (1.1e-5 measured at 1024 rows). bf16 2e-2 for dx and
+#        the weight matrices: the hand-written backward rounds its products'
+#        operands to bf16 (fp32 out) and takes GELU from the stored bf16
+#        hidden, autograd of the plain version rounds the cotangents at its
+#        casts instead; each side is a few bf16 ulps (2**-8) from exact. bf16
+#        1e-1 for the vectors (biases, LN2's weight and bias): each sums a
+#        column over up to 262144 rows and ends far smaller than its terms,
+#        so the two sides' different roundings of the terms show relatively
+#        larger (LN2's bias at d4: 0.025 measured, 0.0037 for its dx).
+B8_BAR = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -5}
+B7_BWD_BAR = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+B7_BWD_VECTOR_BAR = {torch.float32: 1e-4, torch.bfloat16: 1e-1}
+#  The fp32 whole step: loss within 1e-5 relative, each parameter's gradient
+#        within 1e-3 in relative norm (fp32 on both sides, TF32 off; the
+#        kernels sum in other orders over up to 32768 rows), plus 1e-6 of the
+#        whole gradient's norm: the pooled keys' norm biases have an exact
+#        gradient of 0 (the softmax ignores a shift shared by all keys), so
+#        both sides give rounding noise there and their ratio means nothing.
+STEP_LOSS_RTOL, STEP_GRAD_RTOL, STEP_GRAD_FLOOR = 1e-5, 1e-3, 1e-6
+
+
 def bf16_bar(name: str, ref: torch.Tensor) -> float:
     scale = max(1.0, float(ref.float().abs().max()))
     return {"attention": 3e-2 * scale, "mlp_tail": 2.0 ** -6 * scale,
             "t2_upsample": 2.0 ** -7 * scale, "block": 2.0 ** -5 * scale,
-            "pool_block": 2.0 ** -5 * scale, "decoder_block": 2.0 ** -5 * scale}[name]
+            "pool_block": 2.0 ** -5 * scale, "decoder_block": 2.0 ** -5 * scale,
+            "mlp_tail_train": 2.0 ** -6 * scale}[name]
+
+
+def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """‖got − ref‖ / ‖ref‖ in fp32 (0 when both are 0)."""
+    num = float(torch.linalg.vector_norm(got.float() - ref.float()))
+    den = float(torch.linalg.vector_norm(ref.float()))
+    return num / den if den else (0.0 if num == 0 else float("inf"))
 
 
 def _attn_library(q, k, v, scale, mask=None):
@@ -165,6 +229,32 @@ def _decoder_block_cost(q, thw, stride, skip, k, v, scale, *weights):
     return _whole_block_cost(skip.shape[1], q, skip, k, v, weights, 2 * taps * q.shape[-1])
 
 
+def _tail_train_cost(x, ln_w, ln_b, w1, b1, w2, b2, wp, bp, dp):
+    """K2's bytes and operations, plus the stored hidden written once and dp."""
+    nbytes, flops = _tail_cost(x, ln_w, ln_b, w1, b1, w2, b2, wp, bp)
+    m = x.numel() // x.shape[-1]
+    return nbytes + m * w1.shape[0] * x.element_size() + 4 * dp.numel(), flops
+
+
+def _attn_bwd_cost(q, k, v, out, g, scale, lse=None):
+    """Bytes: q, out, g read and dq written (Lq·hd each), k, v read and dk,
+    dv written (Lk·hd each), the lse row read. Operations: the five products
+    q kᵀ, g vᵀ, dl k, dlᵀ q, pᵀ g of 2·Lq·Lk·hd each."""
+    b, n, lq, hd = q.shape
+    lk = k.shape[2]
+    nbytes = q.element_size() * (4 * b * n * lq * hd + 4 * b * n * lk * hd) + 4 * b * n * lq
+    return nbytes, 10 * b * n * lq * lk * hd
+
+
+def _attn_bwd_library(q, k, v, out, g, scale, lse=None):
+    """One backward of ``F.scaled_dot_product_attention`` at the same shapes,
+    its graph built once, ready to time."""
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    with torch.enable_grad():
+        o = F.scaled_dot_product_attention(*leaves, scale=scale)
+    return lambda: torch.autograd.grad(o, leaves, g, retain_graph=True)
+
+
 KERNELS = {
     "attention": dict(
         module=ka, attr="fused_attention", plain=ka.fused_attention_plain,
@@ -204,7 +294,41 @@ KERNELS = {
     ),
 }
 WHOLE_BLOCKS = ("block", "pool_block", "decoder_block")
-WRAPPERS = {name: getattr(k["module"], k["attr"]) for name, k in KERNELS.items()}
+# the training path's kernels; library() builds a callable to time, or None
+TRAIN_KERNELS = {
+    "mlp_tail_train": dict(
+        module=kb, attr="fused_mlp_tail_train", plain=kb.fused_mlp_tail_train_plain,
+        library=None, cost=_tail_train_cost, route="cuda",
+        source="csts_torch/csrc/mlp_tail_train.cu",
+        replaces="csts_tpu/kernels/block.py:1579 (_mlp_tail_train_kernel; pallas_call at :1635)",
+    ),
+    "attention_bwd": dict(
+        module=ka, attr="fused_attention_bwd", plain=ka.fused_attention_bwd_plain,
+        library=_attn_bwd_library, cost=_attn_bwd_cost, route="cuda",
+        source="csts_torch/csrc/attention_bwd.cu",
+        replaces="csts_tpu/kernels/attention.py:205 (_flash_bwd_kernel; pallas_call at :319)",
+    ),
+}
+ALL_KERNELS = {**KERNELS, **TRAIN_KERNELS}
+# recorded beside them: B7's hand-written backward (PyTorch, no kernel of its own)
+RECORDED = {**ALL_KERNELS,
+            "mlp_tail_train_bwd": dict(module=kb, attr="fused_mlp_tail_train_bwd")}
+WRAPPERS = {name: getattr(k["module"], k["attr"]) for name, k in RECORDED.items()}
+# the training route's autograd entries, and autograd of their plain twins
+TRAIN_ENTRIES = (
+    (ka, "attention_train",
+     lambda q, k, v, scale, mask=None: ka.fused_attention_plain(q, k, v, scale, mask)),
+    (kb, "mlp_tail_train", lambda *a: kb.fused_mlp_tail_train_plain(*a)[0]),
+    (kup, "t2_upsample_train", kup.t2_upsample_plain),
+)
+# launches per training step on the flagship: K1 forward and B7 at all 26
+# blocks (16 video, 4 audio, 2 fusion, 4 decoder), B8 at the 25 without a
+# mask (the spatial fusion's backward is the plain recompute), K3 at d4's
+# skip and the stem skip; K2 and B3-B5 are eval only
+PER_STEP = {"attention": 26, "mlp_tail_train": 26, "attention_bwd": 25, "t2_upsample": 2,
+            "mlp_tail": 0, "block": 0, "pool_block": 0, "decoder_block": 0}
+TRAIN_STEPS = 3
+STEPS_PER_EPOCH = 1000  # the lr schedule's epoch is step / STEPS_PER_EPOCH
 CARD = ""  # nvidia-smi's name and power limit, printed beside every time
 
 
@@ -231,17 +355,17 @@ def _clone(args) -> tuple:
 
 @contextlib.contextmanager
 def recording(calls: dict):
-    """Swap each wrapper for one that records a copy of the inputs of the
-    first launch of every distinct signature, as they were at the launch
-    (and counts launches per signature), then launches the real kernel. A
-    whole-block kernel's record also keeps its block and the block's input,
-    for the block's time through the K1+K2 route."""
+    """Swap the wrapper of each name in ``calls`` for one that records a copy
+    of the inputs of the first launch of every distinct signature, as they
+    were at the launch (and counts launches per signature), then launches
+    the real kernel. A whole-block kernel's record also keeps its block and
+    the block's input, for the block's time through the K1+K2 route."""
     block_in: list = []
     block_forward = tmvit.MultiScaleBlock.forward
 
-    def forward(self, x, thw, mask=None):
+    def forward(self, x, thw, mask=None, drop=None):
         block_in[:] = [self, x, thw]
-        return block_forward(self, x, thw, mask)
+        return block_forward(self, x, thw, mask, drop)
 
     def make(name, fn):
         def rec(*args):
@@ -259,13 +383,13 @@ def recording(calls: dict):
         return rec
     try:
         tmvit.MultiScaleBlock.forward = forward
-        for name, k in KERNELS.items():
-            setattr(k["module"], k["attr"], make(name, WRAPPERS[name]))
+        for name in calls:
+            setattr(RECORDED[name]["module"], RECORDED[name]["attr"], make(name, WRAPPERS[name]))
         yield
     finally:
         tmvit.MultiScaleBlock.forward = block_forward
-        for name, k in KERNELS.items():
-            setattr(k["module"], k["attr"], WRAPPERS[name])
+        for name in calls:
+            setattr(RECORDED[name]["module"], RECORDED[name]["attr"], WRAPPERS[name])
 
 
 @contextlib.contextmanager
@@ -278,6 +402,27 @@ def plain_kernels():
     finally:
         for name, k in KERNELS.items():
             setattr(k["module"], k["attr"], WRAPPERS[name])
+
+
+@contextlib.contextmanager
+def train_twins(attrs=tuple(attr for _, attr, _ in TRAIN_ENTRIES)):
+    """The training route's autograd entries named in ``attrs`` replaced by
+    autograd of their plain twins (the reference run)."""
+    saved = {}
+    try:
+        for module, attr, plain in TRAIN_ENTRIES:
+            if attr in attrs:
+                saved[(module, attr)] = getattr(module, attr)
+                setattr(module, attr, plain)
+        yield
+    finally:
+        for (module, attr), fn in saved.items():
+            setattr(module, attr, fn)
+
+
+def reset_launches() -> None:
+    for name in ALL_KERNELS:
+        WRAPPERS[name].launches = 0
 
 
 def time_ms(fn, target_s: float = 0.05) -> float:
@@ -301,6 +446,11 @@ def time_ms(fn, target_s: float = 0.05) -> float:
 # device kernels by family, matched on the kernel name the profiler reports
 FAMILIES = (
     ("K1 attention", ("attn_mma_kernel", "attn_f32_kernel")),
+    ("B8 attention_bwd", ("dq_mma_kernel", "dkdv_mma_kernel", "dq_f32_kernel", "dkdv_f32_kernel",
+                          "namespace)::reduce_kernel<")),
+    # B7 is the TRAIN = true instance of K2's templates
+    ("B7 mlp_tail_train", ("mlp_tail_mma_kernel<3, true", "mlp_tail_mma_kernel<6, true",
+                           "mlp_tail_mma_kernel<12, true", "mlp_tail_f32_kernel<true")),
     ("K2 mlp_tail", ("mlp_tail_mma_kernel", "mlp_tail_f32_kernel")),
     ("K3 t2_upsample", ("t2_upsample_kernel",)),
     ("B3-B5 whole blocks", ("block_mma_kernel", "block_f32_kernel")),
@@ -329,7 +479,8 @@ def profile_forward(fn, fwd_ms: float) -> dict:
     # one entry per device activity (the event list may repeat one), and the
     # busy time as the union of their intervals
     spans = {(e.name, e.time_range.start, e.time_range.end)
-             for e in prof.events() if e.device_type == DeviceType.CUDA}
+             for e in prof.events() if e.device_type == DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False)}
     by_name: dict = {}
     for name, start, end in spans:
         by_name[name] = by_name.get(name, 0.0) + (end - start) / 1e3
@@ -440,6 +591,237 @@ def make_inputs(rng: np.random.Generator, n: int, spec):
     return video, audio
 
 
+def make_train_batch(rng: np.random.Generator, n: int, spec) -> dict:
+    """A training batch on the card: video, audio and per-frame normalised
+    heatmap labels (B, T, crop/4, crop/4)."""
+    video, audio = make_inputs(rng, n, spec)
+    hw = spec.crop_size // 4
+    hm = rng.uniform(0.0, 1.0, (n, spec.num_frames, hw, hw)).astype(np.float32)
+    hm /= hm.sum(axis=(2, 3), keepdims=True)
+    return {name: torch.from_numpy(a).cuda()
+            for name, a in (("video", video), ("audio", audio), ("labels_hm", hm))}
+
+
+def timed_steps(step, state, batch, gen, n: int) -> list:
+    """n training steps, each timed with CUDA events: [(ms, stats as floats)]."""
+    out = []
+    for _ in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        stats, _ = step(state, batch, gen)
+        end.record()
+        torch.cuda.synchronize()
+        out.append((start.elapsed_time(end), {k: float(v) for k, v in stats.items()}))
+    return out
+
+
+def train_path(rng: np.random.Generator) -> dict:
+    """Phase 5: the flagship's training steps through the kernels."""
+    cfg = flagship_train_cfg()
+    spec = build_spec(cfg)
+    bsz = cfg.TRAIN.BATCH_SIZE
+    state = train_lib.create_train_state(cfg, spec, torch.Generator().manual_seed(SEED),
+                                         device="cuda")
+    n_params = sum(p.numel() for p in state.model.parameters())
+    batch = make_train_batch(rng, bsz, spec)
+    step = train_lib.make_train_step(cfg, spec, steps_per_epoch=STEPS_PER_EPOCH)
+    gen = torch.Generator().manual_seed(SEED + 1)
+
+    t0 = time.perf_counter()
+    step(state, batch, gen)
+    torch.cuda.synchronize()
+    log(f"phase train warm-up: flagship {n_params / 1e6:.1f}M fp32 master params, bf16 compute, "
+        f"batch {bsz}, {time.perf_counter() - t0:.2f} s")
+
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    steps = timed_steps(step, state, batch, gen, TRAIN_STEPS)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = {name: WRAPPERS[name].launches for name in ALL_KERNELS}
+    for i, (ms, st) in enumerate(steps):
+        log(f"  step {i}: {ms:.2f} ms, loss {st['loss']:.6g} (kldiv {st['kldiv_loss']:.6g}, "
+            f"egonce {st['egonce_loss']:.6g}), grad_norm {st['grad_norm']:.6g}, lr {st['lr']:.6g}")
+        assert all(np.isfinite(v) for v in st.values()), st
+    step_ms = float(np.median([ms for ms, _ in steps]))
+    log(f"phase train: {TRAIN_STEPS} steps, median {step_ms:.2f} ms/step = {bsz * 1e3 / step_ms:.2f} "
+        f"train clips/s, peak memory {peak_gib:.2f} GiB ({CARD}); launches {launches}")
+    for name, per in PER_STEP.items():
+        need = per * TRAIN_STEPS
+        assert launches[name] == need, f"train {name}: {launches[name]} launches, expected {need}"
+
+    profile = profile_forward(lambda: step(state, batch, gen), step_ms)
+    # the plain attention twin in place of K1 + B8, in turns with the kernels
+    kern, plain = [ms for ms, _ in steps], []
+    for _ in range(3):
+        with train_twins(("attention_train",)):
+            plain += [ms for ms, _ in timed_steps(step, state, batch, gen, 4)[1:]]
+        kern += [ms for ms, _ in timed_steps(step, state, batch, gen, 3)]
+    plain_ms, kern_ms = float(np.median(plain)), float(np.median(kern))
+    log(f"phase train plain attention: median {plain_ms:.2f} ms/step with the plain attention "
+        f"twin ({', '.join(f'{x:.1f}' for x in plain)}) vs {kern_ms:.2f} through K1 + B8 "
+        f"({', '.join(f'{x:.1f}' for x in kern)}), in turns ({CARD})")
+
+    # one more step records the inputs of every B7 forward, B7 backward and B8 call
+    calls = {name: {} for name in ("mlp_tail_train", "mlp_tail_train_bwd", "attention_bwd")}
+    with recording(calls):
+        step(state, batch, gen)
+    torch.cuda.synchronize()
+    log("phase train record: distinct shapes "
+        + ", ".join(f"{n} {len(s)} ({sum(c for c, _, _ in s.values())} calls)"
+                    for n, s in calls.items()))
+    for name, per in (("mlp_tail_train", "mlp_tail_train"), ("mlp_tail_train_bwd", "mlp_tail_train"),
+                      ("attention_bwd", "attention_bwd")):
+        got = sum(c for c, _, _ in calls[name].values())
+        assert got == PER_STEP[per], f"recorded {name}: {got} calls, expected {PER_STEP[per]}"
+    del state, batch
+    torch.cuda.empty_cache()
+    return {"calls": calls, "launches": launches, "step_ms": step_ms, "steps": steps,
+            "clips_per_s": bsz * 1e3 / step_ms, "peak_gib": peak_gib, "profile": profile,
+            "plain_attention_step_ms": plain_ms, "kernel_step_ms_in_turns": kern_ms,
+            "plain_attention_steps_ms": plain, "kernel_steps_ms_in_turns": kern,
+            "params_m": n_params / 1e6}
+
+
+def _tail_bwd_autograd(x, ln_w, ln_b, w1, b1, w2, b2, wp, bp, dp, hid, g):
+    """Autograd of B7's plain version: the gradients of x and each weight
+    (hid is recomputed, not read)."""
+    leaves = [None if t is None else t.detach().requires_grad_()
+              for t in (x, ln_w, ln_b, w1, b1, w2, b2, wp, bp)]
+    with torch.enable_grad():
+        out = kb.fused_mlp_tail_train_plain(*leaves, dp)[0]
+    return torch.autograd.grad(out, [t for t in leaves if t is not None], g)
+
+
+def _tail_bwd_fp32(args):
+    """B7 backward's recorded inputs in fp32, the hidden from the fp32 forward."""
+    args32 = _to_fp32(args)
+    return args32[:10] + (kb.fused_mlp_tail_train_plain(*args32[:10])[1],) + args32[11:]
+
+
+def check_train_kernels(calls: dict) -> dict:
+    """Phase 6a: B7, B8 and B7's backward against their plain versions at
+    every shape the training step recorded, in bf16 as recorded and in fp32."""
+    report = {name: {"shapes": [], "max_abs_err": 0.0, "max_abs_err_fp32": 0.0}
+              for name in TRAIN_KERNELS}
+    report["mlp_tail_train_bwd"] = {"shapes": [], "max_rel_err": 0.0, "max_rel_err_fp32": 0.0}
+    failures = []
+
+    def bar(name, ref, dtype):
+        scale = float(ref.float().abs().max())
+        if name == "attention_bwd":
+            return B8_BAR[dtype] * scale
+        if dtype == torch.float32:
+            return FP32_ATOL["mlp_tail"] + FP32_RTOL["mlp_tail"] * scale
+        return bf16_bar(name, ref)
+
+    for name, k in TRAIN_KERNELS.items():
+        kern, plain = WRAPPERS[name], k["plain"]
+        for sig, (count, args, _) in calls[name].items():
+            row = {"signature": repr(sig), "launches_per_step": count}
+            for tag, a in (("", args), ("_fp32", _to_fp32(args))):
+                with torch.no_grad():
+                    got = kern(*a)
+                    torch.cuda.synchronize()
+                    ref = plain(*a)
+                dtype = a[0].dtype
+                errs = [_max_err(x, y) for x, y in zip(got, ref)]
+                bars = [bar(name, y, dtype) for y in ref]
+                for i, (e, b, x) in enumerate(zip(errs, bars, got)):
+                    if not (e <= b and bool(torch.isfinite(x.float()).all())):
+                        failures.append(f"{name}{tag} {sig} output {i}: max|Δ| {e} > {b}")
+                row[f"max_abs_err{tag}"], row[f"bar{tag}"] = errs, bars
+                report[name][f"max_abs_err{tag}"] = max(report[name][f"max_abs_err{tag}"], *errs)
+                del got, ref
+            nbytes, flops = k["cost"](*args)
+            with torch.no_grad():
+                row.update(ms=time_ms(lambda: kern(*args)), plain_ms=time_ms(lambda: plain(*args)))
+            row["library_ms"] = (time_ms(k["library"](*args)) if k["library"] is not None
+                                 else None)
+            row.update(bytes=nbytes, flops=flops, bytes_ms=nbytes / PEAK_BYTES_S * 1e3,
+                       ops_ms=flops / PEAK_BF16_FLOPS * 1e3)
+            row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+            log(f"  {name} {sig[0]} x{count}: {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, "
+                f"library {row['library_ms']}, bound {row['bound_ms']:.4f} = bytes "
+                f"{row['bytes_ms']:.4f} / ops {row['ops_ms']:.4f}) max|Δ| bf16 "
+                f"{max(row['max_abs_err']):.3g} fp32 {max(row['max_abs_err_fp32']):.3g} ({CARD})")
+            report[name]["shapes"].append(row)
+
+    bwd = report["mlp_tail_train_bwd"]
+    for sig, (count, args, _) in calls["mlp_tail_train_bwd"].items():
+        row = {"signature": repr(sig), "calls_per_step": count}
+        for tag, a in (("", args), ("_fp32", _tail_bwd_fp32(args))):
+            with torch.no_grad():
+                got = [t for t in WRAPPERS["mlp_tail_train_bwd"](*a) if t is not None]
+            ref = _tail_bwd_autograd(*a)
+            errs = [rel_err(x, y) for x, y in zip(got, ref)]
+            limits = [(B7_BWD_VECTOR_BAR if y.dim() == 1 else B7_BWD_BAR)[a[0].dtype] for y in ref]
+            if not (len(got) == len(ref) and all(e <= b for e, b in zip(errs, limits))):
+                failures.append(f"mlp_tail_train_bwd{tag} {sig[0]}: relative errors {errs} "
+                                f"(bars {limits})")
+            row[f"rel_err{tag}"] = errs
+            bwd[f"max_rel_err{tag}"] = max(bwd[f"max_rel_err{tag}"], *errs)
+        with torch.no_grad():
+            row["ms"] = time_ms(lambda: WRAPPERS["mlp_tail_train_bwd"](*args))
+        row["autograd_plain_ms"] = time_ms(lambda: _tail_bwd_autograd(*args))
+        log(f"  mlp_tail_train_bwd {sig[0]} x{count}: {row['ms']:.4f} ms (autograd of the plain "
+            f"version {row['autograd_plain_ms']:.4f}) rel err bf16 {max(row['rel_err']):.3g} "
+            f"fp32 {max(row['rel_err_fp32']):.3g} ({CARD})")
+        bwd["shapes"].append(row)
+    torch.cuda.empty_cache()
+    assert not failures, "training kernels vs plain:\n" + "\n".join(failures)
+    return report
+
+
+def whole_step_check(rng: np.random.Generator) -> dict:
+    """Phase 6b: one fp32 step at batch 2 (TF32 off) through the kernels and
+    through the plain twins, from the same weights, masks and batch: the
+    loss and every parameter's gradient."""
+    cfg = flagship_train_cfg()
+    cfg.TRAIN.MIXED_PRECISION = False
+    cfg.TRAIN.BATCH_SIZE = 2
+    spec = build_spec(cfg)
+    model = CSTS(spec)
+    init_params(model, torch.Generator().manual_seed(SEED))
+    model = model.cuda().train()
+    batch = make_train_batch(rng, 2, spec)
+
+    def loss_and_grads():
+        model.zero_grad(set_to_none=True)
+        drop = sample_drop_masks(spec, 2, torch.Generator().manual_seed(SEED + 2), "cuda")
+        loss, _, _ = train_lib.forward_loss(cfg, model, batch, drop)
+        loss.backward()
+        return float(loss.detach()), {n: p.grad.detach().clone() if p.grad is not None
+                             else torch.zeros_like(p) for n, p in model.named_parameters()}
+
+    reset_launches()
+    loss_k, grads_k = loss_and_grads()
+    ran = {name: WRAPPERS[name].launches for name in ("attention", "mlp_tail_train",
+                                                      "attention_bwd", "t2_upsample")}
+    assert all(ran.values()), f"the fp32 step skipped a kernel: {ran}"
+    with train_twins():
+        loss_p, grads_p = loss_and_grads()
+    norm = lambda t: float(torch.linalg.vector_norm(t.float()))  # noqa: E731
+    total = float(np.sqrt(sum(norm(g) ** 2 for g in grads_p.values())))
+    floor = STEP_GRAD_FLOOR * total
+    # each gradient's error as a share of its bar (fails above 1)
+    share = {n: norm(grads_k[n] - grads_p[n]) / (STEP_GRAD_RTOL * norm(grads_p[n]) + floor)
+             for n in grads_p}
+    rel = {n: rel_err(grads_k[n], grads_p[n]) for n in grads_p if norm(grads_p[n]) > floor}
+    worst = sorted(share.items(), key=lambda kv: -kv[1])[:5]
+    worst_rel = max(rel.values())
+    dloss = abs(loss_k - loss_p) / abs(loss_p)
+    log(f"phase train fp32 step: loss {loss_k:.8g} vs plain {loss_p:.8g} (relative {dloss:.3g}); "
+        f"{len(share)} gradients (whole norm {total:.4g}), worst relative norm {worst_rel:.3g} "
+        f"among the {len(rel)} above the floor; worst shares of the bar "
+        + ", ".join(f"{n} {e:.3g}" for n, e in worst))
+    assert dloss <= STEP_LOSS_RTOL, (loss_k, loss_p)
+    assert worst[0][1] <= 1.0, worst
+    del model, grads_k, grads_p
+    torch.cuda.empty_cache()
+    return {"loss": loss_k, "loss_plain": loss_p, "loss_rel_err": dloss,
+            "grad_norm": total, "grad_rel_err_max": worst_rel, "bar_share_worst": worst}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -465,7 +847,7 @@ def main() -> int:
     cfg = flagship_cfg()
     cfg.TRAIN.MIXED_PRECISION = True
     spec = build_spec(cfg)
-    ref_model = CSTS(spec)
+    ref_model = CSTS(dataclasses.replace(spec, dtype="float32"))  # the fp32 reference
     init_params(ref_model, torch.Generator().manual_seed(SEED))
     state = ref_model.state_dict()
     t0 = time.perf_counter()
@@ -498,8 +880,7 @@ def main() -> int:
     # once untimed: the checks above emptied the allocator's cache
     for video, audio in requests:
         pred.predict(video, audio)
-    for w in WRAPPERS.values():
-        w.launches = 0
+    reset_launches()
     outs, req_s = [], []
     for video, audio in requests:
         t0 = time.perf_counter()
@@ -558,18 +939,39 @@ def main() -> int:
     breakdown = profile_forward(lambda: pred.forward(v, a), fwd_ms)
     log(f"phase timing: forward batch 8 bf16 {fwd_ms:.2f} ms = {8e3 / fwd_ms:.2f} clips/s, "
         f"peak memory {peak_gib:.2f} GiB ({card})")
+    del pred, v, a
+    torch.cuda.empty_cache()
+
+    # --- phase 5: the training path ------------------------------------------
+    t0 = time.perf_counter()
+    train = train_path(rng)
+    log(f"phase train total: {time.perf_counter() - t0:.2f} s")
+
+    # --- phase 6: training kernels against their plain versions --------------
+    t0 = time.perf_counter()
+    train_report = check_train_kernels(train.pop("calls"))
+    whole_step = whole_step_check(rng)
+    log(f"phase train checks: {time.perf_counter() - t0:.2f} s")
 
     kernels = []
-    for name, k in KERNELS.items():
-        rows = [r for r in report[name]["shapes"] if "ms" in r]
-        per = lambda key: sum(r[key] * r["launches_per_forward"] for r in rows)  # noqa: E731
-        lib = (None if k["library"] is None else per("library_ms"))
+    for name, k in ALL_KERNELS.items():
+        if name in KERNELS:
+            rows = [r for r in report[name]["shapes"] if "ms" in r]
+            count, path, n = "launches_per_forward", "serve", launches[name]
+            err = report[name]["max_abs_err"]
+        else:
+            rows = train_report[name]["shapes"]
+            count, path, n = "launches_per_step", "train", train["launches"][name]
+            err = train_report[name]["max_abs_err"]
+        per = lambda key: sum(r[key] * r[count] for r in rows)  # noqa: E731
         kernels.append({
             "name": name, "route": k["route"], "source": k["source"], "replaces": k["replaces"],
-            "launches": launches[name], "max_abs_err": report[name]["max_abs_err"],
+            "launches": n, "max_abs_err": err,
             "ms": per("ms"), "plain_ms": per("plain_ms"), "bound_ms": per("bound_ms"),
             "bound_by": "bytes" if per("bytes_ms") >= per("ops_ms") else "operations",
-            "library_ms": lib,
+            "library_ms": None if k["library"] is None else per("library_ms"),
+            # ms and the bound per forward (serve) or per training step (train)
+            "path": path, "launches_train": train["launches"][name],
             # the whole blocks, phase 1 included, through this kernel and
             # through the K1+K2 route (whole-block kernels only)
             "block_ms": per("block_ms") if name in WHOLE_BLOCKS else None,
@@ -581,7 +983,9 @@ def main() -> int:
                    "forward_ms_batch8": fwd_ms, "clips_per_s_batch8": 8e3 / fwd_ms,
                    "request_s": dict(zip(map(str, REQUESTS), req_s)),
                    "peak_gib": peak_gib, "logits_max_abs_diff": dlogit,
-                   "softmax_max_abs_diff": dsm, "profile": breakdown}, f, indent=1)
+                   "softmax_max_abs_diff": dsm, "profile": breakdown,
+                   "train": train, "train_per_shape": train_report,
+                   "train_fp32_step": whole_step}, f, indent=1, default=str)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -29,6 +29,11 @@
 // strides, so the caller passes head views of the fused qkv projection and
 // receives the output already in token-major (B, Lq, heads·hd) order.
 //
+// In training the caller also passes an fp32 row of log-sum-exp values, one
+// per query row (lse = m + log l of the online softmax), which the backward
+// kernel B8 (attention_bwd.cu) reads to rebuild the normalised probabilities
+// in one pass over the keys; at eval it passes none.
+//
 // fp32 inputs (the exactness check against the plain version) take a simple
 // body: the same online softmax with exact FMA products in shared memory.
 #include "common.cuh"
@@ -43,6 +48,7 @@ struct AttnArgs {
   const void* v;
   const float* mask;
   void* out;
+  float* lse;  // (B·N, Lq) or null
   int N, Lq, Lk, hd;
   long long qsb, qsn, qsr, ksb, ksn, ksr, vsb, vsn, vsr, osb, osn, osr;
   float scale;
@@ -210,6 +216,9 @@ __global__ void __launch_bounds__(kThreads) attn_mma_kernel(AttnArgs a) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (qr[h] >= a.Lq) continue;
+    // the four lanes of a quad hold the same row statistics
+    if (a.lse != nullptr && t4 == 0)
+      a.lse[(long long)blockIdx.y * a.Lq + qr[h]] = m_run[h] + logf(l_run[h]);
     const float inv = 1.f / l_run[h];
     bf16* orow = ob + qr[h] * a.osr;
 #pragma unroll
@@ -329,6 +338,9 @@ __global__ void __launch_bounds__(kThreads) attn_f32_kernel(AttnArgs a) {
     const int r = idx / hd, d = idx - r * hd, row = q0 + r;
     if (row < a.Lq) ob[row * a.osr + d] = O[idx] / Lrow[r];
   }
+  if (a.lse != nullptr)
+    for (int r = tid; r < BQ; r += kThreads)
+      if (q0 + r < a.Lq) a.lse[(long long)blockIdx.y * a.Lq + q0 + r] = Mrow[r] + logf(Lrow[r]);
 }
 
 cudaError_t launch_f32(const AttnArgs& a, int B, cudaStream_t stream) {
@@ -346,13 +358,15 @@ cudaError_t launch_f32(const AttnArgs& a, int B, cudaStream_t stream) {
 }  // namespace
 
 extern "C" int csts_attention_fwd(int dtype, const void* q, const void* k, const void* v,
-                                  const void* mask, void* out, int B, int N, int Lq, int Lk,
+                                  const void* mask, void* out, void* lse, int B, int N, int Lq,
+                                  int Lk,
                                   int hd, long long qsb, long long qsn, long long qsr,
                                   long long ksb, long long ksn, long long ksr, long long vsb,
                                   long long vsn, long long vsr, long long osb, long long osn,
                                   long long osr, float scale, void* stream) {
-  AttnArgs a{q,   k,   v,   static_cast<const float*>(mask), out, N, Lq, Lk, hd,
-             qsb, qsn, qsr, ksb, ksn, ksr, vsb, vsn, vsr, osb, osn, osr, scale};
+  AttnArgs a{q,   k,   v,   static_cast<const float*>(mask), out, static_cast<float*>(lse),
+             N,   Lq,  Lk,  hd, qsb, qsn, qsr, ksb, ksn, ksr, vsb, vsn, vsr, osb, osn, osr,
+             scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32) return launch_f32(a, B, s);
   if (dtype != kBFloat16) return cudaErrorInvalidValue;

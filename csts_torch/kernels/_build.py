@@ -35,11 +35,20 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 # library -> {C function: argument types}
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "attention": {
-        "csts_attention_fwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I]
-        + [_LL] * 12 + [_F, _P],
+        # dtype, q, k, v, mask, out, lse, B, N, Lq, Lk, hd, 12 strides, scale, stream
+        "csts_attention_fwd": [_I] + [_P] * 6 + [_I] * 5 + [_LL] * 12 + [_F, _P],
+    },
+    "attention_bwd": {
+        # dtype, q, k, v, o, g, lse, delta, dq, dk, dv, ws, max_chunks, B, N, Lq, Lk,
+        # hd, 18 strides (q, k, v, o, g, dq), scale, stream
+        "csts_attention_bwd": [_I] + [_P] * 11 + [_I] * 6 + [_LL] * 18 + [_F, _P],
     },
     "mlp_tail": {
         "csts_mlp_tail": [_I] + [_P] * 10 + [_I, _I, _I, _I, _F, _P],
+    },
+    "mlp_tail_train": {
+        # dtype, x, 8 weights, dp, out, hid, M, L, C, H, Cout, eps, stream
+        "csts_mlp_tail_train": [_I] + [_P] * 12 + [_I] * 5 + [_F, _P],
     },
     "upsample": {
         "csts_t2_upsample": [_I, _P, _P, _I, _I, _LL, _P],
@@ -127,15 +136,20 @@ def dtype_code(t: torch.Tensor) -> int:
 
 
 def check_cuda_inputs(name: str, *tensors: torch.Tensor) -> None:
-    """Same CUDA device and dtype for all inputs, and inference only: the
-    backward kernels come with training, so an input that wants a gradient is
-    refused rather than silently cut from the graph."""
+    """Same CUDA device and dtype for all inputs, and no input that wants a
+    gradient: a wrapper launches its kernel outside autograd, so such an
+    input would be cut from the graph silently. A kernel enters a training
+    graph only through its ``torch.autograd.Function`` (``attention_train``,
+    ``mlp_tail_train``, ``t2_upsample_train``), whose forward and backward
+    run with grad mode off."""
     first = tensors[0]
     for t in tensors:
         if t.device != first.device or t.dtype != first.dtype:
             raise ValueError(f"{name}: inputs must share one CUDA device and dtype")
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(f"{name}: the CUDA kernel is forward-only (inference)")
+        raise RuntimeError(
+            f"{name}: the CUDA kernel is forward-only outside its autograd Function; "
+            "train through the *_train entry of its module")
 
 
 def stream_ptr(t: torch.Tensor) -> int:

@@ -3,6 +3,12 @@
 * K2 :func:`fused_mlp_tail` (``_mlp_tail_kernel``): the MLP tail of an MViT
   block, LN2 → fc1 → GELU → fc2, plus the base (``proj(LN2(x))`` when
   dim ≠ dim_out, else x); ``csrc/mlp_tail.cu``.
+* B7 :func:`fused_mlp_tail_train` (``_mlp_tail_train_kernel``): K2 in
+  training, with the per-sample stochastic-depth factor on the MLP branch
+  and the pre-GELU hidden stored; ``csrc/mlp_tail_train.cu``. Its backward,
+  :func:`fused_mlp_tail_train_bwd`, is written by hand in PyTorch (the JAX
+  package's is XLA outside any kernel), and :func:`mlp_tail_train` puts the
+  two behind one autograd Function.
 * B3 :func:`fused_block` (``_block_kernel``): a whole identity-skip block
   from x and the pooled K/V; ``csrc/block.cu``.
 * B4 :func:`fused_pool_block` (``_pool_block_kernel``): a whole Q-pool block
@@ -20,7 +26,7 @@ Weights are in ``nn.Linear`` / ``nn.Conv3d`` layout.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -68,6 +74,33 @@ def fused_mlp_tail_plain(
                        proj_w, proj_b)
 
 
+def _tail_launch_args(name, x, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, proj_w, proj_b):
+    """K2's and B7's input checks: one CUDA device and dtype, widths that fit
+    and are multiples of 16. Returns x as (M, C) rows, the weights (proj's
+    last when present), each contiguous on a 16-byte boundary (the kernels
+    copy 16-byte pieces of the rows with cp.async), and (hidden, dim_out)."""
+    if (proj_w is None) != (proj_b is None):
+        raise ValueError(f"{name}: proj weight and bias go together")
+    params = [ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b]
+    if proj_w is not None:
+        params += [proj_w, proj_b]
+    _build.check_cuda_inputs(name, x, *params)
+    c = x.shape[-1]
+    hidden, cout = fc1_w.shape[0], fc2_w.shape[0]
+    if fc1_w.shape != (hidden, c) or fc2_w.shape != (cout, hidden):
+        raise ValueError(f"{name}: fc1 {tuple(fc1_w.shape)} / fc2 "
+                         f"{tuple(fc2_w.shape)} do not fit width {c}")
+    if proj_w is None and cout != c:
+        raise ValueError(f"{name}: dim != dim_out needs the proj weights")
+    if proj_w is not None and proj_w.shape != (cout, c):
+        raise ValueError(f"{name}: proj {tuple(proj_w.shape)} is not ({cout}, {c})")
+    if c % 16 or hidden % 16 or cout % 16:
+        raise ValueError(f"{name}: widths {c}/{hidden}/{cout} must be multiples of 16")
+    x2, *params = (t if t.data_ptr() % 16 == 0 else t.clone()
+                   for t in (x.reshape(-1, c).contiguous(), *(p.contiguous() for p in params)))
+    return x2, params, (hidden, cout)
+
+
 def fused_mlp_tail(
     x: torch.Tensor,
     ln_w: torch.Tensor, ln_b: torch.Tensor,
@@ -80,26 +113,9 @@ def fused_mlp_tail(
         return fused_mlp_tail_plain(x, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, proj_w, proj_b)
     if x.device.type != "cuda":
         raise ValueError(f"fused_mlp_tail: unsupported device {x.device}")
-    if (proj_w is None) != (proj_b is None):
-        raise ValueError("fused_mlp_tail: proj weight and bias go together")
-    params = [ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b]
-    if proj_w is not None:
-        params += [proj_w, proj_b]
-    _build.check_cuda_inputs("fused_mlp_tail", x, *params)
+    x2, params, (hidden, cout) = _tail_launch_args("fused_mlp_tail", x, ln_w, ln_b, fc1_w, fc1_b,
+                                                   fc2_w, fc2_b, proj_w, proj_b)
     *lead, c = x.shape
-    hidden, cout = fc1_w.shape[0], fc2_w.shape[0]
-    if fc1_w.shape != (hidden, c) or fc2_w.shape != (cout, hidden):
-        raise ValueError(f"fused_mlp_tail: fc1 {tuple(fc1_w.shape)} / fc2 "
-                         f"{tuple(fc2_w.shape)} do not fit width {c}")
-    if proj_w is None and cout != c:
-        raise ValueError("fused_mlp_tail: dim != dim_out needs the proj weights")
-    if proj_w is not None and proj_w.shape != (cout, c):
-        raise ValueError(f"fused_mlp_tail: proj {tuple(proj_w.shape)} is not ({cout}, {c})")
-    if c % 16 or hidden % 16 or cout % 16:
-        raise ValueError(f"fused_mlp_tail: widths {c}/{hidden}/{cout} must be multiples of 16")
-    # the kernel copies 16-byte pieces of the rows (cp.async)
-    x2, *params = (t if t.data_ptr() % 16 == 0 else t.clone()
-                   for t in (x.reshape(-1, c).contiguous(), *(p.contiguous() for p in params)))
     m = x2.shape[0]
     wp, bp = (params[6], params[7]) if proj_w is not None else (None, None)
     out = torch.empty((m, cout), dtype=x.dtype, device=x.device)
@@ -117,6 +133,178 @@ def fused_mlp_tail(
 
 
 fused_mlp_tail.launches = 0
+
+
+# ----------------------------------------------------------------------------------
+# B7: the training tail. Forward kernel plus stored pre-GELU hidden; backward by
+# hand from (x, hidden), a port of ``_tail_train_bwd`` (block.py:1672-1755).
+# ----------------------------------------------------------------------------------
+
+
+def _dp_rows(dp: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The per-sample factor (B,) as fp32 broadcastable over x (B, L, C)."""
+    return dp.float().reshape(-1, *([1] * (x.dim() - 1)))
+
+
+def fused_mlp_tail_train_plain(
+    x: torch.Tensor,
+    ln_w: torch.Tensor, ln_b: torch.Tensor,
+    fc1_w: torch.Tensor, fc1_b: torch.Tensor,
+    fc2_w: torch.Tensor, fc2_b: torch.Tensor,
+    proj_w: Optional[torch.Tensor], proj_b: Optional[torch.Tensor],
+    dp: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of B7 with the kernel's rounding points (K2's,
+    see :func:`fused_mlp_tail_plain`): returns (out, hid_pre) with out =
+    base + dp·mlp rounded once, dp the fp32 per-sample factor (B,), and
+    hid_pre = fc1(LN2(x)) + bias rounded to x's dtype."""
+    dt = x.dtype
+    x32 = x.float()
+    xn = _layer_norm32(x32, ln_w, ln_b, LN_EPS).to(dt).float()
+    hid_pre = torch.matmul(xn, fc1_w.float().t()) + fc1_b.float()
+    hid = gelu(hid_pre).to(dt).float()
+    mlp = torch.matmul(hid, fc2_w.float().t()) + fc2_b.float()
+    if proj_w is not None:
+        base = torch.matmul(xn, proj_w.float().t()) + proj_b.float()
+    else:
+        base = x32
+    return (base + _dp_rows(dp, x) * mlp).to(dt), hid_pre.to(dt)
+
+
+def fused_mlp_tail_train(
+    x: torch.Tensor,
+    ln_w: torch.Tensor, ln_b: torch.Tensor,
+    fc1_w: torch.Tensor, fc1_b: torch.Tensor,
+    fc2_w: torch.Tensor, fc2_b: torch.Tensor,
+    proj_w: Optional[torch.Tensor], proj_b: Optional[torch.Tensor],
+    dp: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B7 forward. x: (B, L, C) residual-complete attention output; dp: fp32
+    (B,) stochastic-depth factor of the MLP branch. Returns (out (B, L,
+    dim_out), hid_pre (B, L, hidden)), both in x's dtype."""
+    if x.device.type == "cpu":
+        return fused_mlp_tail_train_plain(x, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b,
+                                          proj_w, proj_b, dp)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_mlp_tail_train: unsupported device {x.device}")
+    if x.dim() != 3:
+        raise ValueError(f"fused_mlp_tail_train: x {tuple(x.shape)} is not (B, L, C)")
+    b, l, c = x.shape
+    if dp.shape != (b,) or dp.dtype != torch.float32 or dp.device != x.device:
+        raise ValueError(f"fused_mlp_tail_train: dp must be fp32 ({b},) on x's device")
+    x2, params, (hidden, cout) = _tail_launch_args("fused_mlp_tail_train", x, ln_w, ln_b, fc1_w,
+                                                   fc1_b, fc2_w, fc2_b, proj_w, proj_b)
+    m = x2.shape[0]
+    wp, bp = (params[6], params[7]) if proj_w is not None else (None, None)
+    dp = dp.detach().contiguous()
+    out = torch.empty((m, cout), dtype=x.dtype, device=x.device)
+    hid = torch.empty((m, hidden), dtype=x.dtype, device=x.device)
+    fn = _build.function("mlp_tail_train", "csts_mlp_tail_train")
+    err = fn(
+        _build.dtype_code(x), x2.data_ptr(),
+        *(t.data_ptr() for t in params[:6]),
+        wp.data_ptr() if wp is not None else None,
+        bp.data_ptr() if bp is not None else None,
+        dp.data_ptr(), out.data_ptr(), hid.data_ptr(), m, l, c, hidden, cout, LN_EPS,
+        _build.stream_ptr(x),
+    )
+    _build.check_launch("fused_mlp_tail_train", err)
+    fused_mlp_tail_train.launches += 1
+    return out.reshape(b, l, cout), hid.reshape(b, l, hidden)
+
+
+fused_mlp_tail_train.launches = 0
+
+
+def fused_mlp_tail_train_bwd(
+    x: torch.Tensor,
+    ln_w: torch.Tensor, ln_b: torch.Tensor,
+    fc1_w: torch.Tensor, fc1_b: torch.Tensor,
+    fc2_w: torch.Tensor, fc2_b: torch.Tensor,
+    proj_w: Optional[torch.Tensor], proj_b: Optional[torch.Tensor],
+    dp: torch.Tensor, hid_pre: torch.Tensor, g: torch.Tensor,
+) -> tuple:
+    """B7's hand-written backward from the stored (x, hid_pre) and the output
+    gradient g, the same code on both devices, a port of ``_tail_train_bwd``.
+    LN2's statistics are recomputed from x in fp32 (``native_layer_norm``),
+    GELU and its derivative Φ(z)+z·φ(z) (``gelu_backward``) from the rounded
+    hid_pre. The MLP branch takes gm = g·dp, the proj branch and the
+    identity skip take g. Products take operands rounded to x's dtype and
+    return fp32, as the JAX package's (``preferred_element_type``): a bf16
+    product out in bf16 would round the rows that LN2's and the biases'
+    gradients then sum over 262144 rows at d4. Sums over rows and LN2's
+    backward (``native_layer_norm_backward``) are fp32. Returns dx in x's
+    dtype, then the gradients of ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b,
+    proj_w, proj_b in each weight's own dtype and ``nn.Linear`` layout (None
+    for an absent proj)."""
+    dt = x.dtype
+    c = x.shape[-1]
+    hidden, cout = fc1_w.shape[0], fc2_w.shape[0]
+
+    def mm(a, b_):
+        a, b_ = a.to(dt), b_.to(dt)
+        if dt == torch.float32 or a.device.type != "cuda":
+            return torch.matmul(a.float(), b_.float())
+        return torch.mm(a, b_, out_dtype=torch.float32)  # tensor cores, fp32 out
+
+    x32 = x.reshape(-1, c).float()
+    w32, b32 = ln_w.float(), ln_b.float()
+    xn2, mean, rstd = torch.native_layer_norm(x32, (c,), w32, b32, LN_EPS)
+    z = hid_pre.reshape(-1, hidden)
+    g32 = g.reshape(-1, cout).float()
+    gm = (g.float() * _dp_rows(dp, g)).reshape(-1, cout)  # the MLP branch is dp-scaled
+
+    d_fc2_w = mm(gm.t(), gelu(z))  # GELU in fp32, rounded to x's dtype for the product
+    d_fc2_b = gm.sum(dim=0)
+    dz = torch.ops.aten.gelu_backward(mm(gm, fc2_w), z.float(), approximate="none")
+    d_fc1_w = mm(dz.t(), xn2)
+    d_fc1_b = dz.sum(dim=0)
+    dxn2 = mm(dz, fc1_w)
+    d_proj_w = d_proj_b = None
+    if proj_w is not None:
+        # the dim-change proj reads LN2(x) and is not dp-scaled
+        d_proj_w = mm(g32.t(), xn2)
+        d_proj_b = g32.sum(dim=0)
+        dxn2 = dxn2 + mm(g32, proj_w)
+    dx, d_ln_w, d_ln_b = torch.ops.aten.native_layer_norm_backward(
+        dxn2, x32, (c,), mean, rstd, w32, b32, [True, True, True])
+    if proj_w is None:
+        dx = dx + g32
+    cast = lambda t, like: None if t is None else t.to(like.dtype)  # noqa: E731
+    return (dx.to(dt).reshape(x.shape), cast(d_ln_w, ln_w), cast(d_ln_b, ln_b),
+            cast(d_fc1_w, fc1_w), cast(d_fc1_b, fc1_b), cast(d_fc2_w, fc2_w),
+            cast(d_fc2_b, fc2_b), cast(d_proj_w, proj_w), cast(d_proj_b, proj_b))
+
+
+class MlpTailTrain(torch.autograd.Function):
+    """B7 forward (:func:`fused_mlp_tail_train`, the weights cast to x's
+    dtype for the kernel), :func:`fused_mlp_tail_train_bwd` backward. The
+    weights' gradients come back in their own dtype, so fp32 master weights
+    get fp32 gradients, as in the JAX package; dp gets none."""
+
+    @staticmethod
+    def forward(ctx, x, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, proj_w, proj_b, dp):
+        weights = (ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, proj_w, proj_b)
+        cast = [None if w is None else w.to(x.dtype) for w in weights]
+        out, hid = fused_mlp_tail_train(x, *cast, dp)
+        ctx.save_for_backward(x, *weights, dp, hid)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*fused_mlp_tail_train_bwd(*ctx.saved_tensors, g), None)
+
+
+def mlp_tail_train(
+    x: torch.Tensor,
+    ln_w: torch.Tensor, ln_b: torch.Tensor,
+    fc1_w: torch.Tensor, fc1_b: torch.Tensor,
+    fc2_w: torch.Tensor, fc2_b: torch.Tensor,
+    proj_w: Optional[torch.Tensor], proj_b: Optional[torch.Tensor],
+    dp: torch.Tensor,
+) -> torch.Tensor:
+    """B7 inside autograd (see :class:`MlpTailTrain`). Returns (B, L, dim_out)."""
+    return MlpTailTrain.apply(x, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, proj_w, proj_b, dp)
 
 
 # ----------------------------------------------------------------------------------

@@ -5,6 +5,11 @@ without its 128-lane padding). It serves d4's stride-(2,1,1) skip and the
 stem-skip T-resize at the head. On a CUDA tensor :func:`t2_upsample`
 launches ``csrc/upsample.cu``; on a CPU tensor it runs
 :func:`t2_upsample_plain`.
+
+Training goes through :func:`t2_upsample_train` (the autograd Function
+:class:`T2Upsample`): K3 forward, and backward the adjoint of the
+interpolation in plain PyTorch (:func:`t2_upsample_adjoint`); the JAX
+package has no backward kernel for it (its resize's gradient is XLA's).
 """
 
 from __future__ import annotations
@@ -50,3 +55,40 @@ def t2_upsample(x: torch.Tensor, thw: Sequence[int]) -> torch.Tensor:
 
 
 t2_upsample.launches = 0
+
+
+def t2_upsample_adjoint(g: torch.Tensor, thw: Sequence[int]) -> torch.Tensor:
+    """The gradient of :func:`t2_upsample` for the output gradient g
+    (B, 2T·H·W, C): each output plane's taps folded back onto its source
+    planes, 0.75 on plane m from outputs 2m and 2m+1, 0.25 on plane m-1 from
+    output 2m and on plane m+1 from output 2m+1, clamped at the edges (the
+    edge copies are the clamped taps summed). fp32, one rounding to g's
+    dtype. Returns (B, T·H·W, C)."""
+    b, l2, c = g.shape
+    t = int(thw[0])
+    gg = g.reshape(b, t, 2, l2 // (2 * t) * c).float()
+    even, odd = gg[:, :, 0], gg[:, :, 1]
+    gx = 0.75 * (even + odd)
+    gx[:, :-1] += 0.25 * even[:, 1:]
+    gx[:, 0] += 0.25 * even[:, 0]
+    gx[:, 1:] += 0.25 * odd[:, :-1]
+    gx[:, -1] += 0.25 * odd[:, -1]
+    return gx.reshape(b, l2 // 2, c).to(g.dtype)
+
+
+class T2Upsample(torch.autograd.Function):
+    """K3 forward, its plain adjoint backward, on both devices."""
+
+    @staticmethod
+    def forward(ctx, x, thw):
+        ctx.thw = tuple(int(s) for s in thw)
+        return t2_upsample(x, thw)
+
+    @staticmethod
+    def backward(ctx, g):
+        return t2_upsample_adjoint(g, ctx.thw), None
+
+
+def t2_upsample_train(x: torch.Tensor, thw: Sequence[int]) -> torch.Tensor:
+    """:func:`t2_upsample` inside autograd (see :class:`T2Upsample`)."""
+    return T2Upsample.apply(x, thw)

@@ -3,8 +3,10 @@
 Dual-branch MViT encoder (16-block video / 4-block audio), correlation-based
 spatial + temporal audio-visual fusion, and a 4-block decoder emitting per-frame
 gaze heatmap logits ``(B, T_out, 64, 64, 1)`` (channels-last, as the JAX
-package). Inference only: the forward is the JAX ``csts_apply`` at
-``deterministic=True`` with ``return_embed``.
+package). The forward is the JAX ``csts_apply`` with ``return_embed``: at
+``deterministic=True`` in eval mode, and at ``deterministic=False`` in
+training mode, with the stochastic-depth masks passed in (``drop``) and every
+block on its training route (``mvit.MultiScaleBlock.forward_train``).
 
 The stem-skip head uses the classify-first side of the exact
 classifier/resize commute (the JAX default, ``HEAD_COMMUTE``): the 1x1x1
@@ -386,12 +388,18 @@ class CSTS(nn.Module):
             return spatial.repeat(1, t, 1) + temporal.repeat_interleave(h * w, dim=1)
         return self.pos_embed_audio if audio else self.pos_embed
 
-    def forward(self, video: torch.Tensor, audio: torch.Tensor, return_embed: bool = False):
+    def forward(self, video: torch.Tensor, audio: torch.Tensor, return_embed: bool = False,
+                drop=None):
         """video: (B, T, H, W, 3) frames (float, or raw uint8 normalised here);
-        audio: (B, T, F, S, 1) log-STFT slices. Returns logits (B, T_out, H',
-        W', 1), and with ``return_embed`` also the NCE embeddings."""
+        audio: (B, T, F, S, 1) log-STFT slices; drop: in training, one entry
+        per video block from ``ops.sample_drop_masks`` (None: no stochastic
+        depth). Activations run in ``spec.compute_dtype`` whatever the
+        weights' dtype, as the JAX ``csts_apply``. Returns logits (B, T_out,
+        H', W', 1), and with ``return_embed`` also the NCE embeddings."""
         spec = self.spec
-        cdt = self.classifier.weight.dtype
+        cdt = spec.compute_dtype
+        if drop is None:
+            drop = [None] * len(self.blocks)
         if not video.is_floating_point():
             mean = torch.tensor(spec.data_mean, dtype=cdt, device=video.device)
             std = torch.tensor(spec.data_std, dtype=cdt, device=video.device)
@@ -410,7 +418,7 @@ class CSTS(nn.Module):
         groups = list(zip(spec.video_groups, spec.audio_groups))
         for gi, ((vs, ve), (as_, ae)) in enumerate(groups):
             for i in range(vs, ve):
-                x, thw = self.blocks[i](x, thw)
+                x, thw = self.blocks[i](x, thw, drop=drop[i])
             if gi < len(groups) - 1:
                 inter_feat.append((x, thw))
             for i in range(as_, ae):
@@ -452,7 +460,8 @@ class CSTS(nn.Module):
         logits = _conv(self.classifier, feat.reshape(b, *thw, -1))
         w = self.classifier.weight.reshape(1, -1).to(stem_feat.dtype)
         stem_cls = ops.linear(stem_feat, w)  # (B, L_stem, 1), no bias
-        logits = logits + kup.t2_upsample(stem_cls, stem_thw).reshape(logits.shape)
+        t2 = kup.t2_upsample_train if self.training else kup.t2_upsample
+        logits = logits + t2(stem_cls, stem_thw).reshape(logits.shape)
 
         if not return_embed:
             return logits

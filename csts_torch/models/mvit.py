@@ -6,15 +6,21 @@ the reference PyTorch model (``slowfast/models/attention.py``), so the
 released ``.pyth`` weights and :func:`csts_torch.convert.from_jax.state_dict_from_jax`
 load with ``strict=True``.
 
-A block dispatches as the JAX package's ``multiscale_block_apply`` does
-(``csts_tpu/models/mvit.py:640-703``): an identity-skip block with at most
-two heads runs whole in B3 (``kb.fused_block``), an upsample-Q decoder block
-in B5 (``kb.fused_decoder_block``), a Q-pool block in B4
+At eval a block dispatches as the JAX package's ``multiscale_block_apply``
+does (``csts_tpu/models/mvit.py:640-703``): an identity-skip block with at
+most two heads runs whole in B3 (``kb.fused_block``), an upsample-Q decoder
+block in B5 (``kb.fused_decoder_block``), a Q-pool block in B4
 (``kb.fused_pool_block``); every other block runs LN1 → qkv → pooling convs →
 attention core (K1) → proj → skip → MLP tail (K2). The decoder's
-stride-(2,1,1) skip is K3. The kernels are called through their modules
+stride-(2,1,1) skip is K3. In training (``module.train()``) every block takes
+the composite route, as the JAX predicates force when not deterministic: K1
+forward with B8 backward (``ka.attention_train``), the skip plus the
+stochastic-depth attention branch, and the B7 tail (``kb.mlp_tail_train``)
+with the MLP branch's mask as its per-sample factor; K3 through
+``kup.t2_upsample_train``. The kernels are called through their modules
 (``ka.fused_attention`` ...) so a check can swap in the plain versions on the
-card. The dispatch depends on the model only, never on the device.
+card. The dispatch depends on the model and its mode only, never on the
+device.
 """
 
 from __future__ import annotations
@@ -168,14 +174,16 @@ def pool_tokens_max(x: torch.Tensor, thw: THW, kernel, stride, padding) -> Tuple
     return pooled.reshape(b, -1, c), new_thw
 
 
-def upsample_tokens_trilinear(x: torch.Tensor, thw: THW, stride) -> Tuple[torch.Tensor, THW]:
+def upsample_tokens_trilinear(x: torch.Tensor, thw: THW, stride,
+                              train: bool = False) -> Tuple[torch.Tensor, THW]:
     """nn.Upsample(scale_factor=stride, trilinear) on tokens (attention.py:463-467).
-    The stride-(2,1,1) case is K3; the others go to the plain resize op."""
+    The stride-(2,1,1) case is K3 (inside autograd when ``train``); the
+    others go to the plain resize op."""
     b, l, c = x.shape
     t, h, w = thw
     size = (t * stride[0], h * stride[1], w * stride[2])
     if tuple(stride) == (2, 1, 1):
-        return kup.t2_upsample(x, thw), size
+        return (kup.t2_upsample_train if train else kup.t2_upsample)(x, thw), size
     up = ops.trilinear_resize(x.reshape(b, t, h, w, c), size)
     return up.reshape(b, -1, c), size
 
@@ -343,7 +351,8 @@ class MultiScaleAttention(nn.Module):
                                        output_padding=s.output_padding_q)
             else:
                 q, q_thw = _pool_heads(q, self.pool_q, self.norm_q, thw, s.stride_q, s.padding_q)
-        out = ka.fused_attention(q, k, v, s.scale, mask)
+        attend = ka.attention_train if self.training else ka.fused_attention
+        out = attend(q, k, v, s.scale, mask)
         out = out.transpose(1, 2).reshape(b, out.shape[2], s.dim)
         return ops.linear(out, self.proj.weight, self.proj.bias), q_thw
 
@@ -364,7 +373,8 @@ class MultiScaleBlock(nn.Module):
     * when dim != dim_out the second residual is ``proj(norm2(x))``
       (attention.py:243-247) — K2's base;
     * fusion blocks pass stride_q=() so both skip transforms are identity.
-    Inference only: stochastic depth is the identity at eval.
+    Stochastic depth is the identity at eval; in training the caller passes
+    the block's masks (``ops.sample_drop_masks``).
     """
 
     def __init__(self, spec: AttentionSpec):
@@ -377,60 +387,95 @@ class MultiScaleBlock(nn.Module):
         if spec.dim != spec.dim_out:
             self.proj = nn.Linear(spec.dim, spec.dim_out)
 
-    def _tail_weights(self) -> tuple:
+    def _tail_weights(self, dtype: Optional[torch.dtype] = None) -> tuple:
         """wproj, bproj, then K2's weights: LN2, fc1, fc2 and the dim-change
-        proj (None, None when dim == dim_out)."""
+        proj (None, None when dim == dim_out); cast to ``dtype`` if given."""
         proj = getattr(self, "proj", None)
-        return (
+        ws = (
             self.attn.proj.weight, self.attn.proj.bias, self.norm2.weight, self.norm2.bias,
             self.mlp.fc1.weight, self.mlp.fc1.bias, self.mlp.fc2.weight, self.mlp.fc2.bias,
             proj.weight if proj is not None else None, proj.bias if proj is not None else None,
         )
+        return ws if dtype is None else tuple(None if w is None else w.to(dtype) for w in ws)
 
     def forward(
-        self, x: torch.Tensor, thw: THW, mask: Optional[torch.Tensor] = None
+        self, x: torch.Tensor, thw: THW, mask: Optional[torch.Tensor] = None,
+        drop: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     ) -> Tuple[torch.Tensor, THW]:
+        """x: (B, L, dim) tokens on grid ``thw``. ``drop``: in training, the
+        block's (attention-branch, MLP-branch) stochastic-depth masks, or None
+        for none. Returns (out (B, L', dim_out), thw')."""
+        if self.training:
+            return self.forward_train(x, thw, mask, drop)
         s, a = self.spec, self.attn
         route = block_route(s, mask, thw)
         if route == "composite":
             return self.forward_composite(x, thw, mask)
+        # the kernels take one dtype: fp32 master weights are cast to x's
+        tail = self._tail_weights(x.dtype)
         xn = ops.layer_norm(x, self.norm1.weight, self.norm1.bias)
         q, k, v = a.project(xn, thw, with_q=route != "block")
         if route == "block":
             bq = a.qkv.bias[:s.dim] if a.qkv.bias is not None else a.qkv.weight.new_zeros(s.dim)
-            out = kb.fused_block(x, k, v, s.scale, self.norm1.weight, self.norm1.bias,
-                                 a.qkv.weight[:s.dim], bq, *self._tail_weights())
+            out = kb.fused_block(x, k, v, s.scale, self.norm1.weight.to(x.dtype),
+                                 self.norm1.bias.to(x.dtype), a.qkv.weight[:s.dim].to(x.dtype),
+                                 bq.to(x.dtype), *tail)
             return out, thw
         if route == "decoder_block":
             thw_f = _static_upsample_out(thw, s.kernel_q, s.stride_q, s.padding_q,
                                          s.output_padding_q)
-            skip = upsample_tokens_trilinear(x, thw, s.stride_q)[0] if s.skip_upsample_on else x
-            out = kb.fused_decoder_block(q, thw, s.stride_q, skip, k, v, s.scale,
-                                         a.upsample_q.weight, a.norm_q.weight, a.norm_q.bias,
-                                         *self._tail_weights())
+            out = kb.fused_decoder_block(q, thw, s.stride_q, self._skip(x, thw), k, v, s.scale,
+                                         a.upsample_q.weight.to(x.dtype),
+                                         a.norm_q.weight.to(x.dtype), a.norm_q.bias.to(x.dtype),
+                                         *tail)
             return out, thw_f
         pad = tuple(int(kk // 2) for kk in s.skip_kernel)
         skip, thw_c = pool_tokens_max(x, thw, s.skip_kernel, s.stride_q, pad)
-        out = kb.fused_pool_block(q, thw, skip, k, v, s.scale, a.pool_q.weight, a.norm_q.weight,
-                                  a.norm_q.bias, *self._tail_weights())
+        out = kb.fused_pool_block(q, thw, skip, k, v, s.scale, a.pool_q.weight.to(x.dtype),
+                                  a.norm_q.weight.to(x.dtype), a.norm_q.bias.to(x.dtype), *tail)
         return out, thw_c
+
+    def _skip(self, x: torch.Tensor, thw: THW) -> torch.Tensor:
+        """The residual skip of the unnormed input: trilinear upsample
+        (decoder), MaxPool (encoder Q-pool) or identity."""
+        s = self.spec
+        if s.upsample_q:
+            if not s.skip_upsample_on:
+                return x
+            return upsample_tokens_trilinear(x, thw, s.stride_q, train=self.training)[0]
+        if s.skip_pool_on:
+            pad = tuple(int(k // 2) for k in s.skip_kernel)
+            return pool_tokens_max(x, thw, s.skip_kernel, s.stride_q, pad)[0]
+        return x
 
     def forward_composite(
         self, x: torch.Tensor, thw: THW, mask: Optional[torch.Tensor] = None
     ) -> Tuple[torch.Tensor, THW]:
         """The block through K1 and K2 (the route of every block the
         whole-block kernels do not take)."""
-        s = self.spec
         xn = ops.layer_norm(x, self.norm1.weight, self.norm1.bias)
         x_block, thw_new = self.attn(xn, thw, mask)
-        if s.upsample_q:
-            x_res = upsample_tokens_trilinear(x, thw, s.stride_q)[0] if s.skip_upsample_on else x
-        elif s.skip_pool_on:
-            pad = tuple(int(k // 2) for k in s.skip_kernel)
-            x_res, _ = pool_tokens_max(x, thw, s.skip_kernel, s.stride_q, pad)
+        return (kb.fused_mlp_tail(self._skip(x, thw) + x_block, *self._tail_weights(x.dtype)[2:]),
+                thw_new)
+
+    def forward_train(
+        self, x: torch.Tensor, thw: THW, mask: Optional[torch.Tensor] = None,
+        drop: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    ) -> Tuple[torch.Tensor, THW]:
+        """The training route (the JAX composite at ``deterministic=False``):
+        K1 forward with B8 backward, skip + drop_path(attention branch), then
+        the B7 tail with the MLP-branch mask as its per-sample factor (ones
+        without stochastic depth). The weights stay in their own dtype: the
+        ops and B7's Function cast them in the graph."""
+        xn = ops.layer_norm(x, self.norm1.weight, self.norm1.bias)
+        x_block, thw_new = self.attn(xn, thw, mask)
+        if drop is not None:
+            x_block = ops.drop_path(x_block, drop[0])
+            dp = drop[1]
         else:
-            x_res = x
-        return kb.fused_mlp_tail(x_res + x_block, *self._tail_weights()[2:]), thw_new
+            dp = torch.ones(x.shape[0], dtype=torch.float32, device=x.device)
+        out = kb.mlp_tail_train(self._skip(x, thw) + x_block, *self._tail_weights()[2:], dp)
+        return out, thw_new
 
 
 def build_inframe_mask(thw: THW, num_audio_tokens: int) -> np.ndarray:

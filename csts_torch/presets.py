@@ -1,7 +1,8 @@
 """Named configurations of the model family.
 
 ``flagship_cfg`` is CSTS-B 16x4 at 256² video and a 256² audio STFT, the model
-the serving path runs; ``small_cfg`` is the reduced family member (crop 32,
+the serving path runs; ``flagship_train_cfg`` the same model as it trains;
+``small_cfg`` is the reduced family member (crop 32,
 depth 4, width 16) with the same four-stage structure, for CPU checks.
 """
 
@@ -51,4 +52,14 @@ def small_cfg(batch: int) -> Config:
     cfg.MVIT.HEAD_MUL = [[1, 2.0], [2, 2.0], [3, 2.0]]
     cfg.MVIT.POOL_Q_STRIDE = [[1, 1, 2, 2], [2, 1, 2, 2], [3, 1, 2, 2]]
     cfg.TRAIN.BATCH_SIZE = batch
+    return cfg
+
+
+def flagship_train_cfg() -> Config:
+    """The flagship as it trains: bf16 compute over fp32 master weights
+    (TRAIN.MIXED_PRECISION), batch 8 (TRAIN.BATCH_SIZE of
+    configs/Ego4D/CSTS_Ego4D_Gaze_Forecast.yaml)."""
+    cfg = flagship_cfg()
+    cfg.TRAIN.MIXED_PRECISION = True
+    cfg.TRAIN.BATCH_SIZE = 8
     return cfg

@@ -4,7 +4,10 @@ own): partial query and key tiles, head views with strides, head dims 64 and
 128, output widths and hidden widths that leave partial weight tiles; for the
 whole-block kernels B3-B5, token counts that are no multiple of the tile, H
 and W that are no multiple of the row tile, T of 1 and 3, Lk of 64, 256 and
-1024.
+1024; for the training kernels B7 (forward and its hand-written backward)
+and B8, ragged rows and keys, a zero stochastic-depth factor, strided output
+gradients, and the three autograd Functions against autograd of their plain
+versions.
 
 They skip without a card. On one, run them without the JAX suite's conftest:
 
@@ -17,7 +20,8 @@ every kernel's memory accesses.
 import pytest
 import torch
 
-from chip_smoke import FP32_ATOL, FP32_RTOL, bf16_bar
+from chip_smoke import (B7_BWD_BAR, B7_BWD_VECTOR_BAR, B8_BAR, FP32_ATOL, FP32_RTOL, bf16_bar,
+                        rel_err)
 from csts_torch.kernels import attention as ka
 from csts_torch.kernels import block as kb
 from csts_torch.kernels import upsample as kup
@@ -163,10 +167,121 @@ def test_decoder_block_ragged(gen, b, thw, stride, c, cout, heads, lk):
 
 
 def test_kernels_refuse_gradients(gen):
-    """Forward-only kernels: an input that wants a gradient is refused."""
+    """The kernel wrappers launch outside autograd: an input that wants a
+    gradient is refused (the *_train entries take it)."""
     q = _randn(gen, 1, 1, 16, 64).requires_grad_()
     with pytest.raises(RuntimeError, match="forward-only"):
         ka.fused_attention(q, q, q, 0.125)
     x = _randn(gen, 1, 8, 16).requires_grad_()
     with pytest.raises(RuntimeError, match="forward-only"):
         kup.t2_upsample(x, (2, 2, 2))
+    x = _randn(gen, 2, 8, 16).requires_grad_()
+    w = _randn(gen, 16)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        kb.fused_mlp_tail_train(x, w, w, _randn(gen, 64, 16), _randn(gen, 64),
+                                _randn(gen, 16, 64), w, None, None,
+                                torch.ones(2, device="cuda"))
+
+
+def _tail_args(gen, b, l, c, cout, hidden):
+    """x, then LN2, fc1, fc2 and the dim-change proj (None, None when c == cout)."""
+    return [_randn(gen, b, l, c)] + _tail(gen, c, cout, hidden)[2:]
+
+
+@pytest.mark.parametrize("b,l,c,cout,hidden", [
+    (3, 100, 96, 96, 384),      # ragged rows, identity base
+    (2, 130, 96, 192, 384),     # proj base, partial row tile
+    (2, 70, 384, 192, 768),     # decoder-style hidden 4·dim_out
+    (1, 260, 768, 768, 3072),   # two output tiles (fc1 twice, hidden written once)
+])
+def test_mlp_tail_train_ragged(gen, b, l, c, cout, hidden):
+    """B7 forward: out and the stored hidden against the plain version, with
+    one sample's MLP branch dropped (dp 0) and the others scaled."""
+    args = _tail_args(gen, b, l, c, cout, hidden)
+    dp = torch.full((b,), 1.25, device="cuda")
+    dp[0] = 0.0
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.bfloat16):
+            cast = [a.to(dtype) if a is not None else None for a in args]
+            before = kb.fused_mlp_tail_train.launches
+            out, hid = kb.fused_mlp_tail_train(*cast, dp)
+            torch.cuda.synchronize()
+            assert kb.fused_mlp_tail_train.launches == before + 1
+            want_out, want_hid = kb.fused_mlp_tail_train_plain(*cast, dp)
+            for got, want in ((out, want_out), (hid, want_hid)):
+                assert got.shape == want.shape and got.dtype == dtype
+                err = float((got.float() - want.float()).abs().max())
+                bar = (FP32_ATOL["mlp_tail"] + FP32_RTOL["mlp_tail"] * float(want.abs().max())
+                       if dtype == torch.float32 else bf16_bar("mlp_tail", want))
+                assert err <= bar, (dtype, err, bar)
+
+
+def _lse(q, k, v, scale):
+    return ka._attention_fwd(q, k, v, scale, None, with_lse=True)
+
+
+@pytest.mark.parametrize("b,n,lq,lk,hd,strided_g", [
+    (2, 4, 100, 8, 96, False),     # Lk 8: one key chunk, mostly past Lk
+    (2, 2, 300, 64, 192, True),    # head dim 192 (split in two), strided g
+    (1, 2, 128, 250, 96, True),    # ragged keys over four chunks
+    (1, 1, 5000, 64, 96, False),   # many query tiles: chunked dk/dv with the reduction
+])
+def test_attention_bwd_ragged(gen, b, n, lq, lk, hd, strided_g):
+    """B8 against its plain version from the same (q, k, v, out, g), out and
+    lse from K1. fp32 and bf16 bars in chip_smoke.B8_BAR."""
+    scale = hd ** -0.5
+    q, k, v = _randn(gen, b, n, lq, hd), _randn(gen, b, n, lk, hd), _randn(gen, b, n, lk, hd)
+    g = _randn(gen, b, lq, n, hd).permute(0, 2, 1, 3) if strided_g else _randn(gen, b, n, lq, hd)
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.bfloat16):
+            qc, kc, vc, gc = (t.to(dtype) for t in (q, k, v, g))
+            out, lse = _lse(qc, kc, vc, scale)
+            before = ka.fused_attention_bwd.launches
+            got = ka.fused_attention_bwd(qc, kc, vc, out, gc, scale, lse)
+            torch.cuda.synchronize()
+            assert ka.fused_attention_bwd.launches == before + 1
+            want = ka.fused_attention_bwd_plain(qc, kc, vc, out, gc, scale)
+            for name, x, y in zip(("dq", "dk", "dv"), got, want):
+                assert x.shape == y.shape and x.dtype == dtype
+                err = float((x.float() - y.float()).abs().max())
+                bar = B8_BAR[dtype] * max(1.0, float(y.float().abs().max()))
+                assert err <= bar, (name, dtype, err, bar)
+
+
+def test_attention_train_function_matches_autograd_of_plain(gen):
+    """K1 forward + B8 backward through the Function against autograd of the
+    plain attention, fp32, unmasked and masked."""
+    mask = torch.from_numpy(build_inframe_mask((4, 8, 8), 4)).cuda()
+    for lq, lk, m in ((200, 64, None), (260, 260, mask)):
+        q, k, v = (_randn(gen, 2, 2, n_, 96).requires_grad_() for n_ in (lq, lk, lk))
+        g = _randn(gen, 2, 2, lq, 96)
+        got = torch.autograd.grad(ka.attention_train(q, k, v, 96 ** -0.5, m), (q, k, v), g)
+        want = torch.autograd.grad(ka.fused_attention_plain(q, k, v, 96 ** -0.5, m), (q, k, v), g)
+        for x, y in zip(got, want):
+            assert rel_err(x, y) <= 1e-5, rel_err(x, y)
+
+
+@pytest.mark.parametrize("c,cout", [(96, 96), (96, 192)])
+def test_mlp_tail_train_function_matches_autograd_of_plain(gen, c, cout):
+    """B7 forward + the hand-written backward against autograd of the plain
+    version: x and every weight, fp32 and bf16 (chip_smoke's B7_BWD_BAR and
+    B7_BWD_VECTOR_BAR)."""
+    args = _tail_args(gen, 2, 150, c, cout, 4 * c)
+    dp = torch.tensor([0.0, 1.25], device="cuda")
+    g = _randn(gen, 2, 150, cout)
+    for dtype in (torch.float32, torch.bfloat16):
+        leaves = [a.to(dtype).requires_grad_() if a is not None else None for a in args]
+        ins = [t for t in leaves if t is not None]
+        got = torch.autograd.grad(kb.mlp_tail_train(*leaves, dp), ins, g.to(dtype))
+        want = torch.autograd.grad(kb.fused_mlp_tail_train_plain(*leaves, dp)[0], ins, g.to(dtype))
+        for x, y in zip(got, want):
+            bar = (B7_BWD_VECTOR_BAR if y.dim() == 1 else B7_BWD_BAR)[dtype]
+            assert rel_err(x, y) <= bar, (dtype, rel_err(x, y), bar)
+
+
+def test_t2_upsample_train_function_matches_autograd_of_plain(gen):
+    x = _randn(gen, 2, 3 * 5 * 7, 24).requires_grad_()
+    g = _randn(gen, 2, 6 * 5 * 7, 24)
+    got, = torch.autograd.grad(kup.t2_upsample_train(x, (3, 5, 7)), x, g)
+    want, = torch.autograd.grad(kup.t2_upsample_plain(x, (3, 5, 7)), x, g)
+    assert rel_err(got, want) <= 1e-6
