@@ -21,6 +21,19 @@ Phases (any failure exits non-zero; nothing is caught):
      (shapes, finite, each frame's heatmap sums to 1) and held against the
      same weights through the plain versions in fp32 on the card; the
      batch-8 forward timed and profiled (device time by kernel family);
+     then, under the same predictor, the hw2 path (``ab_flags``'s
+     ``hw2_skip``): launch counters set to 0, one batch-8 forward with the
+     switch on and one with it off, counters read (B9a ``hw2_upsample`` 2
+     and 0, every other kernel as above), B9a against its plain version at
+     d2's and d3's shapes (bf16, fp32) with its, the plain version's and
+     ``F.interpolate``'s times, the forward with the switch on and off in
+     turns, and the two forwards' per-frame softmax compared;
+     the blocks path (``ab_block``'s five stacks at batch 8): counters set
+     to 0 before and read after each stack's run through the whole-block
+     kernel, the kernel against its plain version at every shape of the
+     4-head, 384->768 and 8-head stacks (B9b/B9c, bf16 and fp32) with
+     times and bounds, and every stack timed through the kernel and
+     through the K1+K2 route;
   5. the training path: the flagship from ``flagship_train_cfg`` (fp32
      master weights, bf16 compute, batch 8, kldiv+egonce, AdamW, drop-path
      0.2) through ``make_train_step``: one warm-up step records the inputs of
@@ -46,7 +59,6 @@ import contextlib
 import dataclasses
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -66,20 +78,28 @@ from csts_torch.models.csts import CSTS, build_spec, init_params  # noqa: E402
 from csts_torch.ops import sample_drop_masks  # noqa: E402
 from csts_torch.presets import flagship_cfg, flagship_train_cfg  # noqa: E402
 from csts_torch.serving import GazePredictor  # noqa: E402
+from csts_torch.tools import ab_block, ab_flags, card_line  # noqa: E402
+from csts_torch.tools.profile_forward import device_trace, profile_forward  # noqa: E402
 from csts_torch.train import step as train_lib  # noqa: E402
 from csts_torch.train.losses import frame_softmax  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s and bf16 tensor-core FLOP/s
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, bf16 tensor-core
+# FLOP/s and fp32 FLOP/s outside the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 
 SEED = 0
 REQUESTS = (1, 5, 8)
 # launches per forward on the flagship: B3 takes v0, a0 and v2, B4 v1, v3, a1
 # and a2, B5 d2-d4; the 16 other blocks (the two fusion blocks among them) run
-# K1 and K2; K3 serves d4's skip and the head's stem skip
+# K1 and K2; K3 serves d4's skip and the head's stem skip; B9a only with the
+# JAX package's switch HW2_SKIP_KERNEL set (off by default), then d2's and
+# d3's skips (d1's skip is on the K1+K2 route, where JAX does not read it)
 PER_FORWARD = {"attention": 16, "mlp_tail": 16, "t2_upsample": 2,
-               "block": 3, "pool_block": 4, "decoder_block": 3}
+               "block": 3, "pool_block": 4, "decoder_block": 3, "hw2_upsample": 0}
+HW2_PER_FORWARD = 2
+BLOCK_BATCH = 8  # ab_block's stacks in the blocks phase
 
 # Tolerances of kernel vs plain version on the same inputs.
 #  fp32: the CPU bars of tests/test_torch_kernels.py (K1 2e-5, K2 3e-5 + 1e-4
@@ -102,6 +122,11 @@ PER_FORWARD = {"attention": 16, "mlp_tail": 16, "t2_upsample": 2,
 #        kernel rounds the probabilities unnormalised (as K1, whose bar is
 #        3e-2) and sums in another order, so a rounding of q or av may flip;
 #        res1 is fp32 on both sides and adds no rounding of its own.
+#  B9a (hw2_upsample): K3's bars. Both sides compute each pass's two products
+#        and their sum rounded separately, copy the clamped edges and round
+#        the H pass to the dtype before the W pass, so they agree bit for
+#        bit unless a compiler fuses a product into the sum.
+#  B9b/B9c (the whole-block kernel at 3-8 heads): B3's bars, the same kernel.
 FP32_ATOL = {"attention": 2e-5, "mlp_tail": 3e-5, "t2_upsample": 1e-6,
              "block": 3e-5, "pool_block": 5e-5, "decoder_block": 5e-5}
 FP32_RTOL = {"attention": 0.0, "mlp_tail": 1e-4, "t2_upsample": 0.0,
@@ -194,6 +219,18 @@ def _tail_cost(x, ln_w, ln_b, w1, b1, w2, b2, wp=None, bp=None):
 
 def _t2_cost(x, thw):
     return 3 * x.numel() * x.element_size(), 3 * 2 * x.numel()
+
+
+def _hw2_library(x, thw):
+    b, l, c = x.shape
+    grid = x.reshape(b, *thw, c).permute(0, 4, 1, 2, 3)
+    return F.interpolate(grid, scale_factor=(1, 2, 2), mode="trilinear", align_corners=False)
+
+
+def _hw2_cost(x, thw):
+    """x read once, the 4x output written once; 3 fp32 operations (two
+    products and a sum) per H-pass value (2 per input) and per output (4)."""
+    return 5 * x.numel() * x.element_size(), 3 * 6 * x.numel()
 
 
 def _whole_block_cost(rows, q_in, skip, k, v, weights, taps_flops):
@@ -310,8 +347,30 @@ TRAIN_KERNELS = {
     ),
 }
 ALL_KERNELS = {**KERNELS, **TRAIN_KERNELS}
+# the paths of the JAX package's experiment entry points: B9a behind the
+# hw2_skip switch (ab_flags), and the whole-block kernel at 3-8 heads (B9b and
+# B9c, one kernel: B3's wrapper and library) on ab_block's stacks; ``bars``
+# names the kernel whose bars they take, ``peak`` the peak rate of their
+# operations (default bf16)
+B9_KERNELS = {
+    "hw2_upsample": dict(
+        module=kup, attr="hw2_upsample", plain=kup.hw2_upsample_plain,
+        library=_hw2_library, cost=_hw2_cost, route="cuda", peak=PEAK_F32_FLOPS,
+        bars="t2_upsample",
+        source="csts_torch/csrc/upsample.cu", path="ab_flags",
+        replaces="csts_tpu/kernels/upsample.py:100 (_hw2_kernel; pallas_call at :160)",
+    ),
+    "block_multihead": dict(
+        module=kb, attr="fused_block", plain=kb.fused_block_plain,
+        library=None, cost=_block_cost, route="cuda", bars="block",
+        source="csts_torch/csrc/block.cu", path="ab_block",
+        replaces="csts_tpu/kernels/block.py:276 (_block_hg_kernel; pallas_call at :434), "
+                 "csts_tpu/kernels/block.py:449 (_block_bd_kernel; pallas_call at :554)",
+    ),
+}
+COUNTED = {**ALL_KERNELS, **B9_KERNELS}
 # recorded beside them: B7's hand-written backward (PyTorch, no kernel of its own)
-RECORDED = {**ALL_KERNELS,
+RECORDED = {**COUNTED,
             "mlp_tail_train_bwd": dict(module=kb, attr="fused_mlp_tail_train_bwd")}
 WRAPPERS = {name: getattr(k["module"], k["attr"]) for name, k in RECORDED.items()}
 # the training route's autograd entries, and autograd of their plain twins
@@ -326,7 +385,7 @@ TRAIN_ENTRIES = (
 # mask (the spatial fusion's backward is the plain recompute), K3 at d4's
 # skip and the stem skip; K2 and B3-B5 are eval only
 PER_STEP = {"attention": 26, "mlp_tail_train": 26, "attention_bwd": 25, "t2_upsample": 2,
-            "mlp_tail": 0, "block": 0, "pool_block": 0, "decoder_block": 0}
+            "mlp_tail": 0, "block": 0, "pool_block": 0, "decoder_block": 0, "hw2_upsample": 0}
 TRAIN_STEPS = 3
 STEPS_PER_EPOCH = 1000  # the lr schedule's epoch is step / STEPS_PER_EPOCH
 CARD = ""  # nvidia-smi's name and power limit, printed beside every time
@@ -334,14 +393,6 @@ CARD = ""  # nvidia-smi's name and power limit, printed beside every time
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def _signature(args) -> tuple:
@@ -421,7 +472,7 @@ def train_twins(attrs=tuple(attr for _, attr, _ in TRAIN_ENTRIES)):
 
 
 def reset_launches() -> None:
-    for name in ALL_KERNELS:
+    for name in COUNTED:
         WRAPPERS[name].launches = 0
 
 
@@ -443,73 +494,6 @@ def time_ms(fn, target_s: float = 0.05) -> float:
     return start.elapsed_time(end) / reps
 
 
-# device kernels by family, matched on the kernel name the profiler reports
-FAMILIES = (
-    ("K1 attention", ("attn_mma_kernel", "attn_f32_kernel")),
-    ("B8 attention_bwd", ("dq_mma_kernel", "dkdv_mma_kernel", "dq_f32_kernel", "dkdv_f32_kernel",
-                          "namespace)::reduce_kernel<")),
-    # B7 is the TRAIN = true instance of K2's templates
-    ("B7 mlp_tail_train", ("mlp_tail_mma_kernel<3, true", "mlp_tail_mma_kernel<6, true",
-                           "mlp_tail_mma_kernel<12, true", "mlp_tail_f32_kernel<true")),
-    ("K2 mlp_tail", ("mlp_tail_mma_kernel", "mlp_tail_f32_kernel")),
-    ("K3 t2_upsample", ("t2_upsample_kernel",)),
-    ("B3-B5 whole blocks", ("block_mma_kernel", "block_f32_kernel")),
-    ("convolution", ("conv", "cudnn", "implicit", "dgrad", "fprop", "winograd")),
-    ("matmul", ("gemm", "cutlass", "xmma", "matmul", "nvjet")),
-    ("reduction", ("reduce",)),
-    ("copy/layout", ("copy", "cat", "transpose", "permute", "index", "upsample")),
-)
-
-
-def profile_forward(fn, fwd_ms: float) -> dict:
-    """Device time of one forward by kernel family (torch.profiler), and the
-    device's idle share: of the profiled window, whose wall carries the
-    profiler's own overhead, and of ``fwd_ms``, the unprofiled forward's time
-    from back-to-back calls, where the host runs ahead of the device."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # one entry per device activity (the event list may repeat one), and the
-    # busy time as the union of their intervals
-    spans = {(e.name, e.time_range.start, e.time_range.end)
-             for e in prof.events() if e.device_type == DeviceType.CUDA
-             and not getattr(e, "is_user_annotation", False)}
-    by_name: dict = {}
-    for name, start, end in spans:
-        by_name[name] = by_name.get(name, 0.0) + (end - start) / 1e3
-    busy, reach = 0.0, float("-inf")
-    for _, start, end in sorted(spans, key=lambda s: s[1]):
-        busy += max(0.0, end - max(start, reach)) / 1e3
-        reach = max(reach, end)
-    fam = {}
-    for name, ms in by_name.items():
-        low = name.lower()
-        label = next((f for f, keys in FAMILIES if any(k in low for k in keys)), "elementwise/other")
-        fam[label] = fam.get(label, 0.0) + ms
-    out = {"wall_ms": wall_ms, "device_busy_ms": busy, "device_kernels": len(spans),
-           "device_idle_share": (1 - busy / wall_ms) if busy else None,
-           "device_idle_share_unprofiled": (1 - busy / fwd_ms) if busy else None,
-           "families_ms": dict(sorted(fam.items(), key=lambda kv: -kv[1])),
-           "top_kernels_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:16])}
-    if not busy:
-        log("  profiler: no device time reported")
-    else:
-        log(f"  profile: wall {wall_ms:.2f} ms, {len(spans)} device activities busy "
-            f"{busy:.2f} ms, idle share {out['device_idle_share']:.3f} (of the unprofiled "
-            f"{fwd_ms:.2f} ms forward {out['device_idle_share_unprofiled']:.3f}); " + ", ".join(
-                f"{k} {v:.2f}" for k, v in out["families_ms"].items()))
-        for name, ms in out["top_kernels_ms"].items():
-            log(f"    {ms:8.3f} ms  {name[:110]}")
-    return out
-
-
 def _to_fp32(args):
     return tuple(a.float() if isinstance(a, torch.Tensor) and a.is_floating_point() else a
                  for a in args)
@@ -519,21 +503,24 @@ def _max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def check_kernels(calls_by_bucket: dict) -> dict:
-    """Phase 3: every kernel against its plain version at every recorded shape."""
+def check_kernels(calls_by_bucket: dict, kernels: dict = KERNELS) -> dict:
+    """Phase 3: every kernel of ``kernels`` against its plain version at every
+    recorded shape (a kernel's ``bars`` name the bars it takes, its ``peak``
+    the peak rate of its operations)."""
     report = {name: {"shapes": [], "max_abs_err": 0.0, "max_abs_err_fp32": 0.0}
-              for name in KERNELS}
+              for name in kernels}
     failures = []
     for bucket, calls in calls_by_bucket.items():
         for name, sigs in calls.items():
-            k = KERNELS[name]
+            k = kernels[name]
             kern, plain = WRAPPERS[name], k["plain"]
+            bars = k.get("bars", name)
             for sig, (count, args, ctx) in sigs.items():
                 got = kern(*args)
                 torch.cuda.synchronize()
                 ref = plain(*args)
                 err = _max_err(got, ref)
-                bar = bf16_bar(name, ref)
+                bar = bf16_bar(bars, ref)
                 if not (err <= bar and bool(torch.isfinite(got.float()).all())):
                     ins = [float(a.float().abs().max()) for a in args if isinstance(a, torch.Tensor)]
                     failures.append(f"{name} bf16 bucket {bucket} {sig}: max|Δ| {err} > {bar}; "
@@ -544,7 +531,7 @@ def check_kernels(calls_by_bucket: dict) -> dict:
                 torch.cuda.synchronize()
                 ref32 = plain(*args32)
                 err32 = _max_err(got32, ref32)
-                bar32 = FP32_ATOL[name] + FP32_RTOL[name] * float(ref32.abs().max())
+                bar32 = FP32_ATOL[bars] + FP32_RTOL[bars] * float(ref32.abs().max())
                 if not err32 <= bar32:
                     failures.append(f"{name} fp32 bucket {bucket} {sig}: max|Δ| {err32} > {bar32}")
                 del got, ref, got32, ref32, args32
@@ -560,7 +547,7 @@ def check_kernels(calls_by_bucket: dict) -> dict:
                                     if k["library"] is not None else None),
                         bytes=nbytes, flops=flops,
                         bytes_ms=nbytes / PEAK_BYTES_S * 1e3,
-                        ops_ms=flops / PEAK_BF16_FLOPS * 1e3,
+                        ops_ms=flops / k.get("peak", PEAK_BF16_FLOPS) * 1e3,
                     )
                     row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
                     if ctx is not None:
@@ -637,7 +624,7 @@ def train_path(rng: np.random.Generator) -> dict:
     torch.cuda.reset_peak_memory_stats()
     steps = timed_steps(step, state, batch, gen, TRAIN_STEPS)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    launches = {name: WRAPPERS[name].launches for name in ALL_KERNELS}
+    launches = {name: WRAPPERS[name].launches for name in COUNTED}
     for i, (ms, st) in enumerate(steps):
         log(f"  step {i}: {ms:.2f} ms, loss {st['loss']:.6g} (kldiv {st['kldiv_loss']:.6g}, "
             f"egonce {st['egonce_loss']:.6g}), grad_norm {st['grad_norm']:.6g}, lr {st['lr']:.6g}")
@@ -649,7 +636,7 @@ def train_path(rng: np.random.Generator) -> dict:
         need = per * TRAIN_STEPS
         assert launches[name] == need, f"train {name}: {launches[name]} launches, expected {need}"
 
-    profile = profile_forward(lambda: step(state, batch, gen), step_ms)
+    profile = profile_forward(lambda: step(state, batch, gen), step_ms, log=log)
     # the plain attention twin in place of K1 + B8, in turns with the kernels
     kern, plain = [ms for ms, _ in steps], []
     for _ in range(3):
@@ -822,6 +809,110 @@ def whole_step_check(rng: np.random.Generator) -> dict:
             "grad_norm": total, "grad_rel_err_max": worst_rel, "bar_share_worst": worst}
 
 
+def hw2_phase(pred, v, a) -> dict:
+    """Phase 4b: B9a behind ab_flags' hw2_skip switch, under the serving
+    predictor at batch 8: launches with the switch on and off, B9a against
+    its plain version at d2's and d3's shapes, the forward timed on and off
+    in turns, and the two forwards' outputs compared. The switch is restored
+    on the way out (``ab_flags.flags``)."""
+    counts = {}
+    for conf in ("hw2_skip", "base"):
+        with ab_flags.flags(conf), torch.inference_mode():
+            reset_launches()
+            pred.forward(v, a)
+            torch.cuda.synchronize()
+            counts[conf] = {name: WRAPPERS[name].launches for name in PER_FORWARD}
+    log(f"phase hw2 launches: switch on {counts['hw2_skip']}, off {counts['base']}")
+    assert counts["hw2_skip"]["hw2_upsample"] == HW2_PER_FORWARD, counts
+    for conf in counts:
+        for name, per in PER_FORWARD.items():
+            if name != "hw2_upsample":
+                assert counts[conf][name] == per, (conf, name, counts[conf][name], per)
+    assert counts["base"]["hw2_upsample"] == 0, counts
+
+    calls = {"hw2_upsample": {}}
+    with ab_flags.flags("hw2_skip"), recording(calls), torch.inference_mode():
+        pred.forward(v, a)
+    torch.cuda.synchronize()
+    with torch.inference_mode():
+        rows = check_kernels({8: calls}, B9_KERNELS)["hw2_upsample"]["shapes"]
+    assert sum(r["launches_per_forward"] for r in rows) == HW2_PER_FORWARD, rows
+
+    # the forward with the switch on and off, in turns
+    turns = {"hw2_skip": [], "base": []}
+    with torch.inference_mode():
+        for conf in ("base", "hw2_skip", "hw2_skip", "base") * 3:
+            with ab_flags.flags(conf):
+                turns[conf].append(time_ms(lambda: pred.forward(v, a), target_s=0.3))
+        logits = {}
+        for conf in ("hw2_skip", "base"):
+            with ab_flags.flags(conf):
+                logits[conf] = pred.model(v, a).float()
+        busy = {}
+        for conf in ("hw2_skip", "base"):
+            with ab_flags.flags(conf):
+                busy[conf] = device_trace(lambda: pred.forward(v, a))[1]
+    on, off = logits["hw2_skip"], logits["base"]
+    dlogit = float((on - off).abs().max())
+    dsm = float((frame_softmax(on) - frame_softmax(off)).abs().max())
+    flat = off.reshape(*off.shape[:2], -1)
+    top2 = flat.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > 2 * dlogit
+    agree = (flat.argmax(-1) == on.reshape(flat.shape).argmax(-1))[decided]
+    on_ms, off_ms = float(np.median(turns["hw2_skip"])), float(np.median(turns["base"]))
+    log(f"phase hw2 forward: batch 8 bf16 with hw2_skip {on_ms:.3f} ms vs off {off_ms:.3f} ms "
+        f"(turns on {', '.join(f'{x:.3f}' for x in turns['hw2_skip'])}; off "
+        f"{', '.join(f'{x:.3f}' for x in turns['base'])}), ratio off/on {off_ms / on_ms:.4f}; "
+        f"device busy on {busy['hw2_skip']:.3f} ms vs off {busy['base']:.3f} ms; "
+        f"logits max|Δ| {dlogit:.4g}, per-frame softmax max|Δ| {dsm:.3g}, argmax agrees on "
+        f"{int(agree.sum())}/{int(decided.sum())} decided frames ({CARD})")
+    assert dsm < 0.02, dsm
+    assert bool(agree.all()), "hw2_skip changes the argmax of a decided frame"
+    return {"launches": counts["hw2_skip"]["hw2_upsample"], "launches_on": counts["hw2_skip"],
+            "launches_off": counts["base"], "shapes": rows, "forward_on_ms": on_ms,
+            "forward_off_ms": off_ms, "turns_ms": turns, "forward_on_device_ms": busy["hw2_skip"],
+            "forward_off_device_ms": busy["base"], "logits_max_abs_diff": dlogit,
+            "softmax_max_abs_diff": dsm}
+
+
+def blocks_phase() -> dict:
+    """Phase 4c: ab_block's stacks at batch 8. Each stack runs once through
+    the whole-block kernel with the counters set to 0 just before and read
+    just after; at 3-8 heads (B9b/B9c) the kernel is held against its plain
+    version at each shape and timed; every stack is timed through the kernel
+    and through the K1+K2 route (``ab_block.run``)."""
+    launches, rows, per_stack = 0, [], {}
+    for row in ab_block.SHAPES:
+        name, dim, dim_out, heads, thw, _, reps = row
+        block, x = ab_block.make_stack(row, BLOCK_BATCH, "cuda")
+        _, fused = ab_block.stack_fns(block, thw, reps)
+        reset_launches()
+        fused(x)
+        torch.cuda.synchronize()
+        n = WRAPPERS["block_multihead"].launches
+        assert n == reps, (name, n, reps)
+        per_stack[name.strip()] = n
+        if heads > 2:
+            launches += n
+            calls = {"block_multihead": {}}
+            with recording(calls):
+                fused(x)
+            torch.cuda.synchronize()
+            with torch.inference_mode():
+                rows += check_kernels({BLOCK_BATCH: calls}, B9_KERNELS)["block_multihead"]["shapes"]
+        del block, x
+    log(f"phase blocks launches per stack: {per_stack}")
+    stacks = ab_block.run(ab_block.SHAPES, BLOCK_BATCH, 20, "cuda",
+                         log=lambda s: log("  " + s), rounds=3)
+    multi = [s for s in stacks if s["heads"] > 2]
+    torch.cuda.empty_cache()
+    return {"launches": launches, "launches_per_stack": per_stack, "shapes": rows,
+            "stacks": stacks, "block_ms": sum(s["block_ms"] for s in multi),
+            "composite_ms": sum(s["composite_ms"] for s in multi),
+            "block_device_ms": sum(s["block_device_ms"] for s in multi),
+            "composite_device_ms": sum(s["composite_device_ms"] for s in multi)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -886,7 +977,7 @@ def main() -> int:
         t0 = time.perf_counter()
         outs.append(pred.predict(video, audio))
         req_s.append(time.perf_counter() - t0)
-    launches = {name: WRAPPERS[name].launches for name in KERNELS}
+    launches = {name: WRAPPERS[name].launches for name in PER_FORWARD}
     log(f"phase serve: requests {list(REQUESTS)} in "
         + ", ".join(f"{s * 1e3:.1f} ms" for s in req_s) + f"; launches {launches}")
     for name, per in PER_FORWARD.items():
@@ -936,11 +1027,21 @@ def main() -> int:
     pred.forward(v, a)
     torch.cuda.synchronize()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    breakdown = profile_forward(lambda: pred.forward(v, a), fwd_ms)
+    breakdown = profile_forward(lambda: pred.forward(v, a), fwd_ms, log=log)
     log(f"phase timing: forward batch 8 bf16 {fwd_ms:.2f} ms = {8e3 / fwd_ms:.2f} clips/s, "
         f"peak memory {peak_gib:.2f} GiB ({card})")
+
+    # --- phase 4b: the hw2 path (ab_flags' hw2_skip) under the same predictor -
+    t0 = time.perf_counter()
+    hw2 = hw2_phase(pred, v, a)
+    log(f"phase hw2: {time.perf_counter() - t0:.2f} s")
     del pred, v, a
     torch.cuda.empty_cache()
+
+    # --- phase 4c: the blocks path (ab_block's stacks) ------------------------
+    t0 = time.perf_counter()
+    blocks = blocks_phase()
+    log(f"phase blocks: {time.perf_counter() - t0:.2f} s")
 
     # --- phase 5: the training path ------------------------------------------
     t0 = time.perf_counter()
@@ -977,6 +1078,25 @@ def main() -> int:
             "block_ms": per("block_ms") if name in WHOLE_BLOCKS else None,
             "composite_ms": per("composite_ms") if name in WHOLE_BLOCKS else None,
         })
+    for name, k in B9_KERNELS.items():
+        res = {"hw2_upsample": hw2, "block_multihead": blocks}[name]
+        rows = res["shapes"]
+        per = lambda key: sum(r[key] * r["launches_per_forward"] for r in rows)  # noqa: E731
+        kernels.append({
+            "name": name, "route": k["route"], "source": k["source"], "replaces": k["replaces"],
+            "launches": res["launches"], "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": per("ms"), "plain_ms": per("plain_ms"), "bound_ms": per("bound_ms"),
+            "bound_by": "bytes" if per("bytes_ms") >= per("ops_ms") else "operations",
+            "library_ms": None if k["library"] is None else per("library_ms"),
+            # ms and the bound per run of the path: one batch-8 forward with
+            # hw2_skip on (ab_flags), or one run of ab_block's 3-8-head stacks
+            "path": k["path"], "launches_train": train["launches"][name],
+            # the stacks through this kernel and through the K1+K2 route:
+            # CUDA events, and the device's busy time (torch.profiler)
+            "block_ms": res.get("block_ms"), "composite_ms": res.get("composite_ms"),
+            "block_device_ms": res.get("block_device_ms"),
+            "composite_device_ms": res.get("composite_device_ms"),
+        })
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": kernels, "per_shape": report,
@@ -984,6 +1104,7 @@ def main() -> int:
                    "request_s": dict(zip(map(str, REQUESTS), req_s)),
                    "peak_gib": peak_gib, "logits_max_abs_diff": dlogit,
                    "softmax_max_abs_diff": dsm, "profile": breakdown,
+                   "hw2": hw2, "blocks": blocks,
                    "train": train, "train_per_shape": train_report,
                    "train_fp32_step": whole_step}, f, indent=1, default=str)
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -1,5 +1,5 @@
-// Shared body of the whole-block kernels B3 (block.cu), B4 (pool_block.cu)
-// and B5 (decoder_block.cu). One thread block of 8 warps takes BM = 32·WR
+// Shared body of the whole-block kernels B3 (block.cu; at 3-8 heads also
+// B9b/B9c), B4 (pool_block.cu) and B5 (decoder_block.cu). One thread block of 8 warps takes BM = 32·WR
 // output tokens of one clip and runs the whole block on them:
 //
 //   Q      B3: LN1(x) · Wq + bq

@@ -52,6 +52,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "upsample": {
         "csts_t2_upsample": [_I, _P, _P, _I, _I, _LL, _P],
+        # dtype, x, out, B·T, H, W, C, stream
+        "csts_hw2_upsample": [_I, _P, _P, _I, _I, _I, _I, _P],
     },
 }
 # the whole-block kernels B3, B4 and B5 share one C signature (fused_block.cuh):

@@ -10,7 +10,10 @@
   package's is XLA outside any kernel), and :func:`mlp_tail_train` puts the
   two behind one autograd Function.
 * B3 :func:`fused_block` (``_block_kernel``): a whole identity-skip block
-  from x and the pooled K/V; ``csrc/block.cu``.
+  from x and the pooled K/V; ``csrc/block.cu``. At 3-8 heads the same
+  kernel is B9b/B9c, the JAX package's head-grid (``_block_hg_kernel``) and
+  block-diagonal (``_block_bd_kernel``) variants: one kernel for any head
+  count, so the port has no ``variant`` argument.
 * B4 :func:`fused_pool_block` (``_pool_block_kernel``): a whole Q-pool block
   from the fine pre-pool Q, the max-pooled skip and the pooled K/V;
   ``csrc/pool_block.cu``.

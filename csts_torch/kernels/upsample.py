@@ -1,10 +1,15 @@
-"""K3: x2 half-pixel linear interpolation along T on a token grid.
+"""The skip upsample kernels of ``csts_tpu/kernels/upsample.py``.
 
-Port of ``csts_tpu/kernels/upsample.py`` ``_t2_kernel`` (``t2_upsample_padded``
-without its 128-lane padding). It serves d4's stride-(2,1,1) skip and the
-stem-skip T-resize at the head. On a CUDA tensor :func:`t2_upsample`
-launches ``csrc/upsample.cu``; on a CPU tensor it runs
-:func:`t2_upsample_plain`.
+* K3 :func:`t2_upsample` (``_t2_kernel``, ``t2_upsample_padded`` without its
+  128-lane padding): x2 half-pixel linear interpolation along T. It serves
+  d4's stride-(2,1,1) skip and the stem-skip T-resize at the head.
+* B9a :func:`hw2_upsample` (``_hw2_kernel``): x2 along H, then x2 along W,
+  the stride-(1,2,2) skips of d2 and d3, taken only when
+  :data:`HW2_SKIP_KERNEL` is set (the JAX package's switch, with its name
+  and default). Eval only, as in JAX: no backward.
+
+On a CUDA tensor each wrapper launches ``csrc/upsample.cu``; on a CPU
+tensor it runs its ``*_plain`` twin.
 
 Training goes through :func:`t2_upsample_train` (the autograd Function
 :class:`T2Upsample`): K3 forward, and backward the adjoint of the
@@ -20,6 +25,13 @@ import torch
 
 from csts_torch.kernels import _build
 from csts_torch.ops.resize import upsample2x
+
+# The JAX package's experiment switch (``csts_tpu/kernels/upsample.py:54``),
+# read by the decoder's whole-block route (``models/mvit.py``): its
+# stride-(1,2,2) skips go through B9a when set. Off by default, as in JAX,
+# where it measured as a loss on the TPU; ``python -m
+# csts_torch.tools.ab_flags --configs base hw2_skip`` measures it here.
+HW2_SKIP_KERNEL = False
 
 
 def t2_upsample_plain(x: torch.Tensor, thw: Sequence[int]) -> torch.Tensor:
@@ -55,6 +67,44 @@ def t2_upsample(x: torch.Tensor, thw: Sequence[int]) -> torch.Tensor:
 
 
 t2_upsample.launches = 0
+
+
+def hw2_upsample_plain(x: torch.Tensor, thw: Sequence[int]) -> torch.Tensor:
+    """x: (B, T·H·W, C) on the (T, H, W) grid -> (B, T·2H·2W, C).
+
+    The JAX kernel's two passes and rounding points: x2 along H in fp32,
+    rounded to x's dtype, then x2 along W in fp32, rounded again. The
+    clamped edges are copies (the JAX kernel's 0.25·a + 0.75·a there is the
+    same value up to one fp32 rounding, and exactly in bf16)."""
+    b, l, c = x.shape
+    t, h, w = (int(s) for s in thw)
+    g = upsample2x(x.reshape(b * t, h, w, c).float(), 1).to(x.dtype).float()
+    return upsample2x(g, 2).reshape(b, 4 * l, c).to(x.dtype)
+
+
+def hw2_upsample(x: torch.Tensor, thw: Sequence[int]) -> torch.Tensor:
+    """B9a. x: (B, T·H·W, C) tokens -> (B, T·2H·2W, C), see
+    :func:`hw2_upsample_plain`. Any T, H, W and C."""
+    if x.device.type == "cpu":
+        return hw2_upsample_plain(x, thw)
+    if x.device.type != "cuda":
+        raise ValueError(f"hw2_upsample: unsupported device {x.device}")
+    _build.check_cuda_inputs("hw2_upsample", x)
+    b, l, c = x.shape
+    t, h, w = (int(s) for s in thw)
+    if l != t * h * w:
+        raise ValueError(f"hw2_upsample: {l} tokens are not the grid {tuple(thw)}")
+    x = x.contiguous()
+    out = torch.empty((b, 4 * l, c), dtype=x.dtype, device=x.device)
+    fn = _build.function("upsample", "csts_hw2_upsample")
+    err = fn(_build.dtype_code(x), x.data_ptr(), out.data_ptr(), b * t, h, w, c,
+             _build.stream_ptr(x))
+    _build.check_launch("hw2_upsample", err)
+    hw2_upsample.launches += 1
+    return out
+
+
+hw2_upsample.launches = 0
 
 
 def t2_upsample_adjoint(g: torch.Tensor, thw: Sequence[int]) -> torch.Tensor:

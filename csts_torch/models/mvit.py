@@ -12,7 +12,9 @@ most two heads runs whole in B3 (``kb.fused_block``), an upsample-Q decoder
 block in B5 (``kb.fused_decoder_block``), a Q-pool block in B4
 (``kb.fused_pool_block``); every other block runs LN1 → qkv → pooling convs →
 attention core (K1) → proj → skip → MLP tail (K2). The decoder's
-stride-(2,1,1) skip is K3. In training (``module.train()``) every block takes
+stride-(2,1,1) skip is K3; its stride-(1,2,2) skips on B5's route are B9a
+(``kup.hw2_upsample``) when the JAX package's switch
+``kup.HW2_SKIP_KERNEL`` is set (off by default, as in JAX). In training (``module.train()``) every block takes
 the composite route, as the JAX predicates force when not deterministic: K1
 forward with B8 backward (``ka.attention_train``), the skip plus the
 stochastic-depth attention branch, and the B7 tail (``kb.mlp_tail_train``)
@@ -174,16 +176,21 @@ def pool_tokens_max(x: torch.Tensor, thw: THW, kernel, stride, padding) -> Tuple
     return pooled.reshape(b, -1, c), new_thw
 
 
-def upsample_tokens_trilinear(x: torch.Tensor, thw: THW, stride,
-                              train: bool = False) -> Tuple[torch.Tensor, THW]:
+def upsample_tokens_trilinear(x: torch.Tensor, thw: THW, stride, train: bool = False,
+                              decoder_kernel: bool = False) -> Tuple[torch.Tensor, THW]:
     """nn.Upsample(scale_factor=stride, trilinear) on tokens (attention.py:463-467).
-    The stride-(2,1,1) case is K3 (inside autograd when ``train``); the
-    others go to the plain resize op."""
+    The stride-(2,1,1) case is K3 (inside autograd when ``train``). The
+    stride-(1,2,2) case is B9a when ``kup.HW2_SKIP_KERNEL`` is set, at eval,
+    for the skip of a block on B5's route (``decoder_kernel``): the JAX
+    package reads the switch there only (``_decoder_kernel_forward``,
+    ``csts_tpu/models/mvit.py:798``). The others go to the plain resize op."""
     b, l, c = x.shape
     t, h, w = thw
     size = (t * stride[0], h * stride[1], w * stride[2])
     if tuple(stride) == (2, 1, 1):
         return (kup.t2_upsample_train if train else kup.t2_upsample)(x, thw), size
+    if tuple(stride) == (1, 2, 2) and decoder_kernel and kup.HW2_SKIP_KERNEL and not train:
+        return kup.hw2_upsample(x, thw), size
     up = ops.trilinear_resize(x.reshape(b, t, h, w, c), size)
     return up.reshape(b, -1, c), size
 
@@ -411,20 +418,17 @@ class MultiScaleBlock(nn.Module):
         route = block_route(s, mask, thw)
         if route == "composite":
             return self.forward_composite(x, thw, mask)
+        if route == "block":
+            return self.forward_block(x, thw)
         # the kernels take one dtype: fp32 master weights are cast to x's
         tail = self._tail_weights(x.dtype)
         xn = ops.layer_norm(x, self.norm1.weight, self.norm1.bias)
-        q, k, v = a.project(xn, thw, with_q=route != "block")
-        if route == "block":
-            bq = a.qkv.bias[:s.dim] if a.qkv.bias is not None else a.qkv.weight.new_zeros(s.dim)
-            out = kb.fused_block(x, k, v, s.scale, self.norm1.weight.to(x.dtype),
-                                 self.norm1.bias.to(x.dtype), a.qkv.weight[:s.dim].to(x.dtype),
-                                 bq.to(x.dtype), *tail)
-            return out, thw
+        q, k, v = a.project(xn, thw)
         if route == "decoder_block":
             thw_f = _static_upsample_out(thw, s.kernel_q, s.stride_q, s.padding_q,
                                          s.output_padding_q)
-            out = kb.fused_decoder_block(q, thw, s.stride_q, self._skip(x, thw), k, v, s.scale,
+            out = kb.fused_decoder_block(q, thw, s.stride_q,
+                                         self._skip(x, thw, decoder_kernel=True), k, v, s.scale,
                                          a.upsample_q.weight.to(x.dtype),
                                          a.norm_q.weight.to(x.dtype), a.norm_q.bias.to(x.dtype),
                                          *tail)
@@ -435,14 +439,33 @@ class MultiScaleBlock(nn.Module):
                                   a.norm_q.weight.to(x.dtype), a.norm_q.bias.to(x.dtype), *tail)
         return out, thw_c
 
-    def _skip(self, x: torch.Tensor, thw: THW) -> torch.Tensor:
+    def forward_block(self, x: torch.Tensor, thw: THW) -> Tuple[torch.Tensor, THW]:
+        """An identity-skip block whole in ``kb.fused_block`` after phase 1
+        (LN1 and the pooled K/V): B3's route, which ``block_route`` gives the
+        blocks of at most two heads. At 3-8 heads the same kernel stands for
+        the JAX package's head-grid and block-diagonal variants, which it
+        reaches only through ``fused_block(variant=...)``; so does the port,
+        through ``csts_torch.tools.ab_block``."""
+        s, a = self.spec, self.attn
+        tail = self._tail_weights(x.dtype)
+        xn = ops.layer_norm(x, self.norm1.weight, self.norm1.bias)
+        _, k, v = a.project(xn, thw, with_q=False)
+        bq = a.qkv.bias[:s.dim] if a.qkv.bias is not None else a.qkv.weight.new_zeros(s.dim)
+        out = kb.fused_block(x, k, v, s.scale, self.norm1.weight.to(x.dtype),
+                             self.norm1.bias.to(x.dtype), a.qkv.weight[:s.dim].to(x.dtype),
+                             bq.to(x.dtype), *tail)
+        return out, thw
+
+    def _skip(self, x: torch.Tensor, thw: THW, decoder_kernel: bool = False) -> torch.Tensor:
         """The residual skip of the unnormed input: trilinear upsample
-        (decoder), MaxPool (encoder Q-pool) or identity."""
+        (decoder), MaxPool (encoder Q-pool) or identity. ``decoder_kernel``:
+        the block is on B5's route (see :func:`upsample_tokens_trilinear`)."""
         s = self.spec
         if s.upsample_q:
             if not s.skip_upsample_on:
                 return x
-            return upsample_tokens_trilinear(x, thw, s.stride_q, train=self.training)[0]
+            return upsample_tokens_trilinear(x, thw, s.stride_q, train=self.training,
+                                             decoder_kernel=decoder_kernel)[0]
         if s.skip_pool_on:
             pad = tuple(int(k // 2) for k in s.skip_kernel)
             return pool_tokens_max(x, thw, s.skip_kernel, s.stride_q, pad)[0]

@@ -4,7 +4,9 @@ own): partial query and key tiles, head views with strides, head dims 64 and
 128, output widths and hidden widths that leave partial weight tiles; for the
 whole-block kernels B3-B5, token counts that are no multiple of the tile, H
 and W that are no multiple of the row tile, T of 1 and 3, Lk of 64, 256 and
-1024; for the training kernels B7 (forward and its hand-written backward)
+1024; B9a at ragged planes and channels (one channel a thread or 16 bytes);
+the whole-block kernel at 3, 4 and 8 heads (B9b/B9c) at L 1000 and Lk 200;
+for the training kernels B7 (forward and its hand-written backward)
 and B8, ragged rows and keys, a zero stochastic-depth factor, strided output
 gradients, and the three autograd Functions against autograd of their plain
 versions.
@@ -100,6 +102,18 @@ def test_t2_upsample_ragged(gen, b, thw, c):
     _check("t2_upsample", kup.t2_upsample, kup.t2_upsample_plain, [x, thw])
 
 
+@pytest.mark.parametrize("b,thw,c", [
+    (2, (3, 5, 7), 24),    # 16 bytes of channels a thread in bf16 and fp32
+    (1, (2, 3, 3), 3),     # one channel a thread
+    (2, (1, 9, 4), 100),   # fp32 16 bytes a thread, bf16 one channel
+    (1, (2, 1, 1), 136),   # a 1x1 plane: every tap clamped
+])
+def test_hw2_upsample_ragged(gen, b, thw, c):
+    """B9a at ragged H and W and C no multiple of 128, at K3's bars."""
+    x = _randn(gen, b, thw[0] * thw[1] * thw[2], c)
+    _check("t2_upsample", kup.hw2_upsample, kup.hw2_upsample_plain, [x, thw])
+
+
 def _tail(gen, c, cout, hidden):
     """wproj, bproj, LN2, fc1, fc2 and (when c != cout) the dim-change proj."""
     w = [_randn(gen, c, c, scale=c ** -0.5), _randn(gen, c, scale=0.1),
@@ -121,6 +135,22 @@ def _kv(gen, b, n, lk, hd):
     (1, 70, 192, 192, 2, 1024),   # identity base
 ])
 def test_block_ragged(gen, b, l, c, cout, heads, lk):
+    hd = c // heads
+    k, v = _kv(gen, b, heads, lk, hd)
+    args = [_randn(gen, b, l, c), k, v, hd ** -0.5, 1 + _randn(gen, c, scale=0.1),
+            _randn(gen, c, scale=0.1), _randn(gen, c, c, scale=c ** -0.5),
+            _randn(gen, c, scale=0.1)] + _tail(gen, c, cout, 4 * c)
+    _check("block", kb.fused_block, kb.fused_block_plain, args)
+
+
+@pytest.mark.parametrize("b,l,c,cout,heads,lk", [
+    (1, 1000, 288, 288, 3, 200),   # three heads, ragged tokens and keys
+    (2, 1000, 384, 384, 4, 200),
+    (1, 1000, 384, 768, 4, 200),   # the widening: two output column tiles
+    (2, 1000, 768, 768, 8, 200),   # eight heads, the d768 instance
+])
+def test_block_multihead_ragged(gen, b, l, c, cout, heads, lk):
+    """The whole-block kernel at 3-8 heads (B9b/B9c) at B3's bars."""
     hd = c // heads
     k, v = _kv(gen, b, heads, lk, hd)
     args = [_randn(gen, b, l, c), k, v, hd ** -0.5, 1 + _randn(gen, c, scale=0.1),
@@ -175,6 +205,8 @@ def test_kernels_refuse_gradients(gen):
     x = _randn(gen, 1, 8, 16).requires_grad_()
     with pytest.raises(RuntimeError, match="forward-only"):
         kup.t2_upsample(x, (2, 2, 2))
+    with pytest.raises(RuntimeError, match="forward-only"):
+        kup.hw2_upsample(x, (2, 2, 2))
     x = _randn(gen, 2, 8, 16).requires_grad_()
     w = _randn(gen, 16)
     with pytest.raises(RuntimeError, match="forward-only"):

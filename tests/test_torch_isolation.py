@@ -16,6 +16,7 @@ import csts_torch
 from csts_torch import presets
 from csts_torch.models.csts import CSTS, build_spec
 from csts_torch.serving import GazePredictor
+from csts_torch.tools import ab_block, ab_flags, profile_forward
 
 torch.set_num_threads(2)
 
@@ -81,6 +82,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         csts_torch.resolve_device()
     assert csts_torch.resolve_device("cpu").type == "cpu"
+    # the tools too, unless given --device cpu (tests/test_torch_b9.py runs them so)
+    for tool in (ab_block, ab_flags, profile_forward):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tool.main(["--small"])
 
 
 def test_chip_smoke_refuses_without_cuda_and_alone(tmp_path):
