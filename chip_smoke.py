@@ -12,9 +12,13 @@ Phases (any failure exits non-zero; nothing is caught):
   3. each kernel (K1 attention, K2 MLP tail, K3 T×2 upsample, and the
      whole-block kernels B3 block, B4 pool_block, B5 decoder_block) against
      its plain PyTorch version at every distinct shape the forward launched
-     it with, in bf16 and in fp32 (TF32 off), with the kernel's, the plain
-     version's and one library call's time at the batch-8 shapes, and for
-     the whole-block kernels the same block through the K1+K2 route;
+     it with, in bf16 and in fp32 (TF32 off), K1 also against the plain
+     model of its key split where it splits the keys; at the batch-8 shapes
+     the kernel's, the plain version's and one library call's time (CUDA
+     events over back-to-back calls, host cost included), the kernel's and
+     the library call's device time (``device_ms``: summed durations from
+     ``torch.profiler``), and for the whole-block kernels the same block
+     through the K1+K2 route;
   4. the serving path: three requests (1, 5 and 8 clips) once to warm up,
      then launch counters set to 0, the same requests timed, counters read
      (each must equal its launches per forward times 3); outputs checked
@@ -79,7 +83,7 @@ from csts_torch.ops import sample_drop_masks  # noqa: E402
 from csts_torch.presets import flagship_cfg, flagship_train_cfg  # noqa: E402
 from csts_torch.serving import GazePredictor  # noqa: E402
 from csts_torch.tools import ab_block, ab_flags, card_line  # noqa: E402
-from csts_torch.tools.profile_forward import device_trace, profile_forward  # noqa: E402
+from csts_torch.tools.profile_forward import device_ms, device_trace, profile_forward  # noqa: E402
 from csts_torch.train import step as train_lib  # noqa: E402
 from csts_torch.train.losses import frame_softmax  # noqa: E402
 
@@ -177,6 +181,17 @@ def bf16_bar(name: str, ref: torch.Tensor) -> float:
             "t2_upsample": 2.0 ** -7 * scale, "block": 2.0 ** -5 * scale,
             "pool_block": 2.0 ** -5 * scale, "decoder_block": 2.0 ** -5 * scale,
             "mlp_tail_train": 2.0 ** -6 * scale}[name]
+
+
+def split_bar(ref: torch.Tensor) -> float:
+    """K1's bf16 body against the plain model of its key split and merge:
+    one bf16 ulp of the largest output, 2**-7·max|ref|, plus 1e-3. Both round
+    the same values at the same points (p unnormalised per split, the output
+    once) and differ only in fp32 summation order and exp2 against exp, which
+    can flip one rounding; the floor of 1 in K1's own bar is dropped, so a
+    merge that weights a split wrongly shows at Lk 1024, where the outputs
+    are averages far below 1."""
+    return 2.0 ** -7 * float(ref.float().abs().max()) + 1e-3
 
 
 def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
@@ -526,6 +541,20 @@ def check_kernels(calls_by_bucket: dict, kernels: dict = KERNELS) -> dict:
                     failures.append(f"{name} bf16 bucket {bucket} {sig}: max|Δ| {err} > {bar}; "
                                     f"max|inputs| {ins}, max|kernel| {_max_err(got, 0 * got)}, "
                                     f"max|plain| {_max_err(ref, 0 * ref)}")
+                split = {}
+                if name == "attention":
+                    # K1's key split against the plain model of the split and merge
+                    q, k_ = args[0], args[1]
+                    splits = ka.key_splits(q.shape[0] * q.shape[1], q.shape[2], k_.shape[2],
+                                           torch.cuda.get_device_properties(0).multi_processor_count)
+                    split["splits"] = splits
+                    if splits > 1:
+                        ref_s = ka.fused_attention_split_plain(*args[:4], splits, *args[4:])
+                        split["max_abs_err_split"] = _max_err(got, ref_s)
+                        if not split["max_abs_err_split"] <= split_bar(ref_s):
+                            failures.append(f"{name} split {splits} bucket {bucket} {sig}: max|Δ| "
+                                            f"{split['max_abs_err_split']} vs the split model")
+                        del ref_s
                 args32 = _to_fp32(args)
                 got32 = kern(*args32)
                 torch.cuda.synchronize()
@@ -537,7 +566,7 @@ def check_kernels(calls_by_bucket: dict, kernels: dict = KERNELS) -> dict:
                 del got, ref, got32, ref32, args32
                 row = {"bucket": bucket, "signature": repr(sig), "launches_per_forward": count,
                        "max_abs_err": err, "bar": bar, "max_abs_err_fp32": err32,
-                       "bar_fp32": bar32}
+                       "bar_fp32": bar32, **split}
                 if bucket == max(calls_by_bucket):
                     nbytes, flops = k["cost"](*args)
                     row.update(
@@ -545,6 +574,9 @@ def check_kernels(calls_by_bucket: dict, kernels: dict = KERNELS) -> dict:
                         plain_ms=time_ms(lambda: plain(*args)),
                         library_ms=(time_ms(lambda: k["library"](*args))
                                     if k["library"] is not None else None),
+                        device_ms=device_ms(lambda: kern(*args)),
+                        library_device_ms=(device_ms(lambda: k["library"](*args))
+                                           if k["library"] is not None else None),
                         bytes=nbytes, flops=flops,
                         bytes_ms=nbytes / PEAK_BYTES_S * 1e3,
                         ops_ms=flops / k.get("peak", PEAK_BF16_FLOPS) * 1e3,
@@ -556,8 +588,9 @@ def check_kernels(calls_by_bucket: dict, kernels: dict = KERNELS) -> dict:
                         blk, x_in, thw = ctx
                         row["block_ms"] = time_ms(lambda: blk(x_in, thw))
                         row["composite_ms"] = time_ms(lambda: blk.forward_composite(x_in, thw))
-                    log(f"  {name} {sig[0]} x{count}: {row['ms']:.4f} ms (plain "
-                        f"{row['plain_ms']:.4f}, library {row['library_ms']}, bound "
+                    log(f"  {name} {sig[0]} x{count}: {row['ms']:.4f} ms, device "
+                        f"{row['device_ms']:.4f} (plain {row['plain_ms']:.4f}, library "
+                        f"{row['library_ms']} / device {row['library_device_ms']}, bound "
                         f"{row['bound_ms']:.4f} = bytes {row['bytes_ms']:.4f} / ops "
                         f"{row['ops_ms']:.4f}"
                         + (f"; whole block {row['block_ms']:.4f} vs K1+K2 route "
@@ -1071,6 +1104,11 @@ def main() -> int:
             "ms": per("ms"), "plain_ms": per("plain_ms"), "bound_ms": per("bound_ms"),
             "bound_by": "bytes" if per("bytes_ms") >= per("ops_ms") else "operations",
             "library_ms": None if k["library"] is None else per("library_ms"),
+            # device time (torch.profiler) of the kernel and of the library
+            # call, per forward (eval kernels only)
+            "device_ms": per("device_ms") if name in KERNELS else None,
+            "library_device_ms": (per("library_device_ms")
+                                  if name in KERNELS and k["library"] is not None else None),
             # ms and the bound per forward (serve) or per training step (train)
             "path": path, "launches_train": train["launches"][name],
             # the whole blocks, phase 1 included, through this kernel and

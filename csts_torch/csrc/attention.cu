@@ -6,238 +6,129 @@
 //
 // Bound on the H100: per (batch·head) the kernel must read q (Lq·hd), k and v
 // (Lk·hd) and write out (Lq·hd), and do 4·Lq·Lk·hd operations. With the
-// pooled keys of MViT (Lk 64..1024, Lq up to 32768) that is about Lk
-// operations per byte, so the Lk=256 stem blocks sit near the card's ridge
-// (~295 bf16 operations per byte) and the Lk=1024 Q-pool blocks are bound by
-// the tensor cores.
+// pooled keys of MViT (Lk 64..1024) that is about Lk/2 operations per byte,
+// below the card's ridge (~295 bf16 operations per byte) at every flagship
+// site: the bytes bound it, 5-10 µs a launch at batch 8. What kept the first
+// design (mma.sync, one 4-warp block per 64 rows, two K/V buffers with
+// a block-wide barrier per chunk) at 4-8x that bound was latency, not
+// throughput: at Lq 256 / Lk 1024 (v14, a3) its 256 blocks each walked 16 key
+// chunks in series on a card that holds ~400 of them, and every launch paid
+// ~0.04 ms of host work.
 //
-// Design (bf16, the serving path): one block of 4 warps takes 64 query rows
-// of one (batch, head), each warp 16 of them, and walks the keys in chunks of
-// 64 with an online softmax. A whole fp32 logit row of Lk=1024 for a useful
-// query tile does not fit shared memory at hd 192, so the chunking is what
-// lets one design serve every site. K and V chunks are copied with cp.async
-// into two buffers, so the next chunk loads while the warps work on the
-// current one. Both products are mma.sync m16n8k16 (bf16 in, fp32
-// accumulate) fed by ldmatrix; the logits, the running row max and sum and
-// the (16 x hd) output accumulator stay in each warp's registers, and the
-// probabilities pass from the first product's accumulators to the second's
-// operands without leaving them. Ragged edges (Lq=8, Lq=Lk=260) are masked in
-// the kernel: query rows past Lq load zeros and are not stored, key rows past
-// Lk load zeros and get a logit of -inf. The additive fp32 mask (the spatial
-// fusion's -1e8 in-frame mask) is added to the fp32 logits and never passes
-// through bf16. q, k, v and out are addressed through (batch, head, row)
-// strides, so the caller passes head views of the fused qkv projection and
-// receives the output already in token-major (B, Lq, heads·hd) order.
+// Design (bf16, the serving and training path), redesigned for Hopper:
+//  * Products on wgmma. S = Q Kᵀ is m64n64k16 with Q and K read from shared
+//    memory; O += P V is m64n{hd}k16 with P from registers (the logit
+//    accumulators rounded to bf16 unnormalised, as the TPU kernel and the
+//    first design do) and V read MN-major from shared memory. The logits, the
+//    row max and sum and the (64 x hd) output stay in registers.
+//  * One warpgroup per 64 query rows, two per block where Lq > 64, sharing
+//    each K/V tile. A producer warp loads Q and then the 64-key K/V chunks
+//    with TMA (tensor maps over the (batch, head, row) strides, so the head
+//    views of the fused qkv projection load without a copy) into a ring of
+//    three stages, each with a "full" mbarrier (TMA bytes) and an "empty"
+//    one (consumer arrivals).
+//    No block-wide barrier in the loop: a consumer waits only for the chunk
+//    it needs.
+//  * Software-pipelined: S of chunk i+1 is issued before P·V of chunk i, so
+//    the softmax of chunk i+1 runs while P·V of chunk i is in the tensor
+//    cores; the mask of chunk i+1 loads meanwhile.
+//  * A block walks several query tiles of one (batch, head) where the grid
+//    would take more than one wave (the wrapper picks the count): with two
+//    Q buffers (head dims up to 128) the next tile's Q and first K/V chunks
+//    load while the current tile computes, and the card runs one wave.
+//  * The keys split 1-4 ways where the grid of (batch·head, query tiles)
+//    fills less than one wave of the card (the wrapper picks the count).
+//    Each split writes its unnormalised fp32 output and (m, l) rows; a
+//    second small kernel merges them with the online-softmax algebra and
+//    rounds the output once.
+//  * exp2 with scale·log2(e) folded into one fused multiply-add; the lse
+//    rows (natural log, fp32) for B8 in training.
+//  * The additive mask (the spatial fusion's in-frame mask) is read in its own
+//    dtype, bf16 or fp32, two adjacent columns a load, only in the masked
+//    instance; widening bf16 to fp32 is exact, so the result is the fp32
+//    mask's.
+//  * Host: the shared-memory attribute is set once per instance; the three
+//    tensor maps come from a table of encoded maps (cuTensorMapEncodeTiled
+//    through the runtime's driver entry point, so no -lcuda, only for a new
+//    pointer, shape or stride); the wrapper passes its arguments as one
+//    int64 array.
+// Ragged edges: rows past Lq and keys past Lk load as zeros (TMA's
+// out-of-bounds fill); such keys get a logit of -inf, such rows are not
+// stored.
 //
-// In training the caller also passes an fp32 row of log-sum-exp values, one
-// per query row (lse = m + log l of the online softmax), which the backward
-// kernel B8 (attention_bwd.cu) reads to rebuild the normalised probabilities
-// in one pass over the keys; at eval it passes none.
-//
-// fp32 inputs (the exactness check against the plain version) take a simple
-// body: the same online softmax with exact FMA products in shared memory.
-#include "common.cuh"
+// The bf16 body is in attention_wg.cuh, which B5 (decoder_block.cu) also
+// runs for its attention. fp32 inputs (the exactness check against the plain
+// version) take a simple body here: the same online softmax with exact FMA
+// products in shared memory.
+#include "attention_wg.cuh"
 
 using namespace csts;
+using namespace csts::attn;
 
 namespace {
 
-struct AttnArgs {
-  const void* q;
-  const void* k;
-  const void* v;
-  const float* mask;
-  void* out;
-  float* lse;  // (B·N, Lq) or null
-  int N, Lq, Lk, hd;
-  long long qsb, qsn, qsr, ksb, ksn, ksr, vsb, vsn, vsr, osb, osn, osr;
-  float scale;
-};
-
-// ---------------------------------------------------------------------------
-// bf16: register-tiled flash body
-// ---------------------------------------------------------------------------
-
-using bf16 = __nv_bfloat16;
-
-constexpr int kBQ = 64;       // query rows per block (16 per warp)
-constexpr int kBK = 64;       // keys per chunk
-constexpr int kThreads = 128;
-
-template <int HD>
-__host__ __device__ constexpr int mma_ld() { return HD + 8; }
-
-template <int HD>
-size_t mma_smem_bytes() {
-  return align128(sizeof(bf16) * kBQ * mma_ld<HD>()) +
-         4 * align128(sizeof(bf16) * kBK * mma_ld<HD>());
+// The key splits' merge: one warp a row, m = max m_z, l = Σ l_z·2^(m_z - m),
+// out = Σ o_z·2^(m_z - m) / l rounded once; lse = (m + log2 l)·ln 2.
+__global__ void __launch_bounds__(256) attn_merge_kernel(AttnArgs a, int rows) {
+  const int row = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const int hd = a.hd, bn = row / a.Lq, r = row - bn * a.Lq;
+  const int b = bn / a.N, n = bn % a.N;
+  float m = -INFINITY;
+  for (int z = 0; z < a.splits; ++z) m = fmaxf(m, a.ml[2 * (static_cast<long long>(z) * rows + row)]);
+  const float m_use = m == -INFINITY ? 0.f : m;
+  float f[4], l = 0.f;
+#pragma unroll
+  for (int z = 0; z < 4; ++z) {
+    f[z] = 0.f;
+    if (z < a.splits) {
+      const float2 st = *reinterpret_cast<const float2*>(a.ml + 2 * (static_cast<long long>(z) * rows + row));
+      f[z] = exp2f(st.x - m_use);
+      l += st.y * f[z];
+    }
+  }
+  const float inv = 1.f / l;
+  bf16* orow = static_cast<bf16*>(a.out) + b * a.osb + n * a.osn + r * a.osr;
+  for (int c = 2 * lane; c < hd; c += 64) {
+    float2 acc = make_float2(0.f, 0.f);
+#pragma unroll
+    for (int z = 0; z < 4; ++z) {
+      if (z < a.splits) {
+        const float2 w = *reinterpret_cast<const float2*>(
+            a.ws + (static_cast<long long>(z) * rows + row) * hd + c);
+        acc.x += w.x * f[z];
+        acc.y += w.y * f[z];
+      }
+    }
+    *reinterpret_cast<__nv_bfloat162*>(orow + c) = __floats2bfloat162_rn(acc.x * inv, acc.y * inv);
+  }
+  if (a.lse != nullptr && lane == 0) a.lse[row] = (m + log2f(l)) * kLn2;
 }
 
-// rows x HD bf16 rows (global stride rs) into shared memory (stride HD + 8),
-// zeros for rows at or past `valid`
-template <int HD>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, long long rs, int rows,
-                                          int valid) {
-  constexpr int per_row = HD / 8;
-  for (int idx = threadIdx.x; idx < rows * per_row; idx += kThreads) {
-    const int r = idx / per_row, c8 = idx - r * per_row;
-    const bool ok = r < valid;
-    cp_async16_zfill(dst + r * mma_ld<HD>() + c8 * 8, ok ? src + r * rs + c8 * 8 : src, ok);
-  }
+template <int HD, int NW, bool MASKED>
+__global__ void __launch_bounds__(WgPlan<HD, NW>::kThreads, 1)
+    attn_wg_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap, AttnArgs a) {
+  attn_wg_body<HD, NW, MASKED>(qmap, kmap, vmap, a);
 }
 
-template <int HD>
-__global__ void __launch_bounds__(kThreads) attn_mma_kernel(AttnArgs a) {
-  constexpr int LD = mma_ld<HD>(), DT = HD / 8;  // DT: n8 tiles of the output
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  unsigned char* p = smem_raw;
-  bf16* Qs = reinterpret_cast<bf16*>(carve(p, sizeof(bf16) * kBQ * LD));
-  bf16* Ks[2];
-  bf16* Vs[2];
-  for (int i = 0; i < 2; ++i) {
-    Ks[i] = reinterpret_cast<bf16*>(carve(p, sizeof(bf16) * kBK * LD));
-    Vs[i] = reinterpret_cast<bf16*>(carve(p, sizeof(bf16) * kBK * LD));
-  }
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;  // fragment row / column pair
-  const int b = blockIdx.y / a.N, n = blockIdx.y % a.N;
-  const int q0 = blockIdx.x * kBQ;
-  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.qsb + n * a.qsn;
-  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.ksb + n * a.ksn;
-  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.vsb + n * a.vsn;
-  bf16* ob = static_cast<bf16*>(a.out) + b * a.osb + n * a.osn;
-
-  load_rows<HD>(Qs, qb + q0 * a.qsr, a.qsr, kBQ, a.Lq - q0);
-  load_rows<HD>(Ks[0], kb, a.ksr, kBK, a.Lk);
-  load_rows<HD>(Vs[0], vb, a.vsr, kBK, a.Lk);
-  cp_async_commit();
-
-  // this thread's two query rows (g and g + 8 of the warp's 16)
-  const int qr[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  float o[DT][4] = {};
-  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
-  const bf16* Qw = Qs + warp * 16 * LD;
-
-  int cb = 0;
-  for (int c0 = 0; c0 < a.Lk; c0 += kBK) {
-    cp_async_wait_all();
-    __syncthreads();  // chunk c0 (and Q) visible; buffers cb ^ 1 free
-    if (c0 + kBK < a.Lk) {
-      load_rows<HD>(Ks[cb ^ 1], kb + (c0 + kBK) * a.ksr, a.ksr, kBK, a.Lk - c0 - kBK);
-      load_rows<HD>(Vs[cb ^ 1], vb + (c0 + kBK) * a.vsr, a.vsr, kBK, a.Lk - c0 - kBK);
-    }
-    cp_async_commit();
-    const bf16* K = Ks[cb];
-    const bf16* V = Vs[cb];
-
-    // S = Q Kᵀ for the warp's 16 rows and the chunk's 64 keys
-    float s[kBK / 8][4] = {};
-#pragma unroll
-    for (int k = 0; k < HD; k += 16) {
-      uint32_t qa[4];
-      ldmatrix_x4(qa, Qw + (lane & 15) * LD + k + (lane >> 4) * 8);
-#pragma unroll
-      for (int np = 0; np < kBK / 8; np += 2) {
-        uint32_t kf[4];
-        ldmatrix_x4(kf, K + (np * 8 + (lane & 7) + ((lane >> 4) << 3)) * LD + k +
-                            ((lane >> 3) & 1) * 8);
-        mma_bf16_16816(s[np], qa, kf[0], kf[1]);
-        mma_bf16_16816(s[np + 1], qa, kf[2], kf[3]);
-      }
-    }
-
-    // online softmax in fp32; entries 0,1 of a tile are row g, 2,3 row g + 8
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int nt = 0; nt < kBK / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = c0 + nt * 8 + 2 * t4 + (e & 1), h = e >> 1;
-        float val = -INFINITY;
-        if (col < a.Lk) {
-          val = s[nt][e] * a.scale;
-          if (a.mask != nullptr && qr[h] < a.Lq) val += a.mask[(long long)qr[h] * a.Lk + col];
-        }
-        s[nt][e] = val;
-        mx[h] = fmaxf(mx[h], val);
-      }
-    float alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      const float m_new = fmaxf(m_run[h], mx[h]);  // finite: key c0 < Lk is valid
-      alpha[h] = expf(m_run[h] - m_new);
-      m_run[h] = m_new;
-    }
-#pragma unroll
-    for (int nt = 0; nt < kBK / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float pe = expf(s[nt][e] - m_run[e >> 1]);
-        s[nt][e] = pe;
-        sum[e >> 1] += pe;
-      }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
-      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
-      l_run[h] = l_run[h] * alpha[h] + sum[h];
-    }
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      o[dt][0] *= alpha[0];
-      o[dt][1] *= alpha[0];
-      o[dt][2] *= alpha[1];
-      o[dt][3] *= alpha[1];
-    }
-
-    // O += P V: the logit accumulators of key tiles 2j, 2j+1 are the A
-    // operand of keys 16j .. 16j+15, rounded to bf16
-#pragma unroll
-    for (int j = 0; j < kBK / 16; ++j) {
-      const uint32_t pa[4] = {pack_bf16x2(s[2 * j][0], s[2 * j][1]),
-                              pack_bf16x2(s[2 * j][2], s[2 * j][3]),
-                              pack_bf16x2(s[2 * j + 1][0], s[2 * j + 1][1]),
-                              pack_bf16x2(s[2 * j + 1][2], s[2 * j + 1][3])};
-#pragma unroll
-      for (int dp = 0; dp < DT; dp += 2) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, V + (j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + dp * 8 +
-                                  (lane >> 4) * 8);
-        mma_bf16_16816(o[dp], pa, vf[0], vf[1]);
-        mma_bf16_16816(o[dp + 1], pa, vf[2], vf[3]);
-      }
-    }
-    cb ^= 1;
-  }
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (qr[h] >= a.Lq) continue;
-    // the four lanes of a quad hold the same row statistics
-    if (a.lse != nullptr && t4 == 0)
-      a.lse[(long long)blockIdx.y * a.Lq + qr[h]] = m_run[h] + logf(l_run[h]);
-    const float inv = 1.f / l_run[h];
-    bf16* orow = ob + qr[h] * a.osr;
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt)
-      *reinterpret_cast<__nv_bfloat162*>(orow + dt * 8 + 2 * t4) =
-          __floats2bfloat162_rn(o[dt][2 * h] * inv, o[dt][2 * h + 1] * inv);
-  }
-}
-
-template <int HD>
-cudaError_t launch_mma(const AttnArgs& a, int B, cudaStream_t stream) {
-  const size_t smem = mma_smem_bytes<HD>();
-  auto kern = attn_mma_kernel<HD>;
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(smem));
-  if (e != cudaSuccess) return e;
-  dim3 grid((a.Lq + kBQ - 1) / kBQ, B * a.N);
-  kern<<<grid, kThreads, smem, stream>>>(a);
+template <int HD, int NW, bool MASKED>
+cudaError_t launch_wg(const AttnArgs& a, int B, cudaStream_t stream) {
+  static bool attr_set = false;  // once per instance
+  cudaError_t e = launch_attn<HD, NW>(attn_wg_kernel<HD, NW, MASKED>, attr_set, a, B, stream);
+  if (e != cudaSuccess || a.splits == 1) return e;
+  const int rows = B * a.N * a.Lq;
+  attn_merge_kernel<<<(rows + 7) / 8, 256, 0, stream>>>(a, rows);
   return cudaGetLastError();
+}
+
+// two consumer warpgroups a block where Lq > 64, else one
+template <int HD>
+cudaError_t launch_hd(const AttnArgs& a, int B, cudaStream_t stream) {
+  const bool two = a.Lq > 64;
+  if (a.mask != nullptr)
+    return two ? launch_wg<HD, 2, true>(a, B, stream) : launch_wg<HD, 1, true>(a, B, stream);
+  return two ? launch_wg<HD, 2, false>(a, B, stream) : launch_wg<HD, 1, false>(a, B, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -245,6 +136,7 @@ cudaError_t launch_mma(const AttnArgs& a, int B, cudaStream_t stream) {
 // ---------------------------------------------------------------------------
 
 constexpr int kF32BQ = 32;
+constexpr int kThreads = 128;
 
 size_t f32_smem_bytes(int hd) {
   const int ld = hd + kF32Pad;
@@ -307,7 +199,8 @@ __global__ void __launch_bounds__(kThreads) attn_f32_kernel(AttnArgs a) {
         float val = -INFINITY;
         if (kc < a.Lk) {
           val = S[r * kBK + col] * a.scale;
-          if (a.mask != nullptr && qi < a.Lq) val += a.mask[(long long)qi * a.Lk + kc];
+          if (a.mask != nullptr && qi < a.Lq)
+            val += static_cast<const float*>(a.mask)[(long long)qi * a.Lk + kc];
         }
         s[j] = val;
         mx = fmaxf(mx, val);
@@ -357,24 +250,29 @@ cudaError_t launch_f32(const AttnArgs& a, int B, cudaStream_t stream) {
 
 }  // namespace
 
-extern "C" int csts_attention_fwd(int dtype, const void* q, const void* k, const void* v,
-                                  const void* mask, void* out, void* lse, int B, int N, int Lq,
-                                  int Lk,
-                                  int hd, long long qsb, long long qsn, long long qsr,
-                                  long long ksb, long long ksn, long long ksr, long long vsb,
-                                  long long vsn, long long vsr, long long osb, long long osn,
-                                  long long osr, float scale, void* stream) {
-  AttnArgs a{q,   k,   v,   static_cast<const float*>(mask), out, static_cast<float*>(lse),
-             N,   Lq,  Lk,  hd, qsb, qsn, qsr, ksb, ksn, ksr, vsb, vsn, vsr, osb, osn, osr,
+// One pointer to 29 int64 values, so that the host's call converts three
+// arguments, not twenty-nine: dtype, q, k, v, mask, mask_bf16, out, lse, ws,
+// ml, splits, tpb, B, N, Lq, Lk, hd, then the (batch, head, row) strides of
+// q, k, v and out.
+extern "C" int csts_attention_fwd(const long long* p, float scale, void* stream) {
+  const auto ptr = [&](int i) { return reinterpret_cast<void*>(static_cast<uintptr_t>(p[i])); };
+  const int dtype = static_cast<int>(p[0]), mask_bf16 = static_cast<int>(p[5]);
+  const int splits = static_cast<int>(p[10]), tpb = static_cast<int>(p[11]);
+  const int B = static_cast<int>(p[12]), hd = static_cast<int>(p[16]);
+  AttnArgs a{ptr(1), ptr(2), ptr(3), ptr(4), mask_bf16, ptr(6), static_cast<float*>(ptr(7)),
+             static_cast<float*>(ptr(8)), static_cast<float*>(ptr(9)), static_cast<int>(p[13]),
+             static_cast<int>(p[14]), static_cast<int>(p[15]), hd, splits, tpb,
+             p[17], p[18], p[19], p[20], p[21], p[22], p[23], p[24], p[25], p[26], p[27], p[28],
              scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32) return launch_f32(a, B, s);
-  if (dtype != kBFloat16) return cudaErrorInvalidValue;
+  if (dtype == kFloat32) return (mask_bf16 || splits != 1) ? cudaErrorInvalidValue : launch_f32(a, B, s);
+  if (dtype != kBFloat16 || splits < 1 || splits > 4 || tpb < 1 || (splits > 1 && tpb > 1))
+    return cudaErrorInvalidValue;
   switch (hd) {
-    case 64: return launch_mma<64>(a, B, s);
-    case 96: return launch_mma<96>(a, B, s);
-    case 128: return launch_mma<128>(a, B, s);
-    case 192: return launch_mma<192>(a, B, s);
+    case 64: return launch_hd<64>(a, B, s);
+    case 96: return launch_hd<96>(a, B, s);
+    case 128: return launch_hd<128>(a, B, s);
+    case 192: return launch_hd<192>(a, B, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -35,8 +35,8 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 # library -> {C function: argument types}
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "attention": {
-        # dtype, q, k, v, mask, out, lse, B, N, Lq, Lk, hd, 12 strides, scale, stream
-        "csts_attention_fwd": [_I] + [_P] * 6 + [_I] * 5 + [_LL] * 12 + [_F, _P],
+        # 29 int64 values (see attention.cu), scale, stream
+        "csts_attention_fwd": [_P, _F, _P],
     },
     "attention_bwd": {
         # dtype, q, k, v, o, g, lse, delta, dq, dk, dv, ws, max_chunks, B, N, Lq, Lk,
@@ -62,7 +62,8 @@ _FUSED_BLOCK_ARGS = [_I] + [_P] * 23 + [_LL] + [_I] * 17 + [_F, _P]
 SIGNATURES.update({
     "block": {"csts_fused_block": _FUSED_BLOCK_ARGS},
     "pool_block": {"csts_fused_pool_block": _FUSED_BLOCK_ARGS},
-    "decoder_block": {"csts_fused_decoder_block": _FUSED_BLOCK_ARGS},
+    # B5 also takes its three scratch buffers (q, av, res1) after the output
+    "decoder_block": {"csts_fused_decoder_block": [_I] + [_P] * 26 + _FUSED_BLOCK_ARGS[24:]},
 })
 
 _libs: Dict[str, ctypes.CDLL] = {}

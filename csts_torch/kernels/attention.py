@@ -3,11 +3,14 @@ and its backward.
 
 Port of ``csts_tpu/kernels/attention.py``: ``_attn_kernel`` (K1) and
 ``_flash_bwd_kernel`` (B8). On a CUDA tensor :func:`fused_attention` launches
-the hand-written kernel in ``csrc/attention.cu`` (mma.sync bf16 products with
-fp32 accumulation, online softmax over key chunks, probabilities kept in
-registers) and :func:`fused_attention_bwd` the one in
+the hand-written kernel in ``csrc/attention.cu`` (bf16: wgmma products fed by
+a TMA ring of K/V chunks, online softmax in registers, the keys split 1-4
+ways where the grid would leave the card idle, see :func:`key_splits`; fp32:
+an exact FMA body) and :func:`fused_attention_bwd` the one in
 ``csrc/attention_bwd.cu``; on a CPU tensor each runs its ``*_plain`` twin,
 the same function in plain PyTorch. There is no other route.
+:func:`fused_attention_split_plain` is the plain model of the key split and
+its merge.
 
 Training goes through :func:`attention_train` (the autograd Function
 :class:`FusedAttention`): unmasked sites run K1 forward, which then also
@@ -19,6 +22,7 @@ as JAX's XLA fallback does.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -32,10 +36,13 @@ HEAD_DIMS = (64, 96, 128, 192)
 
 def _rows16(t: torch.Tensor) -> torch.Tensor:
     """t if its rows are unit-stride and start on 16-byte boundaries (the
-    kernel copies 16-byte pieces of them), else a contiguous copy."""
-    aligned = (t.stride(-1) == 1 and all(st % 8 == 0 for st in t.stride()[:-1])
-               and t.data_ptr() % 16 == 0)
-    return t if aligned else t.clone(memory_format=torch.contiguous_format)
+    kernels load 16-byte pieces of them; TMA needs 16-byte strides), else a
+    contiguous copy."""
+    st = t.stride()
+    if st[-1] == 1 and st[0] % 8 == 0 and st[1] % 8 == 0 and st[2] % 8 == 0 \
+            and t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def _check_shapes(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -66,32 +73,122 @@ def fused_attention_plain(
     return out.to(v.dtype)
 
 
+# keys a chunk of the bf16 body and a ring stage; query rows a block takes
+KEY_CHUNK = 64
+MAX_SPLITS = 4
+
+
+def key_splits(bn: int, lq: int, lk: int, sms: int) -> int:
+    """How many ways K1's bf16 body splits the keys: as many as the grid
+    still fits in one wave of one block an SM (a block takes 128 query rows
+    of one (batch, head), 64 where Lq ≤ 64, and its registers leave room for
+    one block), at most 4, and at least 4 key chunks a split, so that the
+    merge's extra launch pays for itself. A grid that already fills the card
+    is not split: more blocks would only queue."""
+    tiles = -(-lq // (128 if lq > 64 else 64)) * bn
+    chunks = -(-lk // KEY_CHUNK)
+    return max(1, min(MAX_SPLITS, chunks // 4, sms // tiles))
+
+
+def split_ranges(lk: int, splits: int) -> list:
+    """The key range [start, stop) of each split, as the kernel cuts them:
+    whole chunks, ceil(chunks / splits) a split (the last may be short)."""
+    chunks = -(-lk // KEY_CHUNK)
+    per = -(-chunks // splits)
+    return [(z * per * KEY_CHUNK, min(lk, (z + 1) * per * KEY_CHUNK))
+            for z in range(splits) if z * per * KEY_CHUNK < lk]
+
+
+def fused_attention_split_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, splits: int,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain model of the bf16 body's key split and merge: per split z (keys
+    of :func:`split_ranges`), fp32 logits, m_z their row max, p_z = exp(s −
+    m_z), l_z = Σ p_z in fp32 and o_z = p_z (rounded to v's dtype) · v_z in
+    fp32; then m = max m_z, f_z = exp(m_z − m) and out = Σ f_z o_z / Σ f_z l_z,
+    rounded once. With one split it is :func:`fused_attention_plain` but for
+    the unnormalised rounding of p."""
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if mask is not None:
+        logits = logits + mask.float()
+    parts = []
+    for a, b in split_ranges(k.shape[2], splits):
+        s = logits[..., a:b]
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+        parts.append((m, p.sum(dim=-1, keepdim=True),
+                      torch.matmul(p.to(v.dtype).float(), v[..., a:b, :].float())))
+    m = torch.stack([m_z for m_z, _, _ in parts]).amax(dim=0)
+    num = sum(torch.exp(m_z - m) * o_z for m_z, _, o_z in parts)
+    den = sum(torch.exp(m_z - m) * l_z for m_z, l_z, _ in parts)
+    return (num / den).to(v.dtype)
+
+
+_SMS: dict = {}
+_FWD = []  # the C entry point, looked up once
+_ARGS = ctypes.c_longlong * 29
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
+def query_tiles_per_block(bn: int, lq: int, sms: int) -> int:
+    """How many query tiles (128 rows, 64 where Lq ≤ 64) of one (batch,
+    head) a block of K1's bf16 body walks: enough that the grid is one wave
+    of one block an SM; the next tile's loads then overlap the current
+    tile's work instead of waiting for a second wave."""
+    rows = 128 if lq > 64 else 64
+    return max(1, -(-(-(-lq // rows) * bn) // sms))
+
+
 def _attention_fwd(q, k, v, scale, mask, with_lse: bool):
     """K1 on CUDA tensors: (out, lse), lse the fp32 (B·N, Lq) log-sum-exp of
-    each row's logits when ``with_lse``, else None."""
+    each row's logits when ``with_lse``, else None. The bf16 body's key
+    splits and query tiles a block are :func:`key_splits` and
+    :func:`query_tiles_per_block`, read from the module on each call.
+    It runs on every launch, so it allocates only the outputs and keeps its
+    checks to the tensors' metadata."""
     _build.check_cuda_inputs("fused_attention", q, k, v)
     _check_shapes("fused_attention", q, k, v)
+    if not scale > 0:
+        raise ValueError(f"fused_attention: scale {scale} must be positive")
     b, n, lq, hd = q.shape
     lk = k.shape[2]
-    q, k, v = (_rows16(t) for t in (q, k, v))
+    q, k, v = _rows16(q), _rows16(k), _rows16(v)
+    bf16 = q.dtype == torch.bfloat16
+    mask_bf16 = 0
     if mask is not None:
-        if mask.shape != (lq, lk):
-            raise ValueError(f"fused_attention: mask {tuple(mask.shape)} is not ({lq}, {lk})")
-        mask = mask.to(device=q.device, dtype=torch.float32).contiguous()
-    out = torch.empty((b, lq, n, hd), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b * n, lq), dtype=torch.float32, device=q.device) if with_lse else None
-    fn = _build.function("attention", "csts_attention_fwd")
-    err = fn(
-        _build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        mask.data_ptr() if mask is not None else None, out.data_ptr(),
-        lse.data_ptr() if lse is not None else None,
-        b, n, lq, lk, hd,
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        lq * n * hd, hd, n * hd,
-        float(scale), _build.stream_ptr(q),
-    )
+        if mask.shape != (lq, lk) or mask.device != q.device:
+            raise ValueError(f"fused_attention: mask {tuple(mask.shape)} on {mask.device} is "
+                             f"not ({lq}, {lk}) on {q.device}")
+        # the bf16 body reads a bf16 or fp32 mask as it is; the fp32 body fp32
+        if not (bf16 and mask.dtype == torch.bfloat16):
+            mask = mask.to(torch.float32)
+        mask_bf16 = int(mask.dtype == torch.bfloat16)
+        mask = mask.contiguous()
+    dev = q.device
+    splits = key_splits(b * n, lq, lk, _sm_count(dev)) if bf16 else 1
+    tpb = query_tiles_per_block(b * n, lq, _sm_count(dev)) if bf16 and splits == 1 else 1
+    out = torch.empty((b, lq, n, hd), dtype=q.dtype, device=dev)
+    lse = torch.empty((b * n, lq), dtype=torch.float32, device=dev) if with_lse else None
+    ws = ml = None
+    if splits > 1:
+        ws = torch.empty((splits, b * n, lq, hd), dtype=torch.float32, device=dev)
+        ml = torch.empty((splits, b * n, lq, 2), dtype=torch.float32, device=dev)
+    if not _FWD:
+        _FWD.append(_build.function("attention", "csts_attention_fwd"))
+    qs, ks, vs = q.stride(), k.stride(), v.stride()
+    ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
+    err = _FWD[0](_ARGS(
+        _build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(mask), mask_bf16,
+        out.data_ptr(), ptr(lse), ptr(ws), ptr(ml), splits, tpb, b, n, lq, lk, hd,
+        qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], lq * n * hd, hd, n * hd,
+    ), float(scale), _build.stream_ptr(q))
     _build.check_launch("fused_attention", err)
     fused_attention.launches += 1
     return out.permute(0, 2, 1, 3), lse

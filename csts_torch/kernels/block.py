@@ -384,7 +384,8 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 def _launch_block(name, lib, fn, *, x=None, q=None, q_rs=0, skip=None, k, v, ln1=(None, None),
                   wq=None, bq=None, wconv=None, nq=(None, None), wproj, bproj, tail,
-                  out_rows, grid_out=(0, 0, 0), grid_src=(0, 0, 0), stride=(1, 1, 1), scale):
+                  out_rows, grid_out=(0, 0, 0), grid_src=(0, 0, 0), stride=(1, 1, 1), scale,
+                  scratch=False):
     ln2_w, ln2_b, fc1_w, fc1_b, fc2_w, fc2_b, proj_w, proj_b = tail
     if (proj_w is None) != (proj_b is None):
         raise ValueError(f"{name}: proj weight and bias go together")
@@ -413,9 +414,21 @@ def _launch_block(name, lib, fn, *, x=None, q=None, q_rs=0, skip=None, k, v, ln1
     x, skip, k, v = (None if t is None else _aligned(t) for t in (x, skip, k, v))
     ws = [None if t is None else _aligned(t)
           for t in (*ln1, wq, bq, wconv, *nq, wproj, bproj, *tail)]
+    held = []
+    if scratch:
+        # B5's bf16 body parks the fine q (64 rows of slack a clip: its conv
+        # writes whole tiles), av (both rounded) and res1 (fp32) between its
+        # launches; the fp32 body needs none of them. The tensors are held
+        # until all three launches are queued: a buffer freed earlier could be
+        # handed to the next one on the same stream, and one launch would
+        # write over what another reads.
+        bf16 = dt == torch.bfloat16
+        held = [torch.empty(shape, dtype=t, device=dev) if bf16 else None
+                for shape, t in (((b, out_rows + 64, c), dt), ((b * out_rows, c), dt),
+                                 ((b * out_rows, c), torch.float32))]
     err = _build.function(lib, fn)(
         _build.dtype_code(k), ptr(x), ptr(q), ptr(skip), ptr(k), ptr(v), *map(ptr, ws),
-        out.data_ptr(), int(q_rs), b, out_rows, c, cout, hidden, n, hd, lk,
+        out.data_ptr(), *map(ptr, held), int(q_rs), b, out_rows, c, cout, hidden, n, hd, lk,
         *grid_out, *grid_src, *stride, float(scale), _build.stream_ptr(k),
     )
     _build.check_launch(name, err)
@@ -507,7 +520,8 @@ def fused_decoder_block(q, thw, stride, skip, k, v, scale, wconv, nq_w, nq_b, wp
     out = _launch_block("fused_decoder_block", "decoder_block", "csts_fused_decoder_block",
                         q=q, q_rs=q.stride(1), skip=skip, k=k, v=v, wconv=_taps(wconv),
                         nq=(nq_w, nq_b), wproj=wproj, bproj=bproj, tail=tail, out_rows=l_out,
-                        grid_out=out_grid, grid_src=src, stride=stride, scale=scale)
+                        grid_out=out_grid, grid_src=src, stride=stride, scale=scale,
+                        scratch=True)
     fused_decoder_block.launches += 1
     return out
 

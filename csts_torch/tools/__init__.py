@@ -1,5 +1,7 @@
 """Measurement tools of the port, the counterparts of the JAX package's
-``tools/ab_block.py``, ``tools/ab_flags.py`` and ``tools/profile_forward.py``.
+``tools/ab_block.py``, ``tools/ab_flags.py`` and ``tools/profile_forward.py``,
+and two of its own: ``ab_kernels`` (K1 and B5 of two checkouts in turns) and
+``b5_phases`` (B5's phase split from clock stamps).
 Each runs on CUDA unless given ``--device cpu`` (``python -m
 csts_torch.tools.<name> --help``); a CPU run checks that the tool runs and
 gives no device metric."""

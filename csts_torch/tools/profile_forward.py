@@ -26,7 +26,7 @@ import torch
 # device kernels by family, matched in order on the kernel name the profiler
 # reports (the first family whose key is in the lowered name takes it)
 FAMILIES = (
-    ("K1 attention", ("attn_mma_kernel", "attn_f32_kernel")),
+    ("K1 attention", ("attn_wg_kernel", "attn_merge_kernel", "attn_f32_kernel")),
     ("B8 attention_bwd", ("dq_mma_kernel", "dkdv_mma_kernel", "dq_f32_kernel", "dkdv_f32_kernel",
                           "namespace)::reduce_kernel<")),
     # B7 is the TRAIN = true instance of K2's templates
@@ -35,6 +35,8 @@ FAMILIES = (
     ("K2 mlp_tail", ("mlp_tail_mma_kernel", "mlp_tail_f32_kernel")),
     ("K3 t2_upsample", ("t2_upsample_kernel",)),
     ("B9a hw2_upsample", ("hw2_upsample_kernel",)),
+    # B5's three kernels; its fp32 body stays with the whole blocks'
+    ("B5 decoder_block", ("decoder_conv_kernel", "decoder_attn_kernel", "decoder_tail_kernel")),
     ("B3-B5, B9b/c whole blocks", ("block_mma_kernel", "block_f32_kernel")),
     ("convolution", ("conv", "cudnn", "implicit", "dgrad", "fprop", "winograd")),
     ("matmul", ("gemm", "cutlass", "xmma", "matmul", "nvjet")),
@@ -78,6 +80,14 @@ def device_trace(fn: Callable[[], object]) -> tuple:
         busy += max(0.0, end - max(start, reach)) / 1e3
         reach = max(reach, end)
     return wall_ms, busy, by_name, len(spans)
+
+
+def device_ms(fn: Callable[[], object], calls: int = 20) -> float:
+    """Device time per call of ``fn``: the summed durations of the device
+    activities (kernels, copies) that ``calls`` calls launch, over ``calls``.
+    It does not depend on how fast the host launches. 0 without a card."""
+    _, _, by_name, _ = device_trace(lambda: [fn() for _ in range(calls)])
+    return sum(by_name.values()) / calls
 
 
 def profile_forward(fn: Callable[[], object], fwd_ms: float, log: Callable[[str], None] = print,

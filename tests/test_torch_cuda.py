@@ -4,7 +4,9 @@ own): partial query and key tiles, head views with strides, head dims 64 and
 128, output widths and hidden widths that leave partial weight tiles; for the
 whole-block kernels B3-B5, token counts that are no multiple of the tile, H
 and W that are no multiple of the row tile, T of 1 and 3, Lk of 64, 256 and
-1024; B9a at ragged planes and channels (one channel a thread or 16 bytes);
+1024; K1 with its keys split (against the plain model of the split too),
+with blocks that walk several query tiles, and with the mask in bf16 and
+fp32, the log-sum-exp rows on and off; B9a at ragged planes and channels (one channel a thread or 16 bytes);
 the whole-block kernel at 3, 4 and 8 heads (B9b/B9c) at L 1000 and Lk 200;
 for the training kernels B7 (forward and its hand-written backward)
 and B8, ragged rows and keys, a zero stochastic-depth factor, strided output
@@ -23,7 +25,7 @@ import pytest
 import torch
 
 from chip_smoke import (B7_BWD_BAR, B7_BWD_VECTOR_BAR, B8_BAR, FP32_ATOL, FP32_RTOL, bf16_bar,
-                        rel_err)
+                        rel_err, split_bar)
 from csts_torch.kernels import attention as ka
 from csts_torch.kernels import block as kb
 from csts_torch.kernels import upsample as kup
@@ -79,6 +81,77 @@ def test_attention_ragged(gen, b, n, lq, lk, hd, masked, fused_qkv):
     mask = torch.from_numpy(build_inframe_mask((4, 8, 8), 4)).cuda() if masked else None
     _check("attention", ka.fused_attention, ka.fused_attention_plain,
            [q, k, v, hd ** -0.5, mask], keep=(4,))
+
+
+@pytest.mark.parametrize("b,n,lq,lk", [
+    (1, 2, 256, 1024),   # the Q-pool shape (v14, a3) at batch 1: four key splits
+    (1, 2, 100, 1000),   # ragged keys: the last chunk and the last split short
+])
+def test_attention_key_split(gen, b, n, lq, lk):
+    """K1's bf16 body with the keys split: against the plain version (both
+    dtypes) and, in bf16, against the plain model of the split and merge."""
+    hd = 96
+    q, k, v = _randn(gen, b, n, lq, hd), _randn(gen, b, n, lk, hd), _randn(gen, b, n, lk, hd)
+    splits = ka.key_splits(b * n, lq, lk, torch.cuda.get_device_properties(0).multi_processor_count)
+    assert splits > 1
+    _check("attention", ka.fused_attention, ka.fused_attention_plain, [q, k, v, hd ** -0.5])
+    with torch.inference_mode():
+        q16, k16, v16 = q.bfloat16(), k.bfloat16(), v.bfloat16()
+        got = ka.fused_attention(q16, k16, v16, hd ** -0.5)
+        want = ka.fused_attention_split_plain(q16, k16, v16, hd ** -0.5, splits)
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= split_bar(want), err
+
+
+@pytest.mark.parametrize("lq,hd,tpb,masked", [
+    (333, 96, 2, False),    # two Q buffers, a ragged last tile
+    (333, 96, 3, False),
+    (333, 192, 2, False),   # one Q buffer (head dim 192)
+    (260, 96, 2, True),     # the masked site's shape
+])
+def test_attention_query_tiles_per_block(gen, monkeypatch, lq, hd, tpb, masked):
+    """K1's bf16 body with blocks that walk several query tiles (the policy
+    set to ``tpb`` at these small grids)."""
+    monkeypatch.setattr(ka, "query_tiles_per_block", lambda *_: tpb)
+    lk = lq if masked else 200
+    q, k, v = _randn(gen, 2, 2, lq, hd), _randn(gen, 2, 2, lk, hd), _randn(gen, 2, 2, lk, hd)
+    mask = (torch.from_numpy(build_inframe_mask((4, 8, 8), 4)).cuda().bfloat16()
+            if masked else None)
+    with torch.inference_mode():
+        q16, k16, v16 = q.bfloat16(), k.bfloat16(), v.bfloat16()
+        got, lse = ka._attention_fwd(q16, k16, v16, hd ** -0.5, mask, True)
+        want = ka.fused_attention_plain(q16, k16, v16, hd ** -0.5, mask)
+        assert float((got.float() - want.float()).abs().max()) <= bf16_bar("attention", want)
+        logits = torch.matmul(q16.float(), k16.float().transpose(-1, -2)) * hd ** -0.5
+        if mask is not None:
+            logits = logits + mask.float()
+        ref = torch.logsumexp(logits, dim=-1).reshape(-1, lq)
+        assert float((lse - ref).abs().max()) <= 1e-4 * max(1.0, float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("mask_dtype", [None, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("with_lse", [False, True])
+def test_attention_mask_dtype_and_lse(gen, mask_dtype, with_lse):
+    """The bf16 body reads the mask in its own dtype (bf16 or fp32) and writes
+    the log-sum-exp rows when asked, masked or not."""
+    b, n, lq, lk, hd = 1, 2, 260, 260, 96
+    q, k, v = (_randn(gen, b, n, l, hd).bfloat16() for l in (lq, lk, lk))
+    mask = None
+    if mask_dtype is not None:
+        mask = torch.from_numpy(build_inframe_mask((4, 8, 8), 4)).cuda().to(mask_dtype)
+    with torch.inference_mode():
+        out, lse = ka._attention_fwd(q, k, v, hd ** -0.5, mask, with_lse=with_lse)
+        want = ka.fused_attention_plain(q, k, v, hd ** -0.5, mask)
+        assert float((out.float() - want.float()).abs().max()) <= bf16_bar("attention", want)
+        if not with_lse:
+            assert lse is None
+            return
+        logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * hd ** -0.5
+        if mask is not None:
+            logits = logits + mask.float()
+        ref = torch.logsumexp(logits, dim=-1).reshape(b * n, lq)
+        assert lse.shape == (b * n, lq) and lse.dtype == torch.float32
+        assert float((lse - ref).abs().max()) <= 1e-4 * max(1.0, float(ref.abs().max()))
 
 
 @pytest.mark.parametrize("m,c,h,cout,proj", [
@@ -184,16 +257,44 @@ def test_pool_block_ragged(gen, b, thw, c, cout, heads, lk):
     (1, (1, 4, 6), (1, 2, 2), 768, 384, 4, 64),   # head dim 192, 32-token tiles
     (2, (3, 5, 7), (2, 1, 1), 192, 96, 2, 64),    # odd coarse T, partial tiles
     (1, (3, 3, 5), (1, 2, 2), 384, 192, 4, 256),
+    (2, (2, 5, 7), (1, 2, 2), 768, 384, 4, 64),    # d2 geometry, 280 rows: a partial 64-row tile
+    (1, (3, 6, 10), (2, 1, 1), 384, 192, 4, 64),   # d3 widths at stride (2,1,1), 360 rows
+    (2, (2, 5, 7), (1, 2, 2), 768, 384, 8, 64),    # d2 widths at eight heads of 96
+    (1, (2, 4, 6), (1, 2, 2), 768, 384, 6, 64),    # head dim 128: the first design's body
 ])
 def test_decoder_block_ragged(gen, b, thw, stride, c, cout, heads, lk):
+    _check("decoder_block", kb.fused_decoder_block, kb.fused_decoder_block_plain,
+           _decoder_args(gen, b, thw, stride, c, cout, heads, lk))
+
+
+def _decoder_args(gen, b, thw, stride, c, cout, heads, lk):
     hd = c // heads
     t, h, w = thw
     l_out = t * h * w * stride[0] * stride[1] * stride[2]
     k, v = _kv(gen, b, heads, lk, hd)
-    args = [_q_source(gen, b, t * h * w, c), thw, stride, _randn(gen, b, l_out, c), k, v,
+    return [_q_source(gen, b, t * h * w, c), thw, stride, _randn(gen, b, l_out, c), k, v,
             hd ** -0.5, _randn(gen, hd, 1, 3, 3, 3, scale=0.2), 1 + _randn(gen, hd, scale=0.1),
             _randn(gen, hd, scale=0.1)] + _tail(gen, c, cout, 4 * cout)
-    _check("decoder_block", kb.fused_decoder_block, kb.fused_decoder_block_plain, args)
+
+
+def test_decoder_block_scratch_held(gen):
+    """B5's bf16 body parks q, av and res1 in scratch buffers between its
+    three launches. At ragged L with two clips, twice with other allocations
+    in between, each call must match the plain version and the other call:
+    a scratch buffer handed to another of the launches would not."""
+    args = [a.bfloat16() if isinstance(a, torch.Tensor) else a
+            for a in _decoder_args(gen, 2, (2, 5, 7), (1, 2, 2), 768, 384, 4, 64)]
+    with torch.inference_mode():
+        first = kb.fused_decoder_block(*args)
+        churn = [torch.empty(2 * 288 * 768 * n, dtype=torch.bfloat16, device="cuda")
+                 for n in (1, 2, 4)]
+        second = kb.fused_decoder_block(*args)
+        del churn
+        torch.cuda.synchronize()
+        want = kb.fused_decoder_block_plain(*args)
+        for got in (first, second):
+            assert float((got.float() - want.float()).abs().max()) <= bf16_bar("decoder_block", want)
+        assert torch.equal(first, second)
 
 
 def test_kernels_refuse_gradients(gen):
