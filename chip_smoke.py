@@ -232,6 +232,22 @@ def _tail_cost(x, ln_w, ln_b, w1, b1, w2, b2, wp=None, bp=None):
     return nbytes, flops
 
 
+def _tail_cublas(x, ln_w, ln_b, w1, b1, w2, b2, wp=None, bp=None, *_):
+    """The tail's products alone as cuBLAS runs them (``torch.mm`` of fc1, fc2
+    and the dim-change proj on operands of the same shapes and dtype): a
+    yardstick for K2's and B7's products, not the same function (no LN2,
+    GELU, biases or base), so not their ``library_ms``."""
+    x2 = x.reshape(-1, x.shape[-1])
+    g = torch.empty((x2.shape[0], w1.shape[0]), dtype=x.dtype, device=x.device)
+
+    def run():
+        torch.mm(x2, w1.t())
+        torch.mm(g, w2.t())
+        if wp is not None:
+            torch.mm(x2, wp.t())
+    return run
+
+
 def _t2_cost(x, thw):
     return 3 * x.numel() * x.element_size(), 3 * 2 * x.numel()
 
@@ -316,7 +332,7 @@ KERNELS = {
     ),
     "mlp_tail": dict(
         module=kb, attr="fused_mlp_tail", plain=kb.fused_mlp_tail_plain,
-        library=None, cost=_tail_cost, route="cuda",
+        library=None, cost=_tail_cost, route="cuda", yardstick=_tail_cublas,
         source="csts_torch/csrc/mlp_tail.cu",
         replaces="csts_tpu/kernels/block.py:631 (_mlp_tail_kernel; pallas_call at :700)",
     ),
@@ -350,7 +366,7 @@ WHOLE_BLOCKS = ("block", "pool_block", "decoder_block")
 TRAIN_KERNELS = {
     "mlp_tail_train": dict(
         module=kb, attr="fused_mlp_tail_train", plain=kb.fused_mlp_tail_train_plain,
-        library=None, cost=_tail_train_cost, route="cuda",
+        library=None, cost=_tail_train_cost, route="cuda", yardstick=_tail_cublas,
         source="csts_torch/csrc/mlp_tail_train.cu",
         replaces="csts_tpu/kernels/block.py:1579 (_mlp_tail_train_kernel; pallas_call at :1635)",
     ),
@@ -582,6 +598,9 @@ def check_kernels(calls_by_bucket: dict, kernels: dict = KERNELS) -> dict:
                         ops_ms=flops / k.get("peak", PEAK_BF16_FLOPS) * 1e3,
                     )
                     row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+                    if k.get("yardstick") is not None:
+                        run = k["yardstick"](*args)
+                        row.update(cublas_ms=time_ms(run), cublas_device_ms=device_ms(run))
                     if ctx is not None:
                         # the whole block, phase 1 included, through this
                         # kernel and through the K1+K2 route
@@ -595,6 +614,8 @@ def check_kernels(calls_by_bucket: dict, kernels: dict = KERNELS) -> dict:
                         f"{row['ops_ms']:.4f}"
                         + (f"; whole block {row['block_ms']:.4f} vs K1+K2 route "
                            f"{row['composite_ms']:.4f}" if ctx is not None else "")
+                        + (f"; cuBLAS products {row['cublas_ms']:.4f} / device "
+                           f"{row['cublas_device_ms']:.4f}" if "cublas_ms" in row else "")
                         + f") max|Δ| bf16 {err:.3g} fp32 {err32:.3g} ({CARD})")
                 report[name]["shapes"].append(row)
                 report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
@@ -754,16 +775,27 @@ def check_train_kernels(calls: dict) -> dict:
                 del got, ref
             nbytes, flops = k["cost"](*args)
             with torch.no_grad():
-                row.update(ms=time_ms(lambda: kern(*args)), plain_ms=time_ms(lambda: plain(*args)))
-            row["library_ms"] = (time_ms(k["library"](*args)) if k["library"] is not None
-                                 else None)
+                row.update(ms=time_ms(lambda: kern(*args)), plain_ms=time_ms(lambda: plain(*args)),
+                           device_ms=device_ms(lambda: kern(*args)))
+            lib = k["library"](*args) if k["library"] is not None else None
+            row["library_ms"] = time_ms(lib) if lib is not None else None
+            # the library call's device time (SDPA's backward at B8's shapes)
+            row["library_device_ms"] = device_ms(lib) if lib is not None else None
+            if k.get("yardstick") is not None:
+                run = k["yardstick"](*args)
+                row.update(cublas_ms=time_ms(run), cublas_device_ms=device_ms(run))
+            del lib
             row.update(bytes=nbytes, flops=flops, bytes_ms=nbytes / PEAK_BYTES_S * 1e3,
                        ops_ms=flops / PEAK_BF16_FLOPS * 1e3)
             row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
-            log(f"  {name} {sig[0]} x{count}: {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, "
-                f"library {row['library_ms']}, bound {row['bound_ms']:.4f} = bytes "
-                f"{row['bytes_ms']:.4f} / ops {row['ops_ms']:.4f}) max|Δ| bf16 "
-                f"{max(row['max_abs_err']):.3g} fp32 {max(row['max_abs_err_fp32']):.3g} ({CARD})")
+            log(f"  {name} {sig[0]} x{count}: {row['ms']:.4f} ms, device {row['device_ms']:.4f} "
+                f"(plain {row['plain_ms']:.4f}, library {row['library_ms']} / device "
+                f"{row['library_device_ms']}, bound {row['bound_ms']:.4f} = bytes "
+                f"{row['bytes_ms']:.4f} / ops {row['ops_ms']:.4f}"
+                + (f"; cuBLAS products {row['cublas_ms']:.4f} / device "
+                   f"{row['cublas_device_ms']:.4f}" if "cublas_ms" in row else "")
+                + f") max|Δ| bf16 {max(row['max_abs_err']):.3g} fp32 "
+                f"{max(row['max_abs_err_fp32']):.3g} ({CARD})")
             report[name]["shapes"].append(row)
 
     bwd = report["mlp_tail_train_bwd"]
@@ -962,7 +994,7 @@ def main() -> int:
     log(f"phase build: {time.perf_counter() - t0:.2f} s for {sorted(logs)}")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Potential Performance Loss" in line:
                 log(f"  {name}: {line.strip()}")
 
     # --- phase 2: flagship model behind the predictor ------------------------
@@ -1105,10 +1137,9 @@ def main() -> int:
             "bound_by": "bytes" if per("bytes_ms") >= per("ops_ms") else "operations",
             "library_ms": None if k["library"] is None else per("library_ms"),
             # device time (torch.profiler) of the kernel and of the library
-            # call, per forward (eval kernels only)
-            "device_ms": per("device_ms") if name in KERNELS else None,
-            "library_device_ms": (per("library_device_ms")
-                                  if name in KERNELS and k["library"] is not None else None),
+            # call, per forward or per step
+            "device_ms": per("device_ms"),
+            "library_device_ms": None if k["library"] is None else per("library_device_ms"),
             # ms and the bound per forward (serve) or per training step (train)
             "path": path, "launches_train": train["launches"][name],
             # the whole blocks, phase 1 included, through this kernel and
@@ -1126,6 +1157,8 @@ def main() -> int:
             "ms": per("ms"), "plain_ms": per("plain_ms"), "bound_ms": per("bound_ms"),
             "bound_by": "bytes" if per("bytes_ms") >= per("ops_ms") else "operations",
             "library_ms": None if k["library"] is None else per("library_ms"),
+            "device_ms": per("device_ms"),
+            "library_device_ms": None if k["library"] is None else per("library_device_ms"),
             # ms and the bound per run of the path: one batch-8 forward with
             # hw2_skip on (ab_flags), or one run of ab_block's 3-8-head stacks
             "path": k["path"], "launches_train": train["launches"][name],
@@ -1135,6 +1168,28 @@ def main() -> int:
             "block_device_ms": res.get("block_device_ms"),
             "composite_device_ms": res.get("composite_device_ms"),
         })
+    # yardsticks beside the kernels: cuBLAS's products alone at K2's and B7's
+    # sites, SDPA's backward at B8's, F.interpolate at B9a's (device ms)
+    k2_rows = [r for r in report["mlp_tail"]["shapes"] if "ms" in r]
+    b7_rows = train_report["mlp_tail_train"]["shapes"]
+    b8_rows = train_report["attention_bwd"]["shapes"]
+    tot = lambda rows, key, count: sum(r[key] * r[count] for r in rows)  # noqa: E731
+    yardsticks = {
+        "k2_cublas_ms": tot(k2_rows, "cublas_ms", "launches_per_forward"),
+        "k2_cublas_device_ms": tot(k2_rows, "cublas_device_ms", "launches_per_forward"),
+        "b7_cublas_ms": tot(b7_rows, "cublas_ms", "launches_per_step"),
+        "b7_cublas_device_ms": tot(b7_rows, "cublas_device_ms", "launches_per_step"),
+        "b8_device_ms": tot(b8_rows, "device_ms", "launches_per_step"),
+        "b8_sdpa_bwd_device_ms": tot(b8_rows, "library_device_ms", "launches_per_step"),
+        "b9a_device_ms": tot(hw2["shapes"], "device_ms", "launches_per_forward"),
+        "b9a_interpolate_device_ms": tot(hw2["shapes"], "library_device_ms",
+                                         "launches_per_forward"),
+    }
+    log("yardsticks: K2 {k2_cublas_ms:.4f} ms cuBLAS products a forward (device "
+        "{k2_cublas_device_ms:.4f}); B7 {b7_cublas_ms:.4f} a step (device {b7_cublas_device_ms:.4f}); "
+        "B8 device {b8_device_ms:.4f} vs SDPA backward device {b8_sdpa_bwd_device_ms:.4f} a step; "
+        "B9a device {b9a_device_ms:.4f} vs F.interpolate device {b9a_interpolate_device_ms:.4f} "
+        "a forward with hw2_skip".format(**yardsticks) + f" ({card})")
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": kernels, "per_shape": report,
@@ -1142,7 +1197,7 @@ def main() -> int:
                    "request_s": dict(zip(map(str, REQUESTS), req_s)),
                    "peak_gib": peak_gib, "logits_max_abs_diff": dlogit,
                    "softmax_max_abs_diff": dsm, "profile": breakdown,
-                   "hw2": hw2, "blocks": blocks,
+                   "hw2": hw2, "blocks": blocks, "yardsticks": yardsticks,
                    "train": train, "train_per_shape": train_report,
                    "train_fp32_step": whole_step}, f, indent=1, default=str)
     log(f"total {time.perf_counter() - t_start:.1f} s")

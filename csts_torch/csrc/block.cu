@@ -39,7 +39,7 @@ static int launch_bf16(const Shape& s, const Args& a, int B, cudaStream_t stream
   CSTS_FB_CASE(kBlock, 2, 12, 12, 128) // 384 -> 384 and 384 -> 768, four heads (B9b/c)
   CSTS_FB_CASE(kBlock, 1, 12, 12, 128) // 768 -> 768, eight heads (B9b/c)
   CSTS_FB_CASE(kBlock, 2, 6, 12, 256)  // head dim 192
-  return kNoInstance;
+  return launch_widest<kBlock, true>(s, a, B, stream);  // any other width (small_cfg's among them)
 }
 
 CSTS_FUSED_BLOCK_ENTRY(csts_fused_block, kBlock)

@@ -52,8 +52,8 @@
 // The fine Q, the probabilities, the hidden and LN2 never reach device
 // memory; q, av and res1 do, once each (~0.03-0.06 ms of HBM time a site).
 // Widths outside these instances (other (C, Cout) pairs, head dims other than
-// 96 and 192, no dim-change proj) keep the first design's body and its
-// instances, so every width that body took still runs.
+// 96 and 192, no dim-change proj) keep the first design's body: its
+// instances, and its widest instance of each row split for any other width.
 #include "attention_wg.cuh"
 #include "fused_block.cuh"
 #include "sm90.cuh"
@@ -488,7 +488,8 @@ cudaError_t launch_tail(const Args& a, int B, const bf16* av, float* res1, cudaS
 }
 
 // Widths the redesign has no instance for take the first design's body
-// (fused_block.cuh's block_mma_kernel, one launch), with the instances it had.
+// (fused_block.cuh's block_mma_kernel, one launch), with the instances it
+// had and, for any other width, the widest instance of its row split.
 int launch_first_design(const Args& a, int B, cudaStream_t stream) {
   const Shape s = pick_shape(a);
   if (a.wp == nullptr && (s.nt != s.ntp || a.Cout != a.C)) return kNoInstance;
@@ -496,7 +497,7 @@ int launch_first_design(const Args& a, int B, cudaStream_t stream) {
   CSTS_FB_CASE(kDecoder, 2, 12, 6, 128)   // 384 -> 192
   CSTS_FB_CASE(kDecoder, 2, 6, 3, 128)    // 192 -> 96
   CSTS_FB_CASE(kDecoder, 1, 12, 6, 128)   // 768 -> 384, head dim up to 128
-  return kNoInstance;
+  return launch_widest<kDecoder, true>(s, a, B, stream);  // any other width (small_cfg's among them)
 }
 
 // Three launches: the Q conv, the attention (head dims 96 and 192: d3, d4

@@ -978,5 +978,27 @@ inline Shape pick_shape(const Args& a) {
   if (s.wr == WR && s.ntp == NTP && s.nt == NT && s.hdm == HDM)                \
     return csts::fb::launch_mma<MODE, WR, NTP, NT, HDM>(a, B, stream);
 
+// The widest instance of the shape's row split and head-dim bound: its
+// column tiles (384 columns a tile at WR 2, 768 at WR 1) cover every input
+// width of the split and, masked, any narrower one and any output width.
+// Each library's launch_bf16 ends with it, so every width its wrapper and
+// eligibility predicate admit has an instance, chosen before the launch.
+// (At WR 1 with head dims above 240, its shared memory holds C ≤ 684 only:
+// the launch then fails and the wrapper raises.)
+// HD256: the library takes head dims above 128 (B4 does not: its predicate
+// stops at 128, and the instances it would not use are not compiled).
+template <int MODE, bool HD256>
+int launch_widest(const Shape& s, const Args& a, int B, cudaStream_t stream) {
+  if constexpr (HD256) {
+    if (s.hdm != 128)
+      return s.wr == 2 ? launch_mma<MODE, 2, 12, 12, 256>(a, B, stream)
+                       : launch_mma<MODE, 1, 12, 12, 256>(a, B, stream);
+  } else {
+    if (s.hdm != 128) return kNoInstance;
+  }
+  return s.wr == 2 ? launch_mma<MODE, 2, 12, 12, 128>(a, B, stream)
+                   : launch_mma<MODE, 1, 12, 12, 128>(a, B, stream);
+}
+
 }  // namespace fb
 }  // namespace csts

@@ -21,7 +21,7 @@ static int launch_bf16(const Shape& s, const Args& a, int B, cudaStream_t stream
   CSTS_FB_CASE(kPool, 2, 6, 12, 128)    // 192 -> 384 (a1)
   CSTS_FB_CASE(kPool, 2, 12, 12, 128)   // 384 -> 384 (v3), 384 -> 768 (a2, two column tiles)
   CSTS_FB_CASE(kPool, 2, 3, 6, 128)     // 96 -> 192
-  return kNoInstance;
+  return launch_widest<kPool, false>(s, a, B, stream);  // any other width (small_cfg's among them)
 }
 
 CSTS_FUSED_BLOCK_ENTRY(csts_fused_pool_block, kPool)

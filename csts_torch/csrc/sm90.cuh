@@ -1,12 +1,14 @@
 // Hopper (sm_90a) machinery shared by the redesigned kernels K1
-// (attention.cu) and B5 (decoder_block.cu), and meant for the later
-// redesigns of K2, B3, B4 and B7: shared-memory barriers (mbarrier), TMA
-// tile loads through tensor maps, the warpgroup matrix product (wgmma) with
-// its shared-memory descriptors, and the host-side encoding of a tensor map.
+// (attention.cu), B5 (decoder_block.cu) and K2/B7 (mlp_tail.cuh), and meant
+// for the later redesigns of B3, B4 and B8: shared-memory barriers
+// (mbarrier), TMA tile loads through tensor maps, the warpgroup matrix
+// product (wgmma) with its shared-memory descriptors, and the host-side
+// encoding of a tensor map.
 //
-// Layout convention: every wgmma operand tile in shared memory is stored in
-// the 64-byte swizzle (CU_TENSOR_MAP_SWIZZLE_64B), as panels of 32 bf16
-// columns. A panel of R rows takes R·64 bytes; row r's 16-byte chunk j sits at
+// Layout convention: K1's and B5's wgmma operand tiles in shared memory are
+// stored in the 64-byte swizzle (CU_TENSOR_MAP_SWIZZLE_64B), as panels of 32
+// bf16 columns (K2's and B7's reductions run in 64-column steps and take the
+// 128-byte swizzle, desc_k128). A panel of R rows takes R·64 bytes; row r's 16-byte chunk j sits at
 // r·64 + ((j ^ ((r >> 1) & 3)) << 4) (the swizzle XORs address bits 4-5 with
 // bits 7-8). TMA writes that layout itself; code that writes a tile by hand
 // uses swz64(). Every head dim and width of the flagship is a multiple of 32,
@@ -123,6 +125,17 @@ __device__ __forceinline__ uint64_t desc64(const void* p, uint32_t lbo, uint32_t
 // K-major operand: k16 step `ks` (0 or 1) of a panel that starts at `panel`
 __device__ __forceinline__ uint64_t desc_k(const void* panel, int ks) {
   return desc64(static_cast<const char*>(panel) + ks * 32, 16, 512);
+}
+// The same for a 128-byte-swizzle panel (64 bf16 columns, 128 bytes a row,
+// 8-row atoms of 1024 bytes; TMA box {64, rows} with
+// CU_TENSOR_MAP_SWIZZLE_128B): k16 step `ks` (0..3) at +32 bytes. K2 and B7
+// use it, a 64-column stage of each operand in one panel and one TMA load.
+__device__ __forceinline__ uint64_t desc_k128(const void* panel, int ks) {
+  uint64_t d = (saddr(static_cast<const char*>(panel) + ks * 32) & 0x3FFFFu) >> 4;
+  d |= static_cast<uint64_t>(1) << 16;              // LBO (unused for a swizzled K-major tile)
+  d |= static_cast<uint64_t>(1024 >> 4) << 32;     // SBO: the next 8 rows
+  d |= static_cast<uint64_t>(1) << 62;              // 128-byte swizzle
+  return d;
 }
 // MN-major operand: rows k0 .. k0+15 of panel-major tile `tile` whose panels
 // are `panel_bytes` apart
@@ -371,19 +384,21 @@ inline EncodeTiledFn encode_fn() {
 }
 
 // A bf16 tensor map of `rank` dims (dims[0] contiguous; strides[i] in
-// elements for dims 1..rank-1, multiples of 8), boxes of 32 x box1 (x 1 x 1),
-// 64-byte swizzle, zeros outside the tensor. False when the driver refuses.
+// elements for dims 1..rank-1, multiples of 8), boxes of 32 x box1 (x 1 x 1)
+// in the 64-byte swizzle, or with `wide` of 64 x box1 in the 128-byte
+// swizzle, zeros outside the tensor. False when the driver refuses.
 // Encoded maps are kept in a small table keyed by everything that defines
 // them: the caching allocator hands a forward the same addresses each time,
 // so a steady stream of calls encodes nothing (one host thread at a time).
 inline bool make_map(CUtensorMap* map, const void* base, int rank, const long long* dims,
-                     const long long* strides, int box1) {
+                     const long long* strides, int box1, bool wide = false) {
   struct Key {
     const void* base;
     long long dims[4], strides[3];
     int rank, box1;
+    bool wide;
     bool operator==(const Key& o) const {
-      if (base != o.base || rank != o.rank || box1 != o.box1) return false;
+      if (base != o.base || rank != o.rank || box1 != o.box1 || wide != o.wide) return false;
       for (int i = 0; i < 4; ++i)
         if (dims[i] != o.dims[i] || (i < 3 && strides[i] != o.strides[i])) return false;
       return true;
@@ -395,7 +410,7 @@ inline bool make_map(CUtensorMap* map, const void* base, int rank, const long lo
     bool used;
   };
   static Slot table[256];
-  Key key{base, {0, 0, 0, 0}, {0, 0, 0}, rank, box1};
+  Key key{base, {0, 0, 0, 0}, {0, 0, 0}, rank, box1, wide};
   uint64_t h = reinterpret_cast<uintptr_t>(base) >> 4;
   for (int i = 0; i < rank; ++i) {
     key.dims[i] = dims[i];
@@ -403,7 +418,7 @@ inline bool make_map(CUtensorMap* map, const void* base, int rank, const long lo
     h = h * 1000003u ^ static_cast<uint64_t>(dims[i]) ^
         (i > 0 ? static_cast<uint64_t>(strides[i - 1]) << 20 : 0);
   }
-  Slot& slot = table[(h ^ (h >> 17) ^ static_cast<uint64_t>(box1)) & 255];
+  Slot& slot = table[(h ^ (h >> 17) ^ static_cast<uint64_t>(box1) ^ (wide ? 128u : 0u)) & 255];
   if (slot.used && slot.key == key) {
     *map = slot.map;
     return true;
@@ -414,11 +429,12 @@ inline bool make_map(CUtensorMap* map, const void* base, int rank, const long lo
   cuuint32_t box[4], estride[4] = {1, 1, 1, 1};
   for (int i = 0; i < rank; ++i) {
     gdim[i] = static_cast<cuuint64_t>(dims[i]);
-    box[i] = i == 0 ? kPanel : i == 1 ? box1 : 1;
+    box[i] = i == 0 ? (wide ? 2 * kPanel : kPanel) : i == 1 ? box1 : 1;
     if (i > 0) gstride[i - 1] = static_cast<cuuint64_t>(strides[i - 1]) * 2;
   }
   if (fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), gdim, gstride, box,
-         estride, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+         estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+         wide ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
          CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return false;
   slot.key = key;

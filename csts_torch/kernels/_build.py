@@ -44,11 +44,13 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "csts_attention_bwd": [_I] + [_P] * 11 + [_I] * 6 + [_LL] * 18 + [_F, _P],
     },
     "mlp_tail": {
-        "csts_mlp_tail": [_I] + [_P] * 10 + [_I, _I, _I, _I, _F, _P],
+        # dtype, x, 8 weights, out, the scratch xn2 and G, M, C, H, Cout, eps, stream
+        "csts_mlp_tail": [_I] + [_P] * 12 + [_I, _I, _I, _I, _F, _P],
     },
     "mlp_tail_train": {
-        # dtype, x, 8 weights, dp, out, hid, M, L, C, H, Cout, eps, stream
-        "csts_mlp_tail_train": [_I] + [_P] * 12 + [_I] * 5 + [_F, _P],
+        # dtype, x, 8 weights, dp, out, hid, the scratch xn2 and G, M, L, C, H, Cout,
+        # eps, stream
+        "csts_mlp_tail_train": [_I] + [_P] * 14 + [_I] * 5 + [_F, _P],
     },
     "upsample": {
         "csts_t2_upsample": [_I, _P, _P, _I, _I, _LL, _P],

@@ -10,7 +10,10 @@ an exact FMA body) and :func:`fused_attention_bwd` the one in
 ``csrc/attention_bwd.cu``; on a CPU tensor each runs its ``*_plain`` twin,
 the same function in plain PyTorch. There is no other route.
 :func:`fused_attention_split_plain` is the plain model of the key split and
-its merge.
+its merge. Both wrappers take any head dim, as the JAX kernels do: one the
+bf16 bodies are not compiled for runs zero-padded to the next that is
+(:func:`kernel_head_dim`, :func:`pad_head_dim`; exact), and only a bf16 head
+dim above 192 raises.
 
 Training goes through :func:`attention_train` (the autograd Function
 :class:`FusedAttention`): unmasked sites run K1 forward, which then also
@@ -26,12 +29,39 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from csts_torch.kernels import _build
 
 
-# head dims the kernels are compiled for (the flagship uses 96, and 192 at d2)
+# head dims the bf16 bodies are compiled for (the flagship uses 96, and 192 at d2)
 HEAD_DIMS = (64, 96, 128, 192)
+
+
+def kernel_head_dim(hd: int, dtype: torch.dtype) -> int:
+    """The head dim a call of K1 or B8 runs at: the inputs' last axis is
+    zero-padded to it and the outputs sliced back (see :func:`pad_head_dim`).
+    bf16: the next compiled head dim (16 and 32 run at 64, 112 at 128);
+    above 192 no instance holds a head, and the call raises. fp32: the exact
+    FMA bodies take any head dim their shared memory holds (B8's needs it
+    even), so an odd one gains one column; a head dim that does not fit
+    makes the launch fail (K1 above 280)."""
+    if dtype == torch.bfloat16:
+        for d in HEAD_DIMS:
+            if hd <= d:
+                return d
+        raise ValueError(f"attention: head dim {hd} is above the largest compiled one "
+                         f"({HEAD_DIMS[-1]})")
+    return hd + hd % 2
+
+
+def pad_head_dim(hdp: int, *ts: torch.Tensor) -> list:
+    """Each tensor's last axis zero-padded to ``hdp``. Exact: zero columns of
+    q and k add nothing to q·kᵀ (the logits, and so K1's log-sum-exp rows and
+    the probabilities, are unchanged), zero columns of v give zero columns
+    of the output, and B8's delta = rowsum(g·out) and its dq, dk, dv keep
+    their values in the first columns (the padded ones are zero)."""
+    return [t if t.shape[-1] == hdp else F.pad(t, (0, hdp - t.shape[-1])) for t in ts]
 
 
 def _rows16(t: torch.Tensor) -> torch.Tensor:
@@ -51,8 +81,6 @@ def _check_shapes(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) 
     if k.shape != (b, n, lk, hd) or v.shape != k.shape:
         raise ValueError(f"{name}: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {hd} is not one of {HEAD_DIMS}")
     if b * n > 65535:
         raise ValueError(f"{name}: batch·heads above 65535")
 
@@ -157,9 +185,10 @@ def _attention_fwd(q, k, v, scale, mask, with_lse: bool):
     _check_shapes("fused_attention", q, k, v)
     if not scale > 0:
         raise ValueError(f"fused_attention: scale {scale} must be positive")
-    b, n, lq, hd = q.shape
+    b, n, lq, hd_in = q.shape
     lk = k.shape[2]
-    q, k, v = _rows16(q), _rows16(k), _rows16(v)
+    hd = kernel_head_dim(hd_in, q.dtype)  # the caller's scale stays 1/sqrt(hd_in)
+    q, k, v = (_rows16(t) for t in pad_head_dim(hd, q, k, v))
     bf16 = q.dtype == torch.bfloat16
     mask_bf16 = 0
     if mask is not None:
@@ -191,7 +220,7 @@ def _attention_fwd(q, k, v, scale, mask, with_lse: bool):
     ), float(scale), _build.stream_ptr(q))
     _build.check_launch("fused_attention", err)
     fused_attention.launches += 1
-    return out.permute(0, 2, 1, 3), lse
+    return out.permute(0, 2, 1, 3)[..., :hd_in], lse
 
 
 def fused_attention(
@@ -204,7 +233,9 @@ def fused_attention(
     fused qkv projection pass without a copy; unaligned rows are copied);
     mask: additive (Lq, Lk), broadcast over batch and heads. Returns
     (B, N, Lq, hd); on CUDA it is a view of a token-major (B, Lq, N·hd)
-    buffer, so merging the heads afterwards is free.
+    buffer, so merging the heads afterwards is free (at a head dim the bf16
+    body is compiled for; any other up to 192 runs padded, see
+    :func:`kernel_head_dim`).
     """
     if q.device.type == "cpu":
         return fused_attention_plain(q, k, v, scale, mask)
@@ -261,7 +292,8 @@ def fused_attention_bwd(
     q, out, g: (B, N, Lq, hd); k, v: (B, N, Lk, hd), any strides with unit
     columns; lse: K1's fp32 (B·N, Lq) log-sum-exp rows, required on CUDA.
     dq is a view of a token-major (B, Lq, N·hd) buffer, dk and dv are
-    contiguous, all in q's dtype.
+    contiguous, all in q's dtype (views of the padded ones where the head dim
+    runs padded, see :func:`kernel_head_dim`).
     """
     if q.device.type == "cpu":
         return fused_attention_bwd_plain(q, k, v, out, g, scale, lse)
@@ -269,7 +301,7 @@ def fused_attention_bwd(
         raise ValueError(f"fused_attention_bwd: unsupported device {q.device}")
     _build.check_cuda_inputs("fused_attention_bwd", q, k, v, out, g)
     _check_shapes("fused_attention_bwd", q, k, v)
-    b, n, lq, hd = q.shape
+    b, n, lq, hd_in = q.shape
     lk = k.shape[2]
     if out.shape != q.shape or g.shape != q.shape:
         raise ValueError(f"fused_attention_bwd: out {tuple(out.shape)} / g {tuple(g.shape)} "
@@ -278,7 +310,8 @@ def fused_attention_bwd(
             or lse.device != q.device):
         raise ValueError("fused_attention_bwd: needs K1's fp32 (B·N, Lq) log-sum-exp rows "
                          "on q's device")
-    q, k, v, out, g = (_rows16(t) for t in (q, k, v, out, g))
+    hd = kernel_head_dim(hd_in, q.dtype)
+    q, k, v, out, g = (_rows16(t) for t in pad_head_dim(hd, q, k, v, out, g))
     lse = lse.contiguous()
     dev, dt = q.device, q.dtype
     delta = torch.empty((b * n, lq), dtype=torch.float32, device=dev)
@@ -300,7 +333,7 @@ def fused_attention_bwd(
     )
     _build.check_launch("fused_attention_bwd", err)
     fused_attention_bwd.launches += 1
-    return dq.permute(0, 2, 1, 3), dk, dv
+    return dq.permute(0, 2, 1, 3)[..., :hd_in], dk[..., :hd_in], dv[..., :hd_in]
 
 
 fused_attention_bwd.launches = 0

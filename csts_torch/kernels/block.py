@@ -77,11 +77,44 @@ def fused_mlp_tail_plain(
                        proj_w, proj_b)
 
 
+def fused_mlp_tail_split_plain(
+    x: torch.Tensor,
+    ln_w: torch.Tensor, ln_b: torch.Tensor,
+    fc1_w: torch.Tensor, fc1_b: torch.Tensor,
+    fc2_w: torch.Tensor, fc2_b: torch.Tensor,
+    proj_w: Optional[torch.Tensor] = None, proj_b: Optional[torch.Tensor] = None,
+    dp: Optional[torch.Tensor] = None,
+):
+    """Plain model of the bf16 body's split at the hidden (``csrc/mlp_tail.cuh``),
+    launch by launch with its scratch in x's dtype: xn2 = LN2(x) rounded
+    once; h = xn2·W1ᵀ + b1 in fp32 and G = GELU(h) rounded once; then one
+    fp32 sum acc = G·W2ᵀ, for B7 (``dp`` given) acc = dp·(acc + b2), + xn2·Wpᵀ
+    where dim ≠ dim_out, and out = acc (+ b2 for K2) + (bp or x), rounded
+    once. The same rounding points as :func:`fused_mlp_tail_plain` and
+    :func:`fused_mlp_tail_train_plain`, summed in the kernel's order.
+    Returns out (K2), or (out, h rounded) (B7)."""
+    dt = x.dtype
+    x32 = x.float()
+    xn2 = _layer_norm32(x32, ln_w, ln_b, LN_EPS).to(dt).float()
+    h = torch.matmul(xn2, fc1_w.float().t()) + fc1_b.float()
+    g = gelu(h).to(dt).float()
+    acc = torch.matmul(g, fc2_w.float().t())
+    if dp is not None:
+        acc = _dp_rows(dp, x) * (acc + fc2_b.float())
+    if proj_w is not None:
+        acc = acc + torch.matmul(xn2, proj_w.float().t())
+    if dp is None:
+        acc = acc + fc2_b.float()
+    out = (acc + (proj_b.float() if proj_w is not None else x32)).to(dt)
+    return out if dp is None else (out, h.to(dt))
+
+
 def _tail_launch_args(name, x, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, proj_w, proj_b):
     """K2's and B7's input checks: one CUDA device and dtype, widths that fit
     and are multiples of 16. Returns x as (M, C) rows, the weights (proj's
-    last when present), each contiguous on a 16-byte boundary (the kernels
-    copy 16-byte pieces of the rows with cp.async), and (hidden, dim_out)."""
+    last when present), each contiguous on a 16-byte boundary (the bf16 body
+    reads them with TMA, which takes 16-byte rows and bases), and (hidden,
+    dim_out)."""
     if (proj_w is None) != (proj_b is None):
         raise ValueError(f"{name}: proj weight and bias go together")
     params = [ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b]
@@ -104,6 +137,24 @@ def _tail_launch_args(name, x, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, proj_w, p
     return x2, params, (hidden, cout)
 
 
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _tail_scratch(x2: torch.Tensor, hidden: int):
+    """The bf16 body's scratch for rows x2 (M, C): LN2's rounded rows xn2
+    (M, C) and GELU of the hidden (M, hidden), both in x's dtype; (None,
+    None) for the fp32 body, which keeps both on chip. The wrapper's locals
+    hold them until the C call has queued every launch that reads them: a
+    buffer freed earlier could be handed to the next allocation on the
+    stream while a launch still reads it."""
+    if x2.dtype != torch.bfloat16:
+        return None, None
+    m, c = x2.shape
+    return (torch.empty((m, c), dtype=x2.dtype, device=x2.device),
+            torch.empty((m, hidden), dtype=x2.dtype, device=x2.device))
+
+
 def fused_mlp_tail(
     x: torch.Tensor,
     ln_w: torch.Tensor, ln_b: torch.Tensor,
@@ -122,13 +173,13 @@ def fused_mlp_tail(
     m = x2.shape[0]
     wp, bp = (params[6], params[7]) if proj_w is not None else (None, None)
     out = torch.empty((m, cout), dtype=x.dtype, device=x.device)
+    xn2, g = _tail_scratch(x2, hidden)
     fn = _build.function("mlp_tail", "csts_mlp_tail")
     err = fn(
         _build.dtype_code(x), x2.data_ptr(),
         *(t.data_ptr() for t in params[:6]),
-        wp.data_ptr() if wp is not None else None,
-        bp.data_ptr() if bp is not None else None,
-        out.data_ptr(), m, c, hidden, cout, LN_EPS, _build.stream_ptr(x),
+        _ptr(wp), _ptr(bp),
+        out.data_ptr(), _ptr(xn2), _ptr(g), m, c, hidden, cout, LN_EPS, _build.stream_ptr(x),
     )
     _build.check_launch("fused_mlp_tail", err)
     fused_mlp_tail.launches += 1
@@ -202,14 +253,14 @@ def fused_mlp_tail_train(
     dp = dp.detach().contiguous()
     out = torch.empty((m, cout), dtype=x.dtype, device=x.device)
     hid = torch.empty((m, hidden), dtype=x.dtype, device=x.device)
+    xn2, g = _tail_scratch(x2, hidden)
     fn = _build.function("mlp_tail_train", "csts_mlp_tail_train")
     err = fn(
         _build.dtype_code(x), x2.data_ptr(),
         *(t.data_ptr() for t in params[:6]),
-        wp.data_ptr() if wp is not None else None,
-        bp.data_ptr() if bp is not None else None,
-        dp.data_ptr(), out.data_ptr(), hid.data_ptr(), m, l, c, hidden, cout, LN_EPS,
-        _build.stream_ptr(x),
+        _ptr(wp), _ptr(bp),
+        dp.data_ptr(), out.data_ptr(), hid.data_ptr(), _ptr(xn2), _ptr(g),
+        m, l, c, hidden, cout, LN_EPS, _build.stream_ptr(x),
     )
     _build.check_launch("fused_mlp_tail_train", err)
     fused_mlp_tail_train.launches += 1

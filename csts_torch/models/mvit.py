@@ -226,10 +226,24 @@ def _fc_bytes(spec: AttentionSpec) -> int:
     return (spec.dim * spec.hidden_dim + spec.hidden_dim * spec.dim_out) * 2
 
 
+def _kernel_widths(spec: AttentionSpec) -> bool:
+    """The widths the whole-block kernels B3-B5 are built for: dim, dim_out,
+    the hidden width and the head dim multiples of 16 (their products take
+    16 columns a step and their loads 16-byte pieces of a row). The JAX
+    predicates (``kb.eligible``, ``kb.pool_block_eligible``,
+    ``kb.decoder_eligible``) pad to 128 lanes instead and have no such
+    guard: a block of other widths takes the K1+K2 route here, where K1 pads
+    its head dim and K2 takes multiples of 16 too (ROADMAP Queue C)."""
+    return all(w % 16 == 0 for w in (spec.dim, spec.dim_out, spec.hidden_dim, spec.head_dim))
+
+
 def block_eligible(spec: AttentionSpec, mask) -> bool:
     """B3 (``kb.eligible`` and the guards at ``mvit.py:640-646``): identity
     skip, at most two heads, no mask, no cls token. The JAX package's
-    ``L % 128`` token-tile guard serves the TPU's tiling only and is dropped."""
+    ``L % 128`` token-tile guard serves the TPU's tiling only and is dropped.
+    Beyond JAX's predicate: dim ≤ 768 and head dim ≤ 256 (the largest the
+    kernel's instances hold: a one-head block of dim 384 or a two-head one
+    of 768 stays on K1+K2) and :func:`_kernel_widths`."""
     return (
         not spec.upsample_q
         and not spec.pool_q_on
@@ -239,6 +253,8 @@ def block_eligible(spec: AttentionSpec, mask) -> bool:
         and spec.dim % spec.num_heads == 0
         and spec.num_heads <= 2
         and spec.dim <= 768
+        and spec.head_dim <= 256
+        and _kernel_widths(spec)
     )
 
 
@@ -246,7 +262,7 @@ def pool_block_eligible(spec: AttentionSpec, mask, thw: THW) -> bool:
     """B4 (``kb.pool_block_eligible``): stride (1,2,2), kernel 3, MaxPool
     (1,3,3) skip, head dim ≤ 128, Lk ≤ 1024, fc weights ≤ 8 MiB, no mask, no
     cls token. The row and 128-lane alignment of ``_pool_tile_plan`` is the
-    TPU's tiling and is dropped."""
+    TPU's tiling and is dropped; :func:`_kernel_widths` is the port's own."""
     return (
         not spec.upsample_q
         and spec.pool_q_on
@@ -260,6 +276,7 @@ def pool_block_eligible(spec: AttentionSpec, mask, thw: THW) -> bool:
         and spec.head_dim <= 128
         and _fc_bytes(spec) <= 8 * 2 ** 20
         and _lk(spec, thw) <= 1024
+        and _kernel_widths(spec)
     )
 
 
@@ -267,7 +284,7 @@ def decoder_eligible(spec: AttentionSpec, mask, thw: THW) -> bool:
     """B5 (``kb.decoder_eligible``): an upsample-Q block with kernel 3,
     strides in {1, 2}, head dim ≤ 256, dim ≤ 768, Lk ≤ 512, fc weights ≤ 8
     MiB, no mask. ``_decoder_tile_plan``'s row and 128-lane alignment is the
-    TPU's tiling and is dropped."""
+    TPU's tiling and is dropped; :func:`_kernel_widths` is the port's own."""
     return (
         spec.upsample_q
         and spec.pool_q_on
@@ -280,6 +297,7 @@ def decoder_eligible(spec: AttentionSpec, mask, thw: THW) -> bool:
         and tuple(spec.kernel_q) == (3, 3, 3)
         and _fc_bytes(spec) <= 8 * 2 ** 20
         and _lk(spec, thw) <= 512
+        and _kernel_widths(spec)
     )
 
 

@@ -1,10 +1,11 @@
 """Measurement tools of the port, the counterparts of the JAX package's
 ``tools/ab_block.py``, ``tools/ab_flags.py`` and ``tools/profile_forward.py``,
-and two of its own: ``ab_kernels`` (K1 and B5 of two checkouts in turns) and
-``b5_phases`` (B5's phase split from clock stamps).
-Each runs on CUDA unless given ``--device cpu`` (``python -m
+and three of its own: ``ab_kernels`` (K1, B5, K2 and B7 of two checkouts in
+turns), ``b5_phases`` (B5's phase split from clock stamps) and
+``tail_phases`` (K2's and B7's three kernels one by one, beside cuBLAS).
+The first three run on CUDA unless given ``--device cpu`` (``python -m
 csts_torch.tools.<name> --help``); a CPU run checks that the tool runs and
-gives no device metric."""
+gives no device metric. The last three need a card."""
 
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
-"""K1 (attention) and B5 (the decoder block) of two checkouts of the
-repository, at the flagship's batch-8 shapes, in turns on one card:
+"""K1 (attention), B5 (the decoder block), K2 (the MLP tail) and B7 (the
+training MLP tail) of two checkouts of the repository, at the flagship's
+batch-8 shapes, in turns on one card:
 
     python csts_torch/tools/ab_kernels.py --roots OLD NEW [--rounds 1] [--out PATH]
     python csts_torch/tools/ab_kernels.py --key-split [--rounds 2] [--out PATH]
@@ -8,8 +9,9 @@ Each root is a checkout whose ``profile_forward`` has ``device_ms`` (for
 example a ``git archive`` of the parent commit unpacked under ``build/``); each turn
 runs in a process of its own that imports that root's ``csts_torch`` (its
 kernels build into its own ``build/``). Turns go OLD, NEW, NEW, OLD per
-round. A turn times, at every K1 shape of the forward (16 launches) and at
-B5's three sites (d2, d3, d4), the root's wrapper with CUDA events over
+round. A turn times, at every K1 shape of the forward (16 launches), at
+B5's three sites (d2, d3, d4), at K2's 16 sites of the forward and at B7's
+26 sites of a training step, the root's wrapper with CUDA events over
 back-to-back calls (host cost included) and by its device time
 (``device_ms``: the summed durations of the device activities the calls
 launch, ``torch.profiler``), and at K1's shapes
@@ -52,6 +54,21 @@ B5_SITES = [
     ("d2", (4, 16, 16), (1, 2, 2), 768, 384, 4),
     ("d3", (4, 32, 32), (1, 2, 2), 384, 192, 4),
     ("d4", (4, 64, 64), (2, 1, 1), 192, 96, 2),
+]
+# (name, rows a clip, C, H, C_out, launches): K2's sites in a forward
+K2_SITES = [
+    ("v4-v12", 1024, 384, 1536, 384, 9), ("v13", 1024, 384, 1536, 768, 1),
+    ("v14,v15,a3", 256, 768, 3072, 768, 3), ("spatial fusion", 260, 768, 3072, 768, 1),
+    ("temporal fusion", 8, 768, 3072, 768, 1), ("d1", 1024, 768, 3072, 768, 1),
+]
+# B7's sites in a training step: every block's tail
+B7_SITES = [
+    ("v0,a0", 16384, 96, 384, 192, 2), ("v1", 4096, 192, 768, 192, 1),
+    ("v2,a1", 4096, 192, 768, 384, 2), ("v3-v12", 1024, 384, 1536, 384, 10),
+    ("v13,a2", 1024, 384, 1536, 768, 2), ("v14,v15,a3", 256, 768, 3072, 768, 3),
+    ("spatial fusion", 260, 768, 3072, 768, 1), ("temporal fusion", 8, 768, 3072, 768, 1),
+    ("d1", 1024, 768, 3072, 768, 1), ("d2", 4096, 768, 1536, 384, 1),
+    ("d3", 16384, 384, 768, 192, 1), ("d4", 32768, 192, 384, 96, 1),
 ]
 BATCH, LK_DEC = 8, 64
 SPLIT_BATCHES = (1, 2, 4)
@@ -96,6 +113,19 @@ def b5_inputs(thw, stride, c, cout, heads, gen):
             r(cout, c, scale=c ** -0.5), r(cout, scale=0.1)]
 
 
+def tail_inputs(rows, c, h, cout, gen):
+    """x (8, rows, C) and the tail's weights (LN2, fc1, fc2, the dim-change
+    proj or None), bf16."""
+    import torch
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+    proj = [r(cout, c, scale=c ** -0.5), r(cout, scale=0.1)] if c != cout else [None, None]
+    return [r(BATCH, rows, c), 1 + r(c, scale=0.1), r(c, scale=0.1), r(h, c, scale=c ** -0.5),
+            r(h, scale=0.1), r(cout, h, scale=h ** -0.5), r(cout, scale=0.1)] + proj
+
+
 def worker(root: str) -> dict:
     """One turn: the root's K1 and B5 at every shape (imports the root's package)."""
     sys.path.insert(0, os.path.abspath(root))
@@ -110,7 +140,8 @@ def worker(root: str) -> dict:
 
     t0 = time.perf_counter()
     _build.build_all()
-    out = {"root": root, "build_s": time.perf_counter() - t0, "k1": [], "b5": []}
+    out = {"root": root, "build_s": time.perf_counter() - t0, "k1": [], "b5": [], "k2": [],
+           "b7": []}
     gen = torch.Generator(device="cuda").manual_seed(0)
     dev = torch.device("cuda")
     with torch.inference_mode():
@@ -128,6 +159,15 @@ def worker(root: str) -> dict:
             out["b5"].append({"name": name, "ms": mean_ms(kern, dev, 20),
                               "device_ms": device_ms(kern, 10)})
             del args
+        dp = torch.ones(BATCH, device=dev)
+        for key, sites in (("k2", K2_SITES), ("b7", B7_SITES)):
+            for name, rows, c, h, cout, count in sites:
+                args = tail_inputs(rows, c, h, cout, gen)
+                kern = ((lambda: kb.fused_mlp_tail(*args)) if key == "k2"  # noqa: E731
+                        else (lambda: kb.fused_mlp_tail_train(*args, dp)))
+                out[key].append({"name": name, "launches": count, "ms": mean_ms(kern, dev, 20),
+                                 "device_ms": device_ms(kern, 10)})
+                del args
     return out
 
 
@@ -240,7 +280,16 @@ def main(argv=None) -> int:
                   for key in ("ms", "device_ms", "library_ms", "library_device_ms")}
             b5 = {site[0]: {key: med([t["b5"][i][key] for t in ts]) for key in ("ms", "device_ms")}
                   for i, site in enumerate(B5_SITES)}
-            summary[root] = {"k1_forward": k1, "b5": b5,
+            tails = {}
+            for part, sites in (("k2", K2_SITES), ("b7", B7_SITES)):
+                per_site = {site[0]: {key: med([t[part][i][key] for t in ts])
+                                      for key in ("ms", "device_ms")}
+                            for i, site in enumerate(sites)}
+                tails[part] = {"sites": per_site,
+                               **{key: sum(per_site[site[0]][key] * site[5] for site in sites)
+                                  for key in ("ms", "device_ms")}}
+            summary[root] = {"k1_forward": k1, "b5": b5, "k2_forward": tails["k2"],
+                             "b7_step": tails["b7"],
                              "k1_shapes": [{key: (med([t["k1"][i][key] for t in ts])
                                                   if key != "name" else ts[0]["k1"][i]["name"])
                                             for key in ts[0]["k1"][i] if key != "launches"}
@@ -248,7 +297,9 @@ def main(argv=None) -> int:
             print(f"{root}: K1 a forward {k1['ms']:.4f} ms events, {k1['device_ms']:.4f} ms "
                   f"device (SDPA {k1['library_ms']:.4f} / {k1['library_device_ms']:.4f}); B5 "
                   + ", ".join(f"{s} {v['ms']:.4f}/{v['device_ms']:.4f}" for s, v in b5.items())
-                  + " ms events/device")
+                  + " ms events/device; K2 a forward {:.4f} / {:.4f}, B7 a step {:.4f} / "
+                  "{:.4f} ms events/device".format(tails["k2"]["ms"], tails["k2"]["device_ms"],
+                                                   tails["b7"]["ms"], tails["b7"]["device_ms"]))
         result = {"card": card, "summary": summary, "turns": turns}
     print(card)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

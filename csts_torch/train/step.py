@@ -41,6 +41,16 @@ class TrainState:
     ema: Optional[Dict[str, torch.Tensor]] = None
 
 
+def _check_act_checkpoint(cfg: Config) -> None:
+    """``MODEL.ACT_CHECKPOINT`` (the JAX package rematerialises each encoder
+    block, ``csts_tpu/models/csts.py:461``) is not ported yet: a step with
+    it set would give the same values at another memory cost, so it raises
+    rather than being ignored."""
+    if cfg.MODEL.ACT_CHECKPOINT:
+        raise NotImplementedError("MODEL.ACT_CHECKPOINT (activation checkpointing of the "
+                                  "encoder blocks) is not ported yet")
+
+
 def create_train_state(
     cfg: Config, spec: CSTSSpec, generator: Optional[torch.Generator] = None,
     state_dict: Optional[Mapping[str, torch.Tensor]] = None, device=None,
@@ -48,6 +58,7 @@ def create_train_state(
     """A fresh state: weights from ``state_dict`` (strict) or seeded random
     ones from ``generator`` (``init_params``), fp32, on ``device`` (CUDA by
     default)."""
+    _check_act_checkpoint(cfg)
     device = resolve_device(device)
     model = CSTS(spec)
     if state_dict is not None:
@@ -97,6 +108,7 @@ def make_train_step(cfg: Config, spec: CSTSSpec, steps_per_epoch: int,
     if accum_steps != 1:
         raise NotImplementedError(
             "gradient accumulation (the JAX package's GradCache two-pass) is not ported yet")
+    _check_act_checkpoint(cfg)
     ema_decay = cfg.SOLVER.EMA_DECAY
 
     def train_step(state: TrainState, batch: Mapping[str, torch.Tensor],

@@ -418,3 +418,249 @@ def test_t2_upsample_train_function_matches_autograd_of_plain(gen):
     got, = torch.autograd.grad(kup.t2_upsample_train(x, (3, 5, 7)), x, g)
     want, = torch.autograd.grad(kup.t2_upsample_plain(x, (3, 5, 7)), x, g)
     assert rel_err(got, want) <= 1e-6
+
+
+# ----------------------------------------------------------------------------------
+# small_cfg on the card, K1 and B8 at padded head dims, the whole blocks at widths
+# without an instance of their own, and K2 / B7 on their Hopper body
+# ----------------------------------------------------------------------------------
+
+
+def _small_model(batch):
+    """small_cfg(batch)'s model (head dim 16, widths 16-128) with seeded
+    random weights on the card, its config and spec, and its inputs."""
+    import dataclasses
+
+    import numpy as np
+
+    from csts_torch.models.csts import CSTS, build_spec, init_params
+    from csts_torch.presets import small_cfg
+
+    cfg = small_cfg(batch)
+    spec = build_spec(cfg)
+    model = CSTS(dataclasses.replace(spec, dtype="float32"))
+    init_params(model, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    t, s = spec.num_frames, spec.crop_size
+    video = torch.from_numpy(rng.standard_normal((batch, t, s, s, 3), dtype=np.float32)).cuda()
+    audio = torch.from_numpy(rng.standard_normal(
+        (batch, t, cfg.DATA.AUDIO_FREQ_BINS, cfg.DATA.AUDIO_WINDOW, 1), dtype=np.float32)).cuda()
+    return cfg, spec, model, video, audio
+
+
+def test_small_cfg_forward_bf16_through_kernels(gen):
+    """small_cfg(2)'s bf16 forward through the kernels (K1 at head dim 16,
+    padded; B3, B4 and B5 at its widths; K2; K3) against the same weights
+    through the plain twins in fp32: per-frame softmax within 0.02 and each
+    frame's argmax within one pixel; the counters show every kernel ran."""
+    import dataclasses
+
+    from chip_smoke import WRAPPERS, plain_kernels, reset_launches
+    from csts_torch.models.csts import CSTS
+    from csts_torch.train.losses import frame_softmax
+
+    cfg, spec, ref, video, audio = _small_model(2)
+    model = CSTS(dataclasses.replace(spec, dtype="bfloat16"))
+    model.load_state_dict(ref.state_dict())
+    model = model.to(torch.bfloat16).cuda().eval()
+    ref = ref.cuda().eval()
+    with torch.inference_mode():
+        reset_launches()
+        logits16 = model(video, audio).float()
+        torch.cuda.synchronize()
+        ran = {n: WRAPPERS[n].launches for n in ("attention", "mlp_tail", "block", "pool_block",
+                                                 "decoder_block", "t2_upsample")}
+        with plain_kernels():
+            logits32 = ref(video, audio)
+    assert all(ran.values()), ran
+    sm16, sm32 = frame_softmax(logits16), frame_softmax(logits32)
+    assert float((sm16 - sm32).abs().max()) < 0.02
+    w = logits32.shape[3]
+    a16 = logits16.reshape(*logits16.shape[:2], -1).argmax(-1)
+    a32 = logits32.reshape(*logits32.shape[:2], -1).argmax(-1)
+    assert int((a16 // w - a32 // w).abs().max()) <= 1 and int((a16 % w - a32 % w).abs().max()) <= 1
+
+
+def test_small_cfg_train_step_fp32_through_kernels(gen):
+    """One fp32 small_cfg(2) training step (TF32 off) through the kernels
+    and through the plain twins from the same weights, masks and batch, at
+    PERF.md §2's bars: the loss within 1e-5 relative, each gradient within
+    1e-3 in relative norm plus 1e-6 of the whole gradient's norm."""
+    import numpy as np
+
+    from chip_smoke import (STEP_GRAD_FLOOR, STEP_GRAD_RTOL, STEP_LOSS_RTOL, WRAPPERS,
+                            reset_launches, train_twins)
+    from csts_torch.ops import sample_drop_masks
+    from csts_torch.train import step as train_lib
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, spec, model, video, audio = _small_model(2)
+    model = model.cuda().train()
+    hw = spec.crop_size // 4
+    hm = torch.rand(2, spec.num_frames, hw, hw, generator=gen, device="cuda")
+    batch = {"video": video, "audio": audio, "labels_hm": hm / hm.sum(dim=(2, 3), keepdim=True)}
+
+    def loss_and_grads():
+        model.zero_grad(set_to_none=True)
+        drop = sample_drop_masks(spec, 2, torch.Generator().manual_seed(2), "cuda")
+        loss, _, _ = train_lib.forward_loss(cfg, model, batch, drop)
+        loss.backward()
+        return float(loss.detach()), {n: p.grad.detach().clone() if p.grad is not None
+                                      else torch.zeros_like(p) for n, p in model.named_parameters()}
+
+    reset_launches()
+    loss_k, grads_k = loss_and_grads()
+    ran = {n: WRAPPERS[n].launches for n in ("attention", "attention_bwd", "mlp_tail_train",
+                                             "t2_upsample")}
+    assert all(ran.values()), ran
+    with train_twins():
+        loss_p, grads_p = loss_and_grads()
+    assert abs(loss_k - loss_p) <= STEP_LOSS_RTOL * abs(loss_p), (loss_k, loss_p)
+    norm = lambda t: float(torch.linalg.vector_norm(t.float()))  # noqa: E731
+    floor = STEP_GRAD_FLOOR * float(np.sqrt(sum(norm(g) ** 2 for g in grads_p.values())))
+    for n in grads_p:
+        assert norm(grads_k[n] - grads_p[n]) <= STEP_GRAD_RTOL * norm(grads_p[n]) + floor, n
+
+
+@pytest.mark.parametrize("hd", [16, 32])
+@pytest.mark.parametrize("b,n,lq,lk", [(2, 2, 100, 70), (1, 8, 8, 8)])
+def test_attention_small_head_dims(gen, hd, b, n, lq, lk):
+    """K1 and B8 at head dims with no compiled instance (run zero-padded to
+    64) against their plain twins at chip_smoke's bars; the counters move."""
+    scale = hd ** -0.5
+    q, k, v = _randn(gen, b, n, lq, hd), _randn(gen, b, n, lk, hd), _randn(gen, b, n, lk, hd)
+    _check("attention", ka.fused_attention, ka.fused_attention_plain, [q, k, v, scale])
+    g = _randn(gen, b, n, lq, hd)
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.bfloat16):
+            qc, kc, vc, gc = (t.to(dtype) for t in (q, k, v, g))
+            out, lse = _lse(qc, kc, vc, scale)
+            assert out.shape == qc.shape
+            before = ka.fused_attention_bwd.launches
+            got = ka.fused_attention_bwd(qc, kc, vc, out, gc, scale, lse)
+            torch.cuda.synchronize()
+            assert ka.fused_attention_bwd.launches == before + 1
+            want = ka.fused_attention_bwd_plain(qc, kc, vc, out, gc, scale)
+            for name, x, y in zip(("dq", "dk", "dv"), got, want):
+                assert x.shape == y.shape and x.dtype == dtype
+                bar = B8_BAR[dtype] * max(1.0, float(y.float().abs().max()))
+                assert float((x.float() - y.float()).abs().max()) <= bar, (name, dtype)
+
+
+@pytest.mark.parametrize("kind,b,l,c,cout,heads", [
+    ("block", 2, 100, 96, 384, 1),      # 96 -> 384: no instance of its own (the widest)
+    ("block", 1, 150, 384, 192, 4),     # 384 -> 192 at four heads: the widest
+    ("block", 1, 90, 512, 512, 2),      # head dim 256 at dim 512 (one row warp)
+    ("block", 2, 256, 16, 32, 1),       # small_cfg's v0 / a0
+    ("pool_block", 1, 0, 384, 192, 4),  # 384 -> 192: the widest
+    ("pool_block", 1, 0, 640, 640, 5),  # dim 640 (one row warp), head dim 128
+    ("pool_block", 2, 0, 64, 128, 4),   # small_cfg's v2
+])
+def test_whole_block_any_width(gen, kind, b, l, c, cout, heads):
+    """B3 and B4 at widths block_route may send them that have no compiled
+    instance of their own: the widest instance of their row split, chosen
+    before the launch, at the kernels' bars."""
+    hd = c // heads
+    lk = 64
+    k, v = _kv(gen, b, heads, lk, hd)
+    if kind == "block":
+        args = [_randn(gen, b, l, c), k, v, hd ** -0.5, 1 + _randn(gen, c, scale=0.1),
+                _randn(gen, c, scale=0.1), _randn(gen, c, c, scale=c ** -0.5),
+                _randn(gen, c, scale=0.1)] + _tail(gen, c, cout, 4 * c)
+        _check("block", kb.fused_block, kb.fused_block_plain, args)
+        return
+    thw = (2, 9, 7)
+    t, h, w = thw
+    l_out = t * ((h + 1) // 2) * ((w + 1) // 2)
+    args = [_q_source(gen, b, t * h * w, c), thw, _randn(gen, b, l_out, c), k, v, hd ** -0.5,
+            _randn(gen, hd, 1, 3, 3, 3, scale=0.2), 1 + _randn(gen, hd, scale=0.1),
+            _randn(gen, hd, scale=0.1)] + _tail(gen, c, cout, 4 * c)
+    _check("pool_block", kb.fused_pool_block, kb.fused_pool_block_plain, args)
+
+
+@pytest.mark.parametrize("thw,stride,c,cout,heads", [
+    ((4, 1, 1), (1, 2, 2), 128, 128, 8),   # small_cfg's d1: identity base, head dim 16
+    ((4, 4, 4), (1, 2, 2), 64, 32, 4),     # small_cfg's d3
+    ((4, 8, 8), (2, 1, 1), 32, 16, 2),     # small_cfg's d4
+])
+def test_decoder_block_small_widths(gen, thw, stride, c, cout, heads):
+    """B5's first design at small_cfg's widths (the widest instance)."""
+    _check("decoder_block", kb.fused_decoder_block, kb.fused_decoder_block_plain,
+           _decoder_args(gen, 2, thw, stride, c, cout, heads, 16))
+
+
+# K2's and B7's (C, H, C_out) on the flagship (the first three and the last three
+# are B7's only) and at small_cfg's widths
+TAIL_PAIRS = [(96, 384, 192), (192, 768, 192), (192, 768, 384), (384, 1536, 384),
+              (384, 1536, 768), (768, 3072, 768), (768, 1536, 384), (384, 768, 192),
+              (192, 384, 96)]
+SMALL_PAIRS = [(16, 64, 32), (32, 128, 64), (64, 256, 128), (128, 512, 128), (128, 256, 64),
+               (64, 128, 32), (32, 64, 16)]
+
+
+def _tail_case(gen, rows, c, h, cout, samples):
+    """x as (samples, rows / samples, C) and the tail weights."""
+    args = [_randn(gen, samples, rows // samples, c)] + _tail(gen, c, cout, h)[2:]
+    dp = torch.where(torch.arange(samples, device="cuda") % 3 == 0, 0.0, 1.0)
+    dp[-1] = 1.25
+    return args, dp
+
+
+def _check_tail(args, dp, k2: bool):
+    """K2 (when ``k2``) and B7 against their twins, fp32 and bf16."""
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.bfloat16):
+            cast = [a.to(dtype) if a is not None else None for a in args]
+            pairs = []
+            if k2:
+                before = kb.fused_mlp_tail.launches
+                pairs.append((kb.fused_mlp_tail(*cast), kb.fused_mlp_tail_plain(*cast)))
+                assert kb.fused_mlp_tail.launches == before + 1
+            before = kb.fused_mlp_tail_train.launches
+            got = kb.fused_mlp_tail_train(*cast, dp)
+            assert kb.fused_mlp_tail_train.launches == before + 1
+            pairs += list(zip(got, kb.fused_mlp_tail_train_plain(*cast, dp)))
+            torch.cuda.synchronize()
+            for g_, w_ in pairs:
+                assert g_.shape == w_.shape and g_.dtype == dtype
+                err = float((g_.float() - w_.float()).abs().max())
+                bar = (FP32_ATOL["mlp_tail"] + FP32_RTOL["mlp_tail"] * float(w_.abs().max())
+                       if dtype == torch.float32 else bf16_bar("mlp_tail", w_))
+                assert err <= bar, (dtype, err, bar)
+
+
+@pytest.mark.parametrize("rows", [2048, 2080, 8192, 333])
+@pytest.mark.parametrize("c,h,cout", TAIL_PAIRS)
+def test_mlp_tail_flagship_pairs(gen, c, h, cout, rows):
+    """K2 and B7 on the Hopper body at every flagship (C, H, C_out), at the
+    flagship's M 2048 (v14), 2080 (the fusion blocks) and 8192 (v4-v13) and
+    a ragged M, B7 with stochastic-depth factors 0, 1 and 1.25 mixed."""
+    samples = {2048: 8, 2080: 8, 8192: 8, 333: 3}[rows]
+    args, dp = _tail_case(gen, rows, c, h, cout, samples)
+    _check_tail(args, dp, k2=(c, h, cout) in TAIL_PAIRS[3:6])
+
+
+@pytest.mark.parametrize("c,h,cout", SMALL_PAIRS)
+def test_mlp_tail_small_widths(gen, c, h, cout):
+    """K2 and B7 at small_cfg's widths (16 to 128: reductions that end inside
+    a 64-column stage, output tiles of 64)."""
+    args, dp = _tail_case(gen, 2 * 130, c, h, cout, 2)
+    _check_tail(args, dp, k2=True)
+
+
+def test_mlp_tail_scratch_held(gen):
+    """K2 and B7 park LN2's rows and GELU of the hidden in scratch buffers
+    between their launches. Twice, with other allocations in between, each
+    call matches the other bit for bit: a scratch buffer handed to another
+    allocation while a launch still read it would not."""
+    args, dp = _tail_case(gen, 8 * 260, 768, 3072, 768, 8)
+    cast = [a.bfloat16() if a is not None else None for a in args]
+    with torch.inference_mode():
+        first = (kb.fused_mlp_tail(*cast), *kb.fused_mlp_tail_train(*cast, dp))
+        churn = [torch.empty(8 * 260 * 3072 * n, dtype=torch.bfloat16, device="cuda")
+                 for n in (1, 2)]
+        second = (kb.fused_mlp_tail(*cast), *kb.fused_mlp_tail_train(*cast, dp))
+        del churn
+        torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)

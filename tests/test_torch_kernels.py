@@ -59,11 +59,22 @@ def test_port_mask_equals_jax_mask():
         tmvit.build_inframe_mask((4, 8, 8), 4), jmvit.build_inframe_mask((4, 8, 8), 4))
 
 
+# K2's (C, H, C_out) sites on the flagship: v4-v12 (384, 1536, 384), v13 (384,
+# 1536, 768), v14, v15, a3, d1 and the two fusion blocks (768, 3072, 768); a
+# few dozen rows, one count ragged against every tile
+K2_PAIRS = [(384, 384, False), (384, 768, False), (768, 768, False)]
+
+
 @pytest.mark.parametrize(
-    "dim,dim_out,heads,upsample",
-    [(96, 96, 1, False), (96, 192, 1, False), (384, 384, 4, False), (384, 192, 4, True)],
+    "dim,dim_out,heads,upsample,b,l",
+    [pytest.param(96, 96, 1, False, 2, 256, id="96-96-1-False"),
+     pytest.param(96, 192, 1, False, 2, 256, id="96-192-1-False"),
+     pytest.param(384, 384, 4, False, 2, 256, id="384-384-4-False"),
+     pytest.param(384, 192, 4, True, 2, 256, id="384-192-4-True")]
+    + [pytest.param(c, co, 1, up, b, l, id=f"pair-{c}-{4 * (co if up else c)}-{co}-rows{b * l}")
+       for c, co, up in K2_PAIRS for b, l in ((2, 24), (1, 37))],
 )
-def test_mlp_tail_matches_pallas(dim, dim_out, heads, upsample):
+def test_mlp_tail_matches_pallas(dim, dim_out, heads, upsample, b, l):
     spec = jmvit.AttentionSpec(
         dim=dim, dim_out=dim_out, num_heads=heads,
         kernel_q=(3, 3, 3), kernel_kv=(3, 3, 3), stride_q=(1, 2, 2), stride_kv=(1, 2, 2),
@@ -77,7 +88,7 @@ def test_mlp_tail_matches_pallas(dim, dim_out, heads, upsample):
     for lin in (params["mlp"]["fc1"], params["mlp"]["fc2"], params.get("proj")):
         if lin is not None:
             lin["b"] = jnp.asarray(0.1 * rng.standard_normal(lin["b"].shape), jnp.float32)
-    x = rng.standard_normal((2, 256, dim)).astype(np.float32)
+    x = rng.standard_normal((b, l, dim)).astype(np.float32)
     want = jkb.fused_mlp_tail(jnp.asarray(x), params, spec, interpret=True)
 
     sd = {}
@@ -90,7 +101,7 @@ def test_mlp_tail_matches_pallas(dim, dim_out, heads, upsample):
         sd["blk.mlp.fc2.weight"], sd["blk.mlp.fc2.bias"],
         sd["blk.proj.weight"] if has_proj else None, sd["blk.proj.bias"] if has_proj else None,
     )
-    assert tuple(got.shape) == (2, 256, dim_out)
+    assert tuple(got.shape) == (b, l, dim_out)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=3e-5, rtol=1e-4)
 
 

@@ -50,9 +50,25 @@ TAIL_NAMES = ("norm2.weight", "norm2.bias", "mlp.fc1.weight", "mlp.fc1.bias",
               "mlp.fc2.weight", "mlp.fc2.bias", "proj.weight", "proj.bias")
 
 
-@pytest.mark.parametrize("dim,dim_out,upsample", [(96, 96, False), (96, 192, False),
-                                                  (384, 192, True)])
-def test_mlp_tail_train_matches_pallas(dim, dim_out, upsample):
+# B7's (C, H, C_out) sites in the flagship's training step: v0/a0 (96, 384,
+# 192), v1 (192, 768, 192), v2/a1 (192, 768, 384), v3-v12 (384, 1536, 384),
+# v13/a2 (384, 1536, 768), v14, v15, a3, d1 and the fusion blocks (768, 3072,
+# 768), d2 (768, 1536, 384), d3 (384, 768, 192), d4 (192, 384, 96); two
+# samples of a few dozen rows, one count ragged against every tile
+B7_PAIRS = [(96, 192, False), (192, 192, False), (192, 384, False), (384, 384, False),
+            (384, 768, False), (768, 768, False), (768, 384, True), (384, 192, True),
+            (192, 96, True)]
+
+
+@pytest.mark.parametrize(
+    "dim,dim_out,upsample,l",
+    [pytest.param(96, 96, False, 256, id="96-96-False"),
+     pytest.param(96, 192, False, 256, id="96-192-False"),
+     pytest.param(384, 192, True, 256, id="384-192-True")]
+    + [pytest.param(c, co, up, 29, id=f"pair-{c}-{4 * (co if up else c)}-{co}")
+       for c, co, up in B7_PAIRS],
+)
+def test_mlp_tail_train_matches_pallas(dim, dim_out, upsample, l):
     """B7: out against the Pallas kernel, then the gradients of x and of every
     tail weight for one output cotangent against jax.vjp of the kernel's
     custom VJP (``_tail_train_bwd``), with one sample's MLP branch dropped."""
@@ -63,8 +79,8 @@ def test_mlp_tail_train_matches_pallas(dim, dim_out, upsample):
     )
     params = _tail_params(spec, 5)
     rng = np.random.default_rng(6)
-    x = rng.standard_normal((3, 256, dim)).astype(np.float32)
-    g = rng.standard_normal((3, 256, dim_out)).astype(np.float32)
+    x = rng.standard_normal((3, l, dim)).astype(np.float32)
+    g = rng.standard_normal((3, l, dim_out)).astype(np.float32)
     dp = np.asarray([0.0, 1 / 0.9, 1 / 0.9], np.float32)
 
     want, vjp = jax.vjp(
@@ -81,7 +97,7 @@ def test_mlp_tail_train_matches_pallas(dim, dim_out, upsample):
     xt = _t(x, grad=True)
     tail = [leaves.get(n) for n in TAIL_NAMES]
     out = kb.mlp_tail_train(xt, *tail, torch.from_numpy(dp))
-    assert tuple(out.shape) == (3, 256, dim_out)
+    assert tuple(out.shape) == (3, l, dim_out)
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), atol=3e-5, rtol=1e-4)
 
     got = torch.autograd.grad(out, [xt] + [leaves[n] for n in names], torch.from_numpy(g))
