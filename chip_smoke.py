@@ -5,7 +5,13 @@
 
 Phases (any failure exits non-zero; nothing is caught):
   1. the card (``nvidia-smi`` name and power limit) and the kernel build from
-     ``csts_torch/csrc`` (seconds, registers per kernel);
+     ``csts_torch/csrc`` (seconds, registers per kernel, spills and wgmma
+     serialisation warnings); 1b. the widths earlier slices could not run
+     (``widths_phase``): K2 and B7 at widths off 16, K1 and B8 at bf16 head
+     dims 256 and 384, a decoder block of dim 768 with three heads of 256
+     (no whole-block instance fits it: routed to K1+K2 before any launch),
+     and B4 at a width without a split instance, each against its plain
+     version with its launches counted;
   2. the flagship CSTS-B 16x4 (256², 16+4 blocks, bf16) with seeded random
      weights behind a ``GazePredictor(batch_sizes=(1, 8))``; one warm-up
      request per bucket records the inputs of every kernel launch;
@@ -18,7 +24,7 @@ Phases (any failure exits non-zero; nothing is caught):
      events over back-to-back calls, host cost included), the kernel's and
      the library call's device time (``device_ms``: summed durations from
      ``torch.profiler``), and for the whole-block kernels the same block
-     through the K1+K2 route;
+     through the K1+K2 route (CUDA events and device time);
   4. the serving path: three requests (1, 5 and 8 clips) once to warm up,
      then launch counters set to 0, the same requests timed, counters read
      (each must equal its launches per forward times 3); outputs checked
@@ -48,7 +54,8 @@ Phases (any failure exits non-zero; nothing is caught):
   6. B7 and B8 against their plain versions at every recorded shape (B7's
      out and stored hidden; B8's dq, dk, dv; B7's hand-written backward
      against autograd of its plain version), with times, bounds and B8's
-     library time (the backward of ``F.scaled_dot_product_attention``);
+     library time (the backward of ``F.scaled_dot_product_attention``), B8
+     run twice at each shape (the two runs bit-equal);
      one fp32 step at batch 2 (TF32 off) through the kernels and through the
      plain twins from the same weights, masks and batch (loss and every
      parameter's gradient compared); one bf16 batch-8 step with the plain
@@ -83,6 +90,7 @@ from csts_torch.ops import sample_drop_masks  # noqa: E402
 from csts_torch.presets import flagship_cfg, flagship_train_cfg  # noqa: E402
 from csts_torch.serving import GazePredictor  # noqa: E402
 from csts_torch.tools import ab_block, ab_flags, card_line  # noqa: E402
+from csts_torch.tools.ab_kernels import b4_inputs, tail_inputs  # noqa: E402
 from csts_torch.tools.profile_forward import device_ms, device_trace, profile_forward  # noqa: E402
 from csts_torch.train import step as train_lib  # noqa: E402
 from csts_torch.train.losses import frame_softmax  # noqa: E402
@@ -607,13 +615,18 @@ def check_kernels(calls_by_bucket: dict, kernels: dict = KERNELS) -> dict:
                         blk, x_in, thw = ctx
                         row["block_ms"] = time_ms(lambda: blk(x_in, thw))
                         row["composite_ms"] = time_ms(lambda: blk.forward_composite(x_in, thw))
+                        row["block_device_ms"] = device_ms(lambda: blk(x_in, thw))
+                        row["composite_device_ms"] = device_ms(
+                            lambda: blk.forward_composite(x_in, thw))
                     log(f"  {name} {sig[0]} x{count}: {row['ms']:.4f} ms, device "
                         f"{row['device_ms']:.4f} (plain {row['plain_ms']:.4f}, library "
                         f"{row['library_ms']} / device {row['library_device_ms']}, bound "
                         f"{row['bound_ms']:.4f} = bytes {row['bytes_ms']:.4f} / ops "
                         f"{row['ops_ms']:.4f}"
-                        + (f"; whole block {row['block_ms']:.4f} vs K1+K2 route "
-                           f"{row['composite_ms']:.4f}" if ctx is not None else "")
+                        + (f"; whole block {row['block_ms']:.4f} (device "
+                           f"{row['block_device_ms']:.4f}) vs K1+K2 route "
+                           f"{row['composite_ms']:.4f} (device {row['composite_device_ms']:.4f})"
+                           if ctx is not None else "")
                         + (f"; cuBLAS products {row['cublas_ms']:.4f} / device "
                            f"{row['cublas_device_ms']:.4f}" if "cublas_ms" in row else "")
                         + f") max|Δ| bf16 {err:.3g} fp32 {err32:.3g} ({CARD})")
@@ -623,6 +636,104 @@ def check_kernels(calls_by_bucket: dict, kernels: dict = KERNELS) -> dict:
     torch.cuda.empty_cache()
     assert not failures, "kernel vs plain:\n" + "\n".join(failures)
     return report
+
+
+def _randn(gen, *shape, dtype=torch.bfloat16):
+    return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+
+def widths_phase() -> dict:
+    """Phase 1b: the widths the earlier slices could not run (ROADMAP Queue
+    C), each kernel against its plain twin on the card at its bf16 bar, the
+    wrapper's launch counted: K2 and B7 at widths off 16 (zero-padded to 16,
+    LN2 over the true width); K1 and B8 at bf16 head dims 256 and 384 (the
+    output columns split over blocks); a decoder block of dim 768 with three
+    heads of 256, which fits no whole-block instance and takes K1+K2 (its
+    route read before any launch), against the same block through the plain
+    twins; B4 at a width without a split instance (the first design's
+    body)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows, failures = [], []
+
+    def check(tag, name, got, want, bar):
+        err = _max_err(got, want)
+        ok = err <= bar and bool(torch.isfinite(got.float()).all())
+        rows.append({"case": tag, "kernel": name, "max_abs_err": err, "bar": bar,
+                     "launches": WRAPPERS[name].launches})
+        log(f"  {tag}: {name} max|Δ| {err:.3g} (bar {bar:.3g}), {WRAPPERS[name].launches} "
+            f"launches" + ("" if ok else "  FAIL"))
+        if not ok or WRAPPERS[name].launches < 1:
+            failures.append(f"{tag} {name}: max|Δ| {err} bar {bar}, launches "
+                            f"{WRAPPERS[name].launches}")
+
+    # the block that fits no whole-block instance, random weights from the seed
+    spec = tmvit.AttentionSpec(dim=768, dim_out=384, num_heads=3, kernel_q=(3, 3, 3),
+                               kernel_kv=(3, 3, 3), stride_q=(1, 2, 2), stride_kv=(1, 1, 1),
+                               upsample_q=True)
+    blk = tmvit.MultiScaleBlock(spec)
+    pgen = torch.Generator().manual_seed(SEED)
+    with torch.no_grad():
+        for prm in blk.parameters():
+            prm.copy_(torch.randn(prm.shape, generator=pgen) * 0.05)
+    blk = blk.cuda().to(torch.bfloat16).eval()
+    with torch.inference_mode():
+        dp = torch.tensor([0.0, 1.25, 1, 1, 1, 1, 1, 1], device="cuda")
+        for n_rows, c, h, cout in ((37, 40, 160, 72), (50, 40, 160, 40), (300, 200, 792, 200)):
+            args = tail_inputs(n_rows, c, h, cout, gen)
+            tag = f"C {c} / H {h} / C_out {cout}"
+            reset_launches()
+            got = kb.fused_mlp_tail(*args)
+            want = kb.fused_mlp_tail_plain(*args)
+            check(tag, "mlp_tail", got, want, bf16_bar("mlp_tail", want))
+            reset_launches()
+            out, hid = kb.fused_mlp_tail_train(*args, dp)
+            want_o, want_h = kb.fused_mlp_tail_train_plain(*args, dp)
+            check(tag, "mlp_tail_train", out, want_o, bf16_bar("mlp_tail_train", want_o))
+            check(tag + " (hidden)", "mlp_tail_train", hid, want_h,
+                  bf16_bar("mlp_tail_train", want_h))
+        for b, n, lq, lk, hd in ((2, 3, 200, 130, 256), (2, 2, 150, 70, 384)):
+            q, k, v = (_randn(gen, b, n, m, hd) for m in (lq, lk, lk))
+            g = _randn(gen, b, lq, n, hd).permute(0, 2, 1, 3)
+            scale = hd ** -0.5
+            tag = f"head dim {hd} (B {b}, N {n}, Lq {lq}, Lk {lk})"
+            reset_launches()
+            out = ka.fused_attention(q, k, v, scale)
+            want = ka.fused_attention_plain(q, k, v, scale)
+            check(tag, "attention", out, want, bf16_bar("attention", want))
+            out, lse = ka._attention_fwd(q, k, v, scale, None, with_lse=True)
+            reset_launches()
+            got = ka.fused_attention_bwd(q, k, v, out, g, scale, lse)
+            want = ka.fused_attention_bwd_plain(q, k, v, out, g, scale)
+            for part, x, y in zip(("dq", "dk", "dv"), got, want):
+                check(f"{tag} {part}", "attention_bwd", x, y,
+                      B8_BAR[torch.bfloat16] * max(1.0, float(y.float().abs().max())))
+        thw = (4, 8, 8)
+        route = tmvit.block_route(spec, None, thw)
+        assert route == "composite", route
+        x = _randn(gen, 2, 4 * 8 * 8, 768)
+        reset_launches()
+        got, _ = blk(x, thw)
+        ran = {name: WRAPPERS[name].launches for name in ("attention", "mlp_tail", "decoder_block")}
+        with plain_kernels():
+            want, _ = blk(x, thw)
+        tag = "decoder block 768 -> 384, 3 heads of 256 (route composite)"
+        rows.append({"case": tag, "launches": ran})
+        err = _max_err(got, want)
+        bar = bf16_bar("decoder_block", want)
+        log(f"  {tag}: launches {ran}, block vs plain max|Δ| {err:.3g} (bar {bar:.3g})")
+        if not (err <= bar and ran["attention"] == 1 and ran["mlp_tail"] == 1
+                and ran["decoder_block"] == 0):
+            failures.append(f"{tag}: max|Δ| {err} bar {bar}, launches {ran}")
+        # B4 at a width without a split instance: the first design's body
+        args = b4_inputs((4, 16, 16), 96, 192, 1, gen)
+        reset_launches()
+        got = kb.fused_pool_block(*args)
+        want = kb.fused_pool_block_plain(*args)
+        check("B4 96 -> 192, 1 head (first design)", "pool_block", got, want,
+              bf16_bar("pool_block", want))
+    torch.cuda.empty_cache()
+    assert not failures, "widths:\n" + "\n".join(failures)
+    return {"cases": rows}
 
 
 def make_inputs(rng: np.random.Generator, n: int, spec):
@@ -772,6 +883,14 @@ def check_train_kernels(calls: dict) -> dict:
                         failures.append(f"{name}{tag} {sig} output {i}: max|Δ| {e} > {b}")
                 row[f"max_abs_err{tag}"], row[f"bar{tag}"] = errs, bars
                 report[name][f"max_abs_err{tag}"] = max(report[name][f"max_abs_err{tag}"], *errs)
+                if name == "attention_bwd":
+                    # no atomics: a second run gives the same bits
+                    with torch.no_grad():
+                        again = kern(*a)
+                    row[f"bit_equal{tag}"] = all(torch.equal(x, y) for x, y in zip(got, again))
+                    if not row[f"bit_equal{tag}"]:
+                        failures.append(f"{name}{tag} {sig}: two runs differ")
+                    del again
                 del got, ref
             nbytes, flops = k["cost"](*args)
             with torch.no_grad():
@@ -997,9 +1116,15 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Potential Performance Loss" in line:
                 log(f"  {name}: {line.strip()}")
 
-    # --- phase 2: flagship model behind the predictor ------------------------
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+    # --- phase 1b: the repaired widths ----------------------------------------
+    t0 = time.perf_counter()
+    widths = widths_phase()
+    log(f"phase widths: {time.perf_counter() - t0:.2f} s")
+
+    # --- phase 2: flagship model behind the predictor ------------------------
     cfg = flagship_cfg()
     cfg.TRAIN.MIXED_PRECISION = True
     spec = build_spec(cfg)
@@ -1146,6 +1271,8 @@ def main() -> int:
             # through the K1+K2 route (whole-block kernels only)
             "block_ms": per("block_ms") if name in WHOLE_BLOCKS else None,
             "composite_ms": per("composite_ms") if name in WHOLE_BLOCKS else None,
+            "block_device_ms": per("block_device_ms") if name in WHOLE_BLOCKS else None,
+            "composite_device_ms": per("composite_device_ms") if name in WHOLE_BLOCKS else None,
         })
     for name, k in B9_KERNELS.items():
         res = {"hw2_upsample": hw2, "block_multihead": blocks}[name]
@@ -1173,6 +1300,7 @@ def main() -> int:
     k2_rows = [r for r in report["mlp_tail"]["shapes"] if "ms" in r]
     b7_rows = train_report["mlp_tail_train"]["shapes"]
     b8_rows = train_report["attention_bwd"]["shapes"]
+    b4_rows = [r for r in report["pool_block"]["shapes"] if "ms" in r]
     tot = lambda rows, key, count: sum(r[key] * r[count] for r in rows)  # noqa: E731
     yardsticks = {
         "k2_cublas_ms": tot(k2_rows, "cublas_ms", "launches_per_forward"),
@@ -1181,6 +1309,9 @@ def main() -> int:
         "b7_cublas_device_ms": tot(b7_rows, "cublas_device_ms", "launches_per_step"),
         "b8_device_ms": tot(b8_rows, "device_ms", "launches_per_step"),
         "b8_sdpa_bwd_device_ms": tot(b8_rows, "library_device_ms", "launches_per_step"),
+        "b4_device_ms": tot(b4_rows, "device_ms", "launches_per_forward"),
+        "b4_block_device_ms": tot(b4_rows, "block_device_ms", "launches_per_forward"),
+        "b4_k1k2_route_device_ms": tot(b4_rows, "composite_device_ms", "launches_per_forward"),
         "b9a_device_ms": tot(hw2["shapes"], "device_ms", "launches_per_forward"),
         "b9a_interpolate_device_ms": tot(hw2["shapes"], "library_device_ms",
                                          "launches_per_forward"),
@@ -1188,6 +1319,8 @@ def main() -> int:
     log("yardsticks: K2 {k2_cublas_ms:.4f} ms cuBLAS products a forward (device "
         "{k2_cublas_device_ms:.4f}); B7 {b7_cublas_ms:.4f} a step (device {b7_cublas_device_ms:.4f}); "
         "B8 device {b8_device_ms:.4f} vs SDPA backward device {b8_sdpa_bwd_device_ms:.4f} a step; "
+        "B4 device {b4_device_ms:.4f} a forward, its blocks {b4_block_device_ms:.4f} vs the same "
+        "blocks through the K1+K2 route {b4_k1k2_route_device_ms:.4f} (device, phase 1 included); "
         "B9a device {b9a_device_ms:.4f} vs F.interpolate device {b9a_interpolate_device_ms:.4f} "
         "a forward with hw2_skip".format(**yardsticks) + f" ({card})")
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
@@ -1199,7 +1332,7 @@ def main() -> int:
                    "softmax_max_abs_diff": dsm, "profile": breakdown,
                    "hw2": hw2, "blocks": blocks, "yardsticks": yardsticks,
                    "train": train, "train_per_shape": train_report,
-                   "train_fp32_step": whole_step}, f, indent=1, default=str)
+                   "train_fp32_step": whole_step, "widths": widths}, f, indent=1, default=str)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

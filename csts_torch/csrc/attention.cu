@@ -43,6 +43,12 @@
 //    rounds the output once.
 //  * exp2 with scale·log2(e) folded into one fused multiply-add; the lse
 //    rows (natural log, fp32) for B8 in training.
+//  * Head dims 256 and 384 (the bf16 head dims above 192 that the wrapper
+//    pads to): the (64 x hd) output accumulator would not fit the
+//    registers, so a block takes 128 of the output columns (grid z), one
+//    consumer warpgroup a block; each slice computes the logits over the
+//    whole head dim (Q and K tiles at hd, V at 128 columns) and the first
+//    writes lse. Two ring stages at 384.
 //  * The additive mask (the spatial fusion's in-frame mask) is read in its own
 //    dtype, bf16 or fp32, two adjacent columns a load, only in the masked
 //    instance; widening bf16 to fp32 is exact, so the result is the fp32
@@ -105,17 +111,18 @@ __global__ void __launch_bounds__(256) attn_merge_kernel(AttnArgs a, int rows) {
   if (a.lse != nullptr && lane == 0) a.lse[row] = (m + log2f(l)) * kLn2;
 }
 
-template <int HD, int NW, bool MASKED>
-__global__ void __launch_bounds__(WgPlan<HD, NW>::kThreads, 1)
+template <int HD, int NW, bool MASKED, int DV = HD>
+__global__ void __launch_bounds__(WgPlan<HD, NW, DV>::kThreads, 1)
     attn_wg_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap, AttnArgs a) {
-  attn_wg_body<HD, NW, MASKED>(qmap, kmap, vmap, a);
+  attn_wg_body<HD, NW, MASKED, DV>(qmap, kmap, vmap, a);
 }
 
-template <int HD, int NW, bool MASKED>
+template <int HD, int NW, bool MASKED, int DV = HD>
 cudaError_t launch_wg(const AttnArgs& a, int B, cudaStream_t stream) {
   static bool attr_set = false;  // once per instance
-  cudaError_t e = launch_attn<HD, NW>(attn_wg_kernel<HD, NW, MASKED>, attr_set, a, B, stream);
+  cudaError_t e =
+      launch_attn<HD, NW, DV>(attn_wg_kernel<HD, NW, MASKED, DV>, attr_set, a, B, stream);
   if (e != cudaSuccess || a.splits == 1) return e;
   const int rows = B * a.N * a.Lq;
   attn_merge_kernel<<<(rows + 7) / 8, 256, 0, stream>>>(a, rows);
@@ -129,6 +136,15 @@ cudaError_t launch_hd(const AttnArgs& a, int B, cudaStream_t stream) {
   if (a.mask != nullptr)
     return two ? launch_wg<HD, 2, true>(a, B, stream) : launch_wg<HD, 1, true>(a, B, stream);
   return two ? launch_wg<HD, 2, false>(a, B, stream) : launch_wg<HD, 1, false>(a, B, stream);
+}
+
+// head dims above 192: one consumer warpgroup a block, 128 output columns a
+// slice (grid z), no key split
+template <int HD>
+cudaError_t launch_wide(const AttnArgs& a, int B, cudaStream_t stream) {
+  if (a.splits != 1) return cudaErrorInvalidValue;
+  return a.mask != nullptr ? launch_wg<HD, 1, true, 128>(a, B, stream)
+                           : launch_wg<HD, 1, false, 128>(a, B, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -273,6 +289,8 @@ extern "C" int csts_attention_fwd(const long long* p, float scale, void* stream)
     case 96: return launch_hd<96>(a, B, s);
     case 128: return launch_hd<128>(a, B, s);
     case 192: return launch_hd<192>(a, B, s);
+    case 256: return launch_wide<256>(a, B, s);
+    case 384: return launch_wide<384>(a, B, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -16,36 +16,55 @@
 // Lk 64 decoder sites (160 per byte) are bound by bytes and the Lk 256 and
 // 1024 encoder sites by the tensor cores.
 //
-// Design. The TPU kernel walks q tiles in order and accumulates dk and dv in
-// place across them; blocks of a GPU grid run in parallel, so that order
-// cannot carry over. Here three launches in stream order:
-//  1. dq: one block of 4 warps per 64 query rows of one (batch, head), the
-//     layout of K1's forward. It writes delta for its rows, then walks the
-//     keys in chunks of 64 (cp.async double buffer): S = q kᵀ and dP = g vᵀ
-//     in registers, p = exp(S·scale − lse) with lse from K1 (one pass over
-//     the keys, where recomputing the row statistics would take a second
-//     q kᵀ), dl = p·(dP − delta), dq += dl k with dl passed from the
-//     accumulators to the operands without leaving registers. dq goes out
-//     once, scaled, through (batch, head, row) strides.
-//  2. dk, dv: one block per 64 keys, per chunk of query tiles and per
-//     (batch, head) (and per half of the head dim at hd 128 and 192, which
-//     keeps the two accumulators in registers). Each warp owns 16 keys and
-//     computes the transposed products Sᵀ = k qᵀ and dPᵀ = v gᵀ for each
-//     query tile of its chunk, so pᵀ and dlᵀ are already the operands of
-//     dv += pᵀ g and dk += dlᵀ q. Chunking the queries gives the short-key
-//     sites enough blocks (d4: Lk 64, Lq 32768) for the 132 SMs.
+// Design (bf16), for Hopper. The TPU kernel walks q tiles in order and
+// accumulates dk and dv in place across them; blocks of a GPU grid run in
+// parallel, so that order cannot carry over. Two passes and, where the
+// queries are chunked, a reduction, in stream order:
+//  1. dq (dq_wg_kernel): a block of one warpgroup takes 64 query rows of one
+//     (batch, head), K1's layout: q and g stay in shared memory, the key
+//     chunks of k and v stream through a TMA ring. S = q kᵀ and dP = g vᵀ
+//     are wgmma m64n64k16 with both operands in shared memory; p = exp2(S·
+//     scale·log2 e − lse·log2 e) with lse from K1 (one pass over the keys)
+//     and dl = p·(dP − delta) stay in registers; dq += dl k is wgmma with dl
+//     rounded to bf16 as the register operand and k read MN-major. The pass
+//     also writes delta (and lse, padded to whole tiles) for pass 2. dq is
+//     not built from per-key-tile partials: at the flagship's Lk of 64-1024
+//     an fp32 partial per key tile costs more memory time than recomputing
+//     S and dP here.
+//  2. dk, dv (dkdv_wg_kernel): a block takes 64 keys, k and v resident, and
+//     walks the query tiles of its chunk through the ring (q, g and their 64
+//     lse and delta values, the last two by bulk copy): Sᵀ = k qᵀ and dPᵀ =
+//     v gᵀ on wgmma, pᵀ and dlᵀ in registers, then dv += pᵀ g and dk += dlᵀ
+//     q with pᵀ and dlᵀ as register operands, as K1 passes P. Chunking the
+//     queries gives the short-key sites enough blocks (d4: Lk 64, Lq 32768).
 //  3. With more than one chunk, the fp32 partial dk and dv of each chunk go
-//     to a workspace and a third launch sums them in chunk order: the result
-//     does not depend on which block ran first (no atomics).
-// Ragged edges are masked in the kernels: rows past Lq load zeros and get
-// lse = +inf (p = 0), keys past Lk load zeros and get p = 0 in the dq pass
-// and are not stored in the dk/dv pass, so a chunk that is mostly past Lk
-// (the temporal fusion's Lk 8) computes no −∞ − −∞. q, k, v, o, g and dq are
-// addressed through (batch, head, row) strides with unit columns.
+//     to a workspace and a third launch sums them in chunk order.
+// The result does not depend on which block ran first (no atomics): the
+// same inputs give bit-equal dq, dk and dv.
+//  * One warpgroup a block, and no producer warp: thread 0 issues the TMA
+//    loads of a stage once the warpgroup's products have read it. ptxas then
+//    gives a thread up to 255 registers (a block of two warpgroups and a warp
+//    gets 168), and two blocks share an SM where their shared memory fits
+//    (head dims 64-128), so one block's softmax overlaps the other's
+//    products.
+//  * The accumulators a thread holds are the output columns it owns: up to
+//    192 dq columns (96 registers) beside S and dP (64), and 96 dk and 96 dv
+//    columns. Wider head dims split the output columns over blocks (grid z),
+//    each recomputing S and dP over the whole head dim and reading its own
+//    columns of the operands: dq in 128-column blocks above 192, dk/dv in
+//    64- or 96-column blocks from 128 on. That is what takes head dims 256
+//    and 384 (the largest instance: k, v and one 384-column stage of q and g
+//    fill the shared memory).
+// Ragged edges: rows past Lq and keys past Lk load as zeros (TMA's
+// out-of-bounds fill); keys past Lk get p = 0 in the dq pass and are not
+// stored by the dk/dv pass; rows past Lq have lse = +inf (p = 0) and delta =
+// 0. q, k, v, o, g and dq are addressed through (batch, head, row) strides
+// with unit columns (16-byte aligned, the wrapper checks).
 //
 // fp32 inputs (the exactness check against the plain version) take simple
-// bodies with the same three passes and exact FMA products in shared memory.
+// bodies with the same passes and exact FMA products in shared memory.
 #include "common.cuh"
+#include "sm90.cuh"
 
 using namespace csts;
 
@@ -54,11 +73,15 @@ namespace {
 struct BwdArgs {
   const void *q, *k, *v, *o, *g;
   const float* lse;  // (B·N, Lq), K1's
-  float* delta;      // (B·N, Lq), written by the dq pass
+  // written by the dq pass: (B·N, Lq) for the fp32 bodies; the bf16 body
+  // pads the rows of lse_pad and delta to whole query tiles ((B·N, Lq_pad),
+  // +inf and 0 past Lq), so that the dk/dv pass copies 64 of each at once
+  float* delta;
+  float* lse_pad;
   void* dq;          // (B, N, Lq, hd) through strides
   void *dk, *dv;     // (B·N, Lk, hd) contiguous
   float* ws;         // (chunks, 2, B·N, Lk, hd) fp32 partials; null with one chunk
-  int BNh, N, Lq, Lk, hd;
+  int BNh, N, Lq, Lk, hd, Lq_pad;
   long long qsb, qsn, qsr, ksb, ksn, ksr, vsb, vsn, vsr, osb, osn, osr, gsb, gsn, gsr;
   long long dqsb, dqsn, dqsr;
   int tiles_per_chunk, chunks;  // of the dk/dv pass
@@ -107,287 +130,481 @@ __global__ void reduce_kernel(BwdArgs a) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: register-tiled bodies
+// bf16: wgmma bodies fed by TMA
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
+namespace s9 = csts::sm90;
 
-constexpr int kBQ = 64;  // query rows per tile (16 per warp in the dq pass)
-constexpr int kBK = 64;  // keys per chunk / per dk-dv block (16 per warp)
-constexpr int kThreads = 128;
+constexpr int kBQ = 64;  // query rows of a tile
+constexpr int kBK = 64;  // keys of a chunk / of a dk-dv block
+constexpr int kWgThreads = 128;  // one warpgroup a block
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr uint32_t kPB = 64 * s9::kRowBytes;  // one 32-column panel of a 64-row tile
+// shared memory a block may take so that two blocks share an SM
+constexpr uint32_t kHalfSm = 112 * 1024;
 
-template <int HD>
-__host__ __device__ constexpr int mma_ld() { return HD + 8; }
-
-// rows x HD bf16 rows (global stride rs) into shared memory (stride HD + 8),
-// zeros for rows at or past `valid`
-template <int HD>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, long long rs, int rows,
-                                          int valid) {
-  constexpr int per_row = HD / 8;
-  for (int idx = threadIdx.x; idx < rows * per_row; idx += kThreads) {
-    const int r = idx / per_row, c8 = idx - r * per_row;
-    const bool ok = r < valid;
-    cp_async16_zfill(dst + r * mma_ld<HD>() + c8 * 8, ok ? src + r * rs + c8 * 8 : src, ok);
-  }
+// ring stages that fit beside `resident` bytes: up to 4, as many as leave
+// room for a second block on the SM where at least two do, else as many as
+// one block may hold (at least one)
+__host__ __device__ constexpr int ring_stages(uint32_t resident, uint32_t stage) {
+  const uint32_t room = (resident + 2 * stage + 2048 <= kHalfSm ? kHalfSm
+                                                                : static_cast<uint32_t>(kMaxSmem)) -
+                        2048 - resident;
+  return room / stage > 4 ? 4 : static_cast<int>(room / stage);
 }
 
-// acc[0..8) (16 rows x 64 columns) += A[16 rows, 0..HD) · B[64 rows, 0..HD)ᵀ,
-// both bf16 row-major in shared memory (stride LD), A rows at Aw
 template <int HD>
-__device__ __forceinline__ void rows_x_rowsT(float (&acc)[kBK / 8][4], const bf16* Aw,
-                                             const bf16* B, int lane) {
-  constexpr int LD = mma_ld<HD>();
+struct BwdPlan {
+  static constexpr int P = HD / s9::kPanel;  // 32-column panels of a row
+  static constexpr uint32_t kT = P * kPB;    // a 64-row tile, all HD columns
+  // the output columns a block holds in registers (a 64 x D fp32 accumulator
+  // is D/2 registers a thread): the dq pass's one accumulator up to 192
+  // columns, the dk/dv pass's two up to 96 each; wider head dims split the
+  // columns over blocks (grid z), each recomputing S and dP
+  static constexpr int DQ = HD <= 192 ? HD : 128;
+  static constexpr int DKV = HD == 64 || HD == 96 ? HD : HD == 192 || HD == 384 ? 96 : 64;
+  static constexpr int SQ = HD / DQ, SKV = HD / DKV;
+  // dq pass: q and g resident, a stage holds a key chunk of k and of v
+  static constexpr int NSQ = ring_stages(2 * kT, 2 * kT);
+  static constexpr size_t kSmemQ = 1024 + 2 * kT + NSQ * 2 * kT + 8 * (NSQ + 1);
+  // dk/dv pass: k and v resident, a stage holds a query tile of q and of g
+  // and its 64 lse and 64 delta values
+  static constexpr int NSKV = ring_stages(2 * kT, 2 * kT + 512);
+  static constexpr size_t kSmemKV = 1024 + 2 * kT + NSKV * (2 * kT + 512) + 8 * (NSKV + 1);
+  static_assert(HD % s9::kPanel == 0 && HD % DQ == 0 && HD % DKV == 0, "head dim");
+  static_assert(NSQ >= 1 && NSKV >= 1 && kSmemQ <= kMaxSmem && kSmemKV <= kMaxSmem, "smem");
+};
+
+// S (64 x 64 fp32) = A · Bᵀ over HD, A and B 64-row tiles in shared memory
+// (K-major panels), issued asynchronously (the caller commits)
+template <int HD>
+__device__ __forceinline__ void issue_s(float (&s)[32], const unsigned char* A,
+                                        const unsigned char* B) {
 #pragma unroll
-  for (int k = 0; k < HD; k += 16) {
-    uint32_t af[4];
-    ldmatrix_x4(af, Aw + (lane & 15) * LD + k + (lane >> 4) * 8);
+  for (int p = 0; p < HD / s9::kPanel; ++p)
 #pragma unroll
-    for (int np = 0; np < kBK / 8; np += 2) {
-      uint32_t bfr[4];
-      ldmatrix_x4(bfr, B + (np * 8 + (lane & 7) + ((lane >> 4) << 3)) * LD + k +
-                           ((lane >> 3) & 1) * 8);
-      mma_bf16_16816(acc[np], af, bfr[0], bfr[1]);
-      mma_bf16_16816(acc[np + 1], af, bfr[2], bfr[3]);
+    for (int ks = 0; ks < 2; ++ks)
+      s9::Wgmma<64, 0>::ss(s, s9::desc_k(A + p * kPB, ks), s9::desc_k(B + p * kPB, ks),
+                           (p | ks) != 0);
+}
+
+// the 64 x 64 accumulator tile rounded to bf16 as the four k16 A fragments
+// of an rs product (keys or query rows 16kk .. 16kk+15 are its columns)
+__device__ __forceinline__ void to_frags(const float (&s)[32], uint32_t (&f)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) f[kk][e] = pack_bf16x2(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+}
+
+// acc (64 x D) += F · B[:, c0 .. c0+D), F the fragments of a 64 x 64 tile
+// and B a 64-row tile whose rows are the contraction (MN-major)
+template <int D>
+__device__ __forceinline__ void issue_acc(float (&acc)[D / 2], const uint32_t (&f)[4][4],
+                                          const unsigned char* B, int c0) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    s9::Wgmma<D, 1>::rs(acc, f[kk], s9::desc_mn(B + (c0 / s9::kPanel) * kPB, 16 * kk, kPB), 1);
+}
+
+// The dq pass: a block takes 64 query rows of one (batch, head) and DQ of
+// their dq columns (blockIdx.z), computes delta = rowsum(g·o) for its rows
+// (the first column block also writes lse and delta padded to whole tiles
+// for the dk/dv pass: +inf and 0 past Lq), then walks the key chunks: S = q
+// kᵀ and dP = g vᵀ on wgmma, p = exp(S·scale − lse) and dl = p·(dP − delta)
+// in registers, dq += dl k with dl as the register operand.
+template <int HD>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    dq_wg_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap gmap,
+                 const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
+                 BwdArgs a) {
+  using Pl = BwdPlan<HD>;
+  constexpr int D = Pl::DQ, NS = Pl::NSQ;
+  constexpr uint32_t T = Pl::kT;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  unsigned char* Qs = base;
+  unsigned char* Gs = base + T;
+  unsigned char* ring = base + 2 * T;  // stage s: k at ring + 2sT, v at + T
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + NS * 2 * T);
+  uint64_t* qbar = full + NS;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g4 = lane >> 2, t4 = lane & 3;
+  const int bn = blockIdx.y, b = bn / a.N, n = bn % a.N, q0 = blockIdx.x * kBQ;
+  const int c0 = blockIdx.z * D;
+  const int nchunks = (a.Lk + kBK - 1) / kBK;
+
+  auto load_chunk = [&](int c) {
+    const int s = c % NS;
+    s9::bar_expect(&full[s], 2 * T);
+    unsigned char* K = ring + 2 * s * T;
+    for (int p = 0; p < Pl::P; ++p) {
+      s9::tma_load_4d(K + p * kPB, &kmap, &full[s], p * s9::kPanel, c * kBK, n, b);
+      s9::tma_load_4d(K + T + p * kPB, &vmap, &full[s], p * s9::kPanel, c * kBK, n, b);
     }
+  };
+  if (tid == 0) {
+    for (int s = 0; s < NS; ++s) s9::bar_init(&full[s], 1);
+    s9::bar_init(qbar, 1);
+    s9::bar_init_fence();
   }
-}
-
-// acc[0..NT) (16 rows x 8·NT columns from column d0) += P · B[0..64, d0 ..),
-// P the 16 x 64 accumulator tile rounded to bf16, B bf16 row-major in shared
-// memory (stride LD) with its rows as the contraction
-template <int HD, int NT>
-__device__ __forceinline__ void acc_x_rows(float (&acc)[NT][4], float (&pm)[kBK / 8][4],
-                                           const bf16* B, int d0, int lane) {
-  constexpr int LD = mma_ld<HD>();
-#pragma unroll
-  for (int j = 0; j < kBK / 16; ++j) {
-    const uint32_t pa[4] = {pack_bf16x2(pm[2 * j][0], pm[2 * j][1]),
-                            pack_bf16x2(pm[2 * j][2], pm[2 * j][3]),
-                            pack_bf16x2(pm[2 * j + 1][0], pm[2 * j + 1][1]),
-                            pack_bf16x2(pm[2 * j + 1][2], pm[2 * j + 1][3])};
-#pragma unroll
-    for (int dp = 0; dp < NT; dp += 2) {
-      uint32_t bfr[4];
-      ldmatrix_x4_trans(bfr, B + (j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + d0 +
-                                 dp * 8 + (lane >> 4) * 8);
-      mma_bf16_16816(acc[dp], pa, bfr[0], bfr[1]);
-      mma_bf16_16816(acc[dp + 1], pa, bfr[2], bfr[3]);
+  __syncthreads();  // the barriers initialised before anyone waits on them
+  if (tid == 0) {
+    s9::bar_expect(qbar, 2 * T);
+    for (int p = 0; p < Pl::P; ++p) {
+      s9::tma_load_4d(Qs + p * kPB, &qmap, qbar, p * s9::kPanel, q0, n, b);
+      s9::tma_load_4d(Gs + p * kPB, &gmap, qbar, p * s9::kPanel, q0, n, b);
     }
-  }
-}
-
-template <int HD>
-size_t dq_smem_bytes() {
-  return 2 * align128(sizeof(bf16) * kBQ * mma_ld<HD>()) +
-         4 * align128(sizeof(bf16) * kBK * mma_ld<HD>());
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kThreads) dq_mma_kernel(BwdArgs a) {
-  constexpr int LD = mma_ld<HD>(), DT = HD / 8;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  unsigned char* p = smem_raw;
-  bf16* Qs = reinterpret_cast<bf16*>(carve(p, sizeof(bf16) * kBQ * LD));
-  bf16* Gs = reinterpret_cast<bf16*>(carve(p, sizeof(bf16) * kBQ * LD));
-  bf16* Ks[2];
-  bf16* Vs[2];
-  for (int i = 0; i < 2; ++i) {
-    Ks[i] = reinterpret_cast<bf16*>(carve(p, sizeof(bf16) * kBK * LD));
-    Vs[i] = reinterpret_cast<bf16*>(carve(p, sizeof(bf16) * kBK * LD));
+    for (int c = 0; c < NS && c < nchunks; ++c) load_chunk(c);
   }
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g4 = lane >> 2, t4 = lane & 3;
-  const int bn = blockIdx.y, q0 = blockIdx.x * kBQ;
-  const bf16* qb = head<bf16>(a.q, bn, a.N, a.qsb, a.qsn);
-  const bf16* kb = head<bf16>(a.k, bn, a.N, a.ksb, a.ksn);
-  const bf16* vb = head<bf16>(a.v, bn, a.N, a.vsb, a.vsn);
-  const bf16* ob = head<bf16>(a.o, bn, a.N, a.osb, a.osn);
+  // delta and lse of this thread's two rows (the four lanes of a quad share
+  // a row and split its columns), while the loads are in flight
+  const int qr[2] = {q0 + 16 * warp + g4, q0 + 16 * warp + g4 + 8};
   const bf16* gb = head<bf16>(a.g, bn, a.N, a.gsb, a.gsn);
-
-  load_rows<HD>(Qs, qb + q0 * a.qsr, a.qsr, kBQ, a.Lq - q0);
-  load_rows<HD>(Gs, gb + q0 * a.gsr, a.gsr, kBQ, a.Lq - q0);
-  load_rows<HD>(Ks[0], kb, a.ksr, kBK, a.Lk);
-  load_rows<HD>(Vs[0], vb, a.vsr, kBK, a.Lk);
-  cp_async_commit();
-
-  // delta of the warp's 16 rows (to device memory for the dk/dv pass) and
-  // this thread's two rows' delta and lse
-  const int qr[2] = {q0 + warp * 16 + g4, q0 + warp * 16 + g4 + 8};
-  float delta_row[2] = {0.f, 0.f}, lse_row[2] = {0.f, 0.f};
-  for (int r = 0; r < 16; ++r) {
-    const int row = q0 + warp * 16 + r;
+  const bf16* ob = head<bf16>(a.o, bn, a.N, a.osb, a.osn);
+  float delta[2], lse2[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
     float s = 0.f;
-    if (row < a.Lq)
-      for (int d = lane; d < HD; d += 32)
-        s += __bfloat162float(gb[row * a.gsr + d]) * __bfloat162float(ob[row * a.osr + d]);
-    s = warp_sum(s);
-    if (row < a.Lq && lane == 0) a.delta[(long long)bn * a.Lq + row] = s;
-    if (r == g4) delta_row[0] = s;
-    if (r == g4 + 8) delta_row[1] = s;
-  }
+    if (qr[h] < a.Lq) {
 #pragma unroll
-  for (int h = 0; h < 2; ++h)
-    if (qr[h] < a.Lq) lse_row[h] = a.lse[(long long)bn * a.Lq + qr[h]];
-
-  float dqa[DT][4] = {};
-  const bf16* Qw = Qs + warp * 16 * LD;
-  const bf16* Gw = Gs + warp * 16 * LD;
-  int cb = 0;
-  for (int c0 = 0; c0 < a.Lk; c0 += kBK) {
-    cp_async_wait_all();
-    __syncthreads();  // chunk c0 (and Q, G) visible; buffers cb ^ 1 free
-    if (c0 + kBK < a.Lk) {
-      load_rows<HD>(Ks[cb ^ 1], kb + (c0 + kBK) * a.ksr, a.ksr, kBK, a.Lk - c0 - kBK);
-      load_rows<HD>(Vs[cb ^ 1], vb + (c0 + kBK) * a.vsr, a.vsr, kBK, a.Lk - c0 - kBK);
+      for (int j = 0; j < HD / 32; ++j) {
+        const int col = 32 * j + 8 * t4;
+        const uint4 gu = *reinterpret_cast<const uint4*>(gb + qr[h] * a.gsr + col);
+        const uint4 ou = *reinterpret_cast<const uint4*>(ob + qr[h] * a.osr + col);
+        const __nv_bfloat162* gh = reinterpret_cast<const __nv_bfloat162*>(&gu);
+        const __nv_bfloat162* oh = reinterpret_cast<const __nv_bfloat162*>(&ou);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 gf = __bfloat1622float2(gh[e]), of = __bfloat1622float2(oh[e]);
+          s = fmaf(gf.x, of.x, fmaf(gf.y, of.y, s));
+        }
+      }
     }
-    cp_async_commit();
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    s += __shfl_xor_sync(0xffffffffu, s, 2);
+    delta[h] = s;
+    const float l = qr[h] < a.Lq ? a.lse[(long long)bn * a.Lq + qr[h]] : INFINITY;
+    lse2[h] = l * kLog2e;
+    if (blockIdx.z == 0 && t4 == 0) {
+      const long long i = (long long)bn * a.Lq_pad + qr[h];
+      a.lse_pad[i] = l;
+      a.delta[i] = qr[h] < a.Lq ? s : 0.f;
+    }
+  }
+  const float cl2 = a.scale * kLog2e;
 
-    float s[kBK / 8][4] = {}, dpv[kBK / 8][4] = {};
-    rows_x_rowsT<HD>(s, Qw, Ks[cb], lane);
-    rows_x_rowsT<HD>(dpv, Gw, Vs[cb], lane);
-    // dl = p·(dP − delta) in fp32; entries 0,1 of a tile are row g4, 2,3 row g4 + 8
+  float acc[D / 2];
 #pragma unroll
-    for (int nt = 0; nt < kBK / 8; ++nt)
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float sc[32], dp[32];
+  uint32_t fr[4][4];
+  // S and dP of chunk c into sc and dp, asynchronously (one commit group)
+  auto issue_sdp = [&](int c) {
+    const int s = c % NS;
+    s9::bar_wait(&full[s], (c / NS) & 1);
+    const unsigned char* K = ring + 2 * s * T;
+    s9::wgmma_fence();
+    issue_s<HD>(sc, Qs, K);
+    issue_s<HD>(dp, Gs, K + T);
+    s9::wgmma_commit();
+  };
+  // dl of chunk c from its S and dP (sc[4j + e] is row qr[e >> 1], key
+  // c·64 + 8j + 2·t4 + (e & 1)), rounded into the fragments once dq's
+  // product of the chunk before has retired (`retired`)
+  auto make_dl = [&](int c, auto retired) {
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int col = c0 + nt * 8 + 2 * t4 + (e & 1), h = e >> 1;
-        const float pe = col < a.Lk ? expf(s[nt][e] * a.scale - lse_row[h]) : 0.f;
-        s[nt][e] = pe * (dpv[nt][e] - delta_row[h]);
+        const int key = c * kBK + 8 * jj + 2 * t4 + (e & 1), h = e >> 1;
+        const float pe = key < a.Lk ? exp2f(fmaf(sc[4 * jj + e], cl2, -lse2[h])) : 0.f;
+        sc[4 * jj + e] = pe * (dp[4 * jj + e] - delta[h]);
       }
-    acc_x_rows<HD, DT>(dqa, s, Ks[cb], 0, lane);
-    cb ^= 1;
+    retired();
+    to_frags(sc, fr);
+    s9::fence_regs(sc);
+  };
+  auto issue_dq = [&](int c) {
+    s9::wgmma_fence();
+    issue_acc<D>(acc, fr, ring + 2 * (c % NS) * T, c0);
+    s9::wgmma_commit();
+  };
+  // dq's products so far retired; then chunk c's stage takes chunk c + NS
+  auto reload = [&](int c) {
+    s9::wgmma_wait<0>();
+    s9::fence_regs(acc);
+    __syncthreads();  // every warp's products have read the stage
+    if (tid == 0 && c + NS < nchunks) load_chunk(c + NS);
+  };
+  s9::bar_wait(qbar, 0);
+  if constexpr (NS >= 2) {
+    // Software-pipelined: S and dP of chunk c+1 are issued ahead of dq's
+    // product of chunk c, so the exponentials of chunk c+1 run while that
+    // product is in the tensor cores. The last chunk is peeled off, so that
+    // no product is issued under a branch (ptxas would serialise them, C7520).
+    issue_sdp(0);
+    s9::wgmma_wait<0>();
+    s9::fence_regs(sc);
+    s9::fence_regs(dp);
+    for (int c = 0; c + 1 < nchunks; ++c) {
+      make_dl(c, [&] {
+        if (c > 0) reload(c - 1);
+      });
+      issue_sdp(c + 1);
+      issue_dq(c);
+      s9::wgmma_wait<1>();  // S and dP of chunk c+1 (dq's product of chunk c may still run)
+      s9::fence_regs(sc);
+      s9::fence_regs(dp);
+    }
+    make_dl(nchunks - 1, [&] {
+      if (nchunks > 1) reload(nchunks - 2);
+    });
+    issue_dq(nchunks - 1);
+  } else {
+    // one stage (head dim 384): chunk by chunk
+    for (int c = 0; c < nchunks; ++c) {
+      issue_sdp(c);
+      s9::wgmma_wait<0>();
+      s9::fence_regs(sc);
+      s9::fence_regs(dp);
+      make_dl(c, [] {});
+      issue_dq(c);
+      reload(c);
+    }
   }
+  s9::wgmma_wait<0>();
+  s9::fence_regs(acc);
 
   bf16* dqb = static_cast<bf16*>(a.dq) + (bn / a.N) * a.dqsb + (bn % a.N) * a.dqsn;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (qr[h] >= a.Lq) continue;
-    bf16* row = dqb + qr[h] * a.dqsr;
+    bf16* row = dqb + qr[h] * a.dqsr + c0;
 #pragma unroll
-    for (int dt = 0; dt < DT; ++dt)
-      *reinterpret_cast<__nv_bfloat162*>(row + dt * 8 + 2 * t4) =
-          __floats2bfloat162_rn(dqa[dt][2 * h] * a.scale, dqa[dt][2 * h + 1] * a.scale);
+    for (int jj = 0; jj < D / 8; ++jj)
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * jj + 2 * t4) = __floats2bfloat162_rn(
+          acc[4 * jj + 2 * h] * a.scale, acc[4 * jj + 2 * h + 1] * a.scale);
   }
 }
 
+// The dk/dv pass: a block takes 64 keys of one (batch, head), DKV of their
+// dk and dv columns and one chunk of the query tiles (grid (key tiles,
+// chunks, B·N x column blocks)), with k and v resident, and walks the query
+// tiles: Sᵀ = k qᵀ and dPᵀ = v gᵀ on wgmma, pᵀ = exp(Sᵀ·scale − lse) and
+// dlᵀ = pᵀ·(dPᵀ − delta) in registers (lse and delta per query row from the
+// stage), dv += pᵀ g and dk += dlᵀ q with pᵀ and dlᵀ as register operands.
 template <int HD>
-size_t dkdv_smem_bytes() {
-  return 2 * align128(sizeof(bf16) * kBK * mma_ld<HD>()) +
-         4 * align128(sizeof(bf16) * kBQ * mma_ld<HD>()) + 4 * align128(sizeof(float) * kBQ);
-}
+__global__ void __launch_bounds__(kWgThreads, 1)
+    dkdv_wg_kernel(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap gmap,
+                   const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap, BwdArgs a) {
+  using Pl = BwdPlan<HD>;
+  constexpr int D = Pl::DKV, NS = Pl::NSKV;
+  constexpr uint32_t T = Pl::kT, ST = 2 * T;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  unsigned char* Ks = base;
+  unsigned char* Vs = base + T;
+  unsigned char* ring = base + 2 * T;  // stage s: q at ring + s·ST, g at + T
+  float* lsd = reinterpret_cast<float*>(ring + NS * ST);  // stage s: lse at 128s, delta at + 64
+  uint64_t* full = reinterpret_cast<uint64_t*>(lsd + 128 * NS);
+  uint64_t* kbar = full + NS;
 
-// DO: the head-dim columns of dk and dv one block computes (HD / DO blocks
-// split the head dim; the two transposed products cover all of HD in each)
-template <int HD, int DO>
-__global__ void __launch_bounds__(kThreads) dkdv_mma_kernel(BwdArgs a) {
-  constexpr int LD = mma_ld<HD>(), OT = DO / 8, SPLIT = HD / DO;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  unsigned char* p = smem_raw;
-  bf16* Ks = reinterpret_cast<bf16*>(carve(p, sizeof(bf16) * kBK * LD));
-  bf16* Vs = reinterpret_cast<bf16*>(carve(p, sizeof(bf16) * kBK * LD));
-  bf16* Qs[2];
-  bf16* Gs[2];
-  float* Ls[2];
-  float* Ds[2];
-  for (int i = 0; i < 2; ++i) {
-    Qs[i] = reinterpret_cast<bf16*>(carve(p, sizeof(bf16) * kBQ * LD));
-    Gs[i] = reinterpret_cast<bf16*>(carve(p, sizeof(bf16) * kBQ * LD));
-  }
-  for (int i = 0; i < 2; ++i) {
-    Ls[i] = reinterpret_cast<float*>(carve(p, sizeof(float) * kBQ));
-    Ds[i] = reinterpret_cast<float*>(carve(p, sizeof(float) * kBQ));
-  }
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g4 = lane >> 2, t4 = lane & 3;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g4 = lane >> 2, t4 = lane & 3;
   const int k0 = blockIdx.x * kBK, chunk = blockIdx.y;
-  const int bn = blockIdx.z / SPLIT, d0 = (blockIdx.z % SPLIT) * DO;
+  const int bn = blockIdx.z / Pl::SKV, c0 = (blockIdx.z % Pl::SKV) * D;
+  const int b = bn / a.N, n = bn % a.N;
   const int tiles = (a.Lq + kBQ - 1) / kBQ;
   const int t_begin = chunk * a.tiles_per_chunk;
-  const int t_end = min(tiles, t_begin + a.tiles_per_chunk);
-  const bf16* qb = head<bf16>(a.q, bn, a.N, a.qsb, a.qsn);
-  const bf16* kb = head<bf16>(a.k, bn, a.N, a.ksb, a.ksn);
-  const bf16* vb = head<bf16>(a.v, bn, a.N, a.vsb, a.vsn);
-  const bf16* gb = head<bf16>(a.g, bn, a.N, a.gsb, a.gsn);
-  const float* lse = a.lse + (long long)bn * a.Lq;
-  const float* delta = a.delta + (long long)bn * a.Lq;
+  const int n_it = min(tiles, t_begin + a.tiles_per_chunk) - t_begin;
 
-  auto load_tile = [&](int t, int buf) {
-    const int r0 = t * kBQ;
-    load_rows<HD>(Qs[buf], qb + r0 * a.qsr, a.qsr, kBQ, a.Lq - r0);
-    load_rows<HD>(Gs[buf], gb + r0 * a.gsr, a.gsr, kBQ, a.Lq - r0);
-    for (int i = threadIdx.x; i < kBQ; i += kThreads) {
-      const bool ok = r0 + i < a.Lq;
-      Ls[buf][i] = ok ? lse[r0 + i] : INFINITY;  // p = 0 past Lq
-      Ds[buf][i] = ok ? delta[r0 + i] : 0.f;
+  auto load_tile = [&](int i) {
+    const int s = i % NS, r0 = (t_begin + i) * kBQ;
+    unsigned char* st = ring + s * ST;
+    s9::bar_expect(&full[s], 2 * T + 512);
+    for (int p = 0; p < Pl::P; ++p) {
+      s9::tma_load_4d(st + p * kPB, &qmap, &full[s], p * s9::kPanel, r0, n, b);
+      s9::tma_load_4d(st + T + p * kPB, &gmap, &full[s], p * s9::kPanel, r0, n, b);
     }
+    const long long row = (long long)bn * a.Lq_pad + r0;
+    s9::bulk_load(lsd + 128 * s, a.lse_pad + row, 256, &full[s]);
+    s9::bulk_load(lsd + 128 * s + 64, a.delta + row, 256, &full[s]);
   };
-  load_rows<HD>(Ks, kb + k0 * a.ksr, a.ksr, kBK, a.Lk - k0);
-  load_rows<HD>(Vs, vb + k0 * a.vsr, a.vsr, kBK, a.Lk - k0);
-  load_tile(t_begin, 0);
-  cp_async_commit();
+  if (tid == 0) {
+    for (int s = 0; s < NS; ++s) s9::bar_init(&full[s], 1);
+    s9::bar_init(kbar, 1);
+    s9::bar_init_fence();
+  }
+  __syncthreads();  // the barriers initialised before anyone waits on them
+  if (tid == 0) {
+    s9::bar_expect(kbar, 2 * T);
+    for (int p = 0; p < Pl::P; ++p) {
+      s9::tma_load_4d(Ks + p * kPB, &kmap, kbar, p * s9::kPanel, k0, n, b);
+      s9::tma_load_4d(Vs + p * kPB, &vmap, kbar, p * s9::kPanel, k0, n, b);
+    }
+    for (int i = 0; i < NS && i < n_it; ++i) load_tile(i);
+  }
+  const float cl2 = a.scale * kLog2e;
 
-  float dka[OT][4] = {}, dva[OT][4] = {};
-  const bf16* Kw = Ks + warp * 16 * LD;
-  const bf16* Vw = Vs + warp * 16 * LD;
-  int cb = 0;
-  for (int t = t_begin; t < t_end; ++t) {
-    cp_async_wait_all();
-    __syncthreads();  // tile t visible; buffers cb ^ 1 free
-    if (t + 1 < t_end) load_tile(t + 1, cb ^ 1);
-    cp_async_commit();
-
-    // rows: the warp's 16 keys; columns: the tile's 64 query rows
-    float st[kBQ / 8][4] = {}, dpt[kBQ / 8][4] = {};
-    rows_x_rowsT<HD>(st, Kw, Qs[cb], lane);
-    rows_x_rowsT<HD>(dpt, Vw, Gs[cb], lane);
-    const float* L = Ls[cb];
-    const float* D = Ds[cb];
+  float dk[D / 2], dv[D / 2];
 #pragma unroll
-    for (int nt = 0; nt < kBQ / 8; ++nt)
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+  float st_[32], dpt[32];
+  uint32_t pf[4][4], df[4][4];
+  // Sᵀ and dPᵀ of query tile i into st_ and dpt, asynchronously
+  auto issue_sdp = [&](int i) {
+    const int s = i % NS;
+    s9::bar_wait(&full[s], (i / NS) & 1);
+    const unsigned char* Qt = ring + s * ST;
+    s9::wgmma_fence();
+    issue_s<HD>(st_, Ks, Qt);
+    issue_s<HD>(dpt, Vs, Qt + T);
+    s9::wgmma_commit();
+  };
+  // pᵀ and dlᵀ of tile i (st_[4j + e] is key k0 + 16·warp + g4 + 8·(e >> 1),
+  // query row 8j + 2·t4 + (e & 1) of the tile; rows past Lq have lse +inf,
+  // so p = 0, and delta 0), rounded into the fragments once the products of
+  // the tile before have retired (`retired`)
+  auto make_p = [&](int i, auto retired) {
+    const float* L = lsd + 128 * (i % NS);
+    const float* Dl = L + 64;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int c = nt * 8 + 2 * t4 + (e & 1);
-        const float pe = expf(st[nt][e] * a.scale - L[c]);
-        dpt[nt][e] = pe * (dpt[nt][e] - D[c]);
-        st[nt][e] = pe;
+        const int r = 8 * jj + 2 * t4 + (e & 1);
+        const float pe = exp2f(fmaf(st_[4 * jj + e], cl2, -L[r] * kLog2e));
+        dpt[4 * jj + e] = pe * (dpt[4 * jj + e] - Dl[r]);
+        st_[4 * jj + e] = pe;
       }
-    acc_x_rows<HD, OT>(dva, st, Gs[cb], d0, lane);
-    acc_x_rows<HD, OT>(dka, dpt, Qs[cb], d0, lane);
-    cb ^= 1;
+    retired();
+    to_frags(st_, pf);
+    to_frags(dpt, df);
+    s9::fence_regs(st_);
+    s9::fence_regs(dpt);
+  };
+  auto issue_dkdv = [&](int i) {
+    const unsigned char* Qt = ring + (i % NS) * ST;
+    s9::wgmma_fence();
+    issue_acc<D>(dv, pf, Qt + T, c0);
+    issue_acc<D>(dk, df, Qt, c0);
+    s9::wgmma_commit();
+  };
+  // the products so far retired; then tile i's stage takes tile i + NS
+  auto reload = [&](int i) {
+    s9::wgmma_wait<0>();
+    s9::fence_regs(dv);
+    s9::fence_regs(dk);
+    __syncthreads();  // every warp's products have read the stage
+    if (tid == 0 && i + NS < n_it) load_tile(i + NS);
+  };
+  // every chunk has at least one tile
+  s9::bar_wait(kbar, 0);
+  if constexpr (NS >= 2) {
+    // pipelined as the dq pass: Sᵀ and dPᵀ of tile i+1 ahead of the dk and
+    // dv products of tile i, the last tile peeled off
+    issue_sdp(0);
+    s9::wgmma_wait<0>();
+    s9::fence_regs(st_);
+    s9::fence_regs(dpt);
+    for (int i = 0; i + 1 < n_it; ++i) {
+      make_p(i, [&] {
+        if (i > 0) reload(i - 1);
+      });
+      issue_sdp(i + 1);
+      issue_dkdv(i);
+      s9::wgmma_wait<1>();
+      s9::fence_regs(st_);
+      s9::fence_regs(dpt);
+    }
+    make_p(n_it - 1, [&] {
+      if (n_it > 1) reload(n_it - 2);
+    });
+    issue_dkdv(n_it - 1);
+  } else {
+    // one stage (head dim 384): tile by tile
+    for (int i = 0; i < n_it; ++i) {
+      issue_sdp(i);
+      s9::wgmma_wait<0>();
+      s9::fence_regs(st_);
+      s9::fence_regs(dpt);
+      make_p(i, [] {});
+      issue_dkdv(i);
+      reload(i);
+    }
   }
+  s9::wgmma_wait<0>();
+  s9::fence_regs(dv);
+  s9::fence_regs(dk);
 
+  // keys past Lk (zero rows of k and v) are not stored
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int key = k0 + warp * 16 + g4 + 8 * h;
+    const int key = k0 + 16 * warp + g4 + 8 * h;
     if (key >= a.Lk) continue;
+    const long long off = ((long long)bn * a.Lk + key) * a.hd + c0;
+    if (a.chunks == 1) {
+      bf16* dkr = static_cast<bf16*>(a.dk) + off;
+      bf16* dvr = static_cast<bf16*>(a.dv) + off;
 #pragma unroll
-    for (int dt = 0; dt < OT; ++dt)
-      store_dkdv<bf16>(a, chunk, bn, key, d0 + dt * 8 + 2 * t4, dka[dt][2 * h],
-                       dka[dt][2 * h + 1], dva[dt][2 * h], dva[dt][2 * h + 1]);
+      for (int jj = 0; jj < D / 8; ++jj) {
+        const int c = 8 * jj + 2 * t4, e = 4 * jj + 2 * h;
+        *reinterpret_cast<__nv_bfloat162*>(dkr + c) =
+            __floats2bfloat162_rn(dk[e] * a.scale, dk[e + 1] * a.scale);
+        *reinterpret_cast<__nv_bfloat162*>(dvr + c) = __floats2bfloat162_rn(dv[e], dv[e + 1]);
+      }
+    } else {
+      const long long plane = (long long)a.BNh * a.Lk * a.hd;
+      float* wk = a.ws + 2 * chunk * plane + off;
+#pragma unroll
+      for (int jj = 0; jj < D / 8; ++jj) {
+        const int c = 8 * jj + 2 * t4, e = 4 * jj + 2 * h;
+        *reinterpret_cast<float2*>(wk + c) = make_float2(dk[e] * a.scale, dk[e + 1] * a.scale);
+        *reinterpret_cast<float2*>(wk + plane + c) = make_float2(dv[e], dv[e + 1]);
+      }
+    }
   }
 }
 
-template <int HD, int DO>
-cudaError_t launch_mma(BwdArgs a, int max_chunks, cudaStream_t stream) {
-  const size_t smem_q = dq_smem_bytes<HD>(), smem_kv = dkdv_smem_bytes<HD>();
-  auto kq = dq_mma_kernel<HD>;
-  auto kkv = dkdv_mma_kernel<HD, DO>;
-  cudaError_t e = cudaFuncSetAttribute(kq, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(smem_q));
-  if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(kkv, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem_kv));
-  if (e != cudaSuccess) return e;
+// Encode the four tensor maps, then the dq pass, the dk/dv pass and, with
+// more than one query chunk, the reduction, in stream order.
+template <int HD>
+cudaError_t launch_wg(BwdArgs a, int max_chunks, int B, cudaStream_t stream) {
+  using Pl = BwdPlan<HD>;
+  auto kq = dq_wg_kernel<HD>;
+  auto kkv = dkdv_wg_kernel<HD>;
+  static bool attr_set = false;  // once per instance
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(kq, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(Pl::kSmemQ));
+    if (e != cudaSuccess) return e;
+    e = cudaFuncSetAttribute(kkv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(Pl::kSmemKV));
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  CUtensorMap qm, gm, km, vm;
+  const long long qd[4] = {HD, a.Lq, a.N, B}, kd[4] = {HD, a.Lk, a.N, B};
+  const long long qs[3] = {a.qsr, a.qsn, a.qsb}, gs[3] = {a.gsr, a.gsn, a.gsb},
+                  ks[3] = {a.ksr, a.ksn, a.ksb}, vs[3] = {a.vsr, a.vsn, a.vsb};
+  if (!s9::make_map(&qm, a.q, 4, qd, qs, kBQ) || !s9::make_map(&gm, a.g, 4, qd, gs, kBQ) ||
+      !s9::make_map(&km, a.k, 4, kd, ks, kBK) || !s9::make_map(&vm, a.v, 4, kd, vs, kBK))
+    return cudaErrorInvalidValue;
   const int tiles = (a.Lq + kBQ - 1) / kBQ;
   a.tiles_per_chunk = (tiles + max_chunks - 1) / max_chunks;
   a.chunks = (tiles + a.tiles_per_chunk - 1) / a.tiles_per_chunk;
   if (a.chunks > 1 && a.ws == nullptr) return cudaErrorInvalidValue;
-  kq<<<dim3(tiles, a.BNh), kThreads, smem_q, stream>>>(a);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  kkv<<<dim3((a.Lk + kBK - 1) / kBK, a.chunks, a.BNh * (HD / DO)), kThreads, smem_kv, stream>>>(a);
+  kq<<<dim3(tiles, a.BNh, Pl::SQ), kWgThreads, Pl::kSmemQ, stream>>>(qm, gm, km, vm, a);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  kkv<<<dim3((a.Lk + kBK - 1) / kBK, a.chunks, a.BNh * Pl::SKV), kWgThreads, Pl::kSmemKV,
+        stream>>>(qm, gm, km, vm, a);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   if (a.chunks > 1) reduce_kernel<bf16><<<264, 256, 0, stream>>>(a);
   return cudaGetLastError();
@@ -397,6 +614,7 @@ cudaError_t launch_mma(BwdArgs a, int max_chunks, cudaStream_t stream) {
 // fp32: exact FMA bodies through shared memory
 // ---------------------------------------------------------------------------
 
+constexpr int kThreads = 128;
 constexpr int kF32BQ = 32;  // query rows per tile
 constexpr int kF32BK = 32;  // keys per dk/dv block (the dq pass walks chunks of kBK)
 
@@ -581,29 +799,33 @@ cudaError_t launch_f32(BwdArgs a, int max_chunks, cudaStream_t stream) {
 }  // namespace
 
 // max_chunks bounds the query chunks of the dk/dv pass; ws holds that many
-// (2, B·N, Lk, hd) fp32 planes (null when max_chunks is 1)
+// (2, B·N, Lk, hd) fp32 planes (null when max_chunks is 1); delta and
+// lse_pad hold B·N·Lq_pad floats (Lq_pad: Lq rounded up to 64)
 extern "C" int csts_attention_bwd(int dtype, const void* q, const void* k, const void* v,
                                   const void* o, const void* g, const void* lse, void* delta,
-                                  void* dq, void* dk, void* dv, void* ws, int max_chunks, int B,
-                                  int N, int Lq, int Lk, int hd, long long qsb, long long qsn,
-                                  long long qsr, long long ksb, long long ksn, long long ksr,
-                                  long long vsb, long long vsn, long long vsr, long long osb,
-                                  long long osn, long long osr, long long gsb, long long gsn,
-                                  long long gsr, long long dqsb, long long dqsn, long long dqsr,
-                                  float scale, void* stream) {
+                                  void* lse_pad, void* dq, void* dk, void* dv, void* ws,
+                                  int max_chunks, int B, int N, int Lq, int Lk, int hd,
+                                  long long qsb, long long qsn, long long qsr, long long ksb,
+                                  long long ksn, long long ksr, long long vsb, long long vsn,
+                                  long long vsr, long long osb, long long osn, long long osr,
+                                  long long gsb, long long gsn, long long gsr, long long dqsb,
+                                  long long dqsn, long long dqsr, float scale, void* stream) {
   if (max_chunks < 1 || Lq < 1 || Lk < 1) return cudaErrorInvalidValue;
   BwdArgs a{q,   k,   v,   o,   g,   static_cast<const float*>(lse), static_cast<float*>(delta),
-            dq,  dk,  dv,  static_cast<float*>(ws), B * N, N, Lq, Lk, hd,
+            static_cast<float*>(lse_pad), dq, dk, dv, static_cast<float*>(ws), B * N, N, Lq,
+            Lk, hd, (Lq + kBQ - 1) / kBQ * kBQ,
             qsb, qsn, qsr, ksb, ksn, ksr, vsb, vsn, vsr, osb, osn, osr, gsb, gsn, gsr,
             dqsb, dqsn, dqsr, 1, 1, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32) return launch_f32(a, max_chunks, s);
-  if (dtype != kBFloat16) return cudaErrorInvalidValue;
+  if (dtype != kBFloat16 || lse_pad == nullptr) return cudaErrorInvalidValue;
   switch (hd) {
-    case 64: return launch_mma<64, 64>(a, max_chunks, s);
-    case 96: return launch_mma<96, 96>(a, max_chunks, s);
-    case 128: return launch_mma<128, 64>(a, max_chunks, s);
-    case 192: return launch_mma<192, 96>(a, max_chunks, s);
+    case 64: return launch_wg<64>(a, max_chunks, B, s);
+    case 96: return launch_wg<96>(a, max_chunks, B, s);
+    case 128: return launch_wg<128>(a, max_chunks, B, s);
+    case 192: return launch_wg<192>(a, max_chunks, B, s);
+    case 256: return launch_wg<256>(a, max_chunks, B, s);
+    case 384: return launch_wg<384>(a, max_chunks, B, s);
     default: return cudaErrorInvalidValue;
   }
 }

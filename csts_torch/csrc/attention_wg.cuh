@@ -35,43 +35,50 @@ struct AttnArgs {
 using bf16 = __nv_bfloat16;
 
 constexpr int kBK = 64;      // keys per chunk (one ring stage)
-constexpr int kStages = 3;   // K/V ring depth
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-template <int HD, int NW>
+template <int HD, int NW, int DV = HD>
 struct WgPlan {
   static constexpr int P = HD / s9::kPanel;                       // 32-column panels
+  static constexpr int PV = DV / s9::kPanel;                      // those of a V slice
   static constexpr uint32_t kPanelBytes = 64 * s9::kRowBytes;     // one panel of 64 rows
   static constexpr uint32_t kTile = P * kPanelBytes;              // 64 rows x HD
+  static constexpr uint32_t kVTile = PV * kPanelBytes;            // 64 rows x DV
   // Q buffers: two where they fit, so that a block's next query tile loads
   // while it works on the current one
   static constexpr int QB = HD <= 128 ? 2 : 1;
+  // K/V ring stages: three, two where a head dim above 256 leaves no room
+  static constexpr int ST = HD <= 256 ? 3 : 2;
   // the consumer warpgroups and a producer warp (ptxas holds a block of two
   // warpgroups and a warp to 168 registers a thread; setmaxnreg, tried with
   // a whole producer warpgroup, did not raise that budget)
   static constexpr int kThreads = NW * 128 + 32;
   static constexpr size_t kSmem =
-      1024 + (QB * NW + 2 * kStages) * kTile + 8 * (2 * kStages + 2 * QB);
+      1024 + QB * NW * kTile + ST * (kTile + kVTile) + 8 * (2 * ST + 2 * QB);
+  static_assert(HD % DV == 0 && kSmem <= kMaxSmem, "shared memory");
 };
 
 // The body of a block: called by a __global__ kernel whose tensor maps are
 // __grid_constant__ parameters (TMA reads them in parameter space), launched
-// with WgPlan<HD, NW>::kThreads threads and kSmem bytes by launch_attn. A
-// block takes a.tpb consecutive query tiles (64·NW rows each) of one
-// (batch, head) and, with key splits, one split of the keys.
-template <int HD, int NW, bool MASKED>
+// with WgPlan<HD, NW, DV>::kThreads threads and kSmem bytes by launch_attn.
+// A block takes a.tpb consecutive query tiles (64·NW rows each) of one
+// (batch, head) and, with key splits, one split of the keys; where DV < HD
+// (head dims above 192), one slice of DV output columns instead (grid z):
+// every slice computes the logits over the whole head dim and reads its
+// own columns of V, and the first writes lse.
+template <int HD, int NW, bool MASKED, int DV = HD>
 __device__ __forceinline__ void attn_wg_body(const CUtensorMap& qmap, const CUtensorMap& kmap,
                                              const CUtensorMap& vmap, const AttnArgs& a) {
-  using Pl = WgPlan<HD, NW>;
-  constexpr int QB = Pl::QB;
-  constexpr uint32_t T = Pl::kTile, PB = Pl::kPanelBytes;
+  using Pl = WgPlan<HD, NW, DV>;
+  constexpr int QB = Pl::QB, kStages = Pl::ST;
+  constexpr uint32_t T = Pl::kTile, TV = Pl::kVTile, PB = Pl::kPanelBytes;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   unsigned char* Qs = base;               // QB buffers of NW tiles of 64 query rows
-  unsigned char* KV = base + QB * NW * T; // stage s: K at KV + 2sT, V at KV + (2s+1)T
-  uint64_t* full = reinterpret_cast<uint64_t*>(KV + 2 * kStages * T);
+  unsigned char* KV = base + QB * NW * T; // stage s: K at KV + s(T + TV), V at + T
+  uint64_t* full = reinterpret_cast<uint64_t*>(KV + kStages * (T + TV));
   uint64_t* empty = full + kStages;
   uint64_t* qfull = empty + kStages;      // a Q buffer loaded
   uint64_t* qfree = qfull + QB;           // a Q buffer read by its tile's last product
@@ -83,7 +90,8 @@ __device__ __forceinline__ void attn_wg_body(const CUtensorMap& qmap, const CUte
   const int tiles = min(a.tpb, (a.Lq + rows_tile - 1) / rows_tile - tile0);
   const int nchunks = (a.Lk + kBK - 1) / kBK;
   const int per = (nchunks + a.splits - 1) / a.splits;
-  const int c_begin = blockIdx.z * per, c_end = min(nchunks, c_begin + per);
+  const int split = DV < HD ? 0 : blockIdx.z, c0 = DV < HD ? blockIdx.z * DV : 0;
+  const int c_begin = split * per, c_end = min(nchunks, c_begin + per);
   const int n_it = c_end - c_begin;
 
   if (threadIdx.x == 0) {
@@ -114,12 +122,12 @@ __device__ __forceinline__ void attn_wg_body(const CUtensorMap& qmap, const CUte
         for (int c = c_begin; c < c_end; ++c, ++i) {
           const int s = i % kStages;
           if (i >= kStages) s9::bar_wait(&empty[s], ((i / kStages) - 1) & 1);
-          s9::bar_expect(&full[s], 2 * T);
-          unsigned char* K = KV + 2 * s * T;
-          for (int p = 0; p < Pl::P; ++p) {
+          s9::bar_expect(&full[s], T + TV);
+          unsigned char* K = KV + s * (T + TV);
+          for (int p = 0; p < Pl::P; ++p)
             s9::tma_load_4d(K + p * PB, &kmap, &full[s], p * s9::kPanel, c * kBK, n, b);
-            s9::tma_load_4d(K + T + p * PB, &vmap, &full[s], p * s9::kPanel, c * kBK, n, b);
-          }
+          for (int p = 0; p < Pl::PV; ++p)
+            s9::tma_load_4d(K + T + p * PB, &vmap, &full[s], c0 + p * s9::kPanel, c * kBK, n, b);
         }
       }
     }
@@ -132,7 +140,7 @@ __device__ __forceinline__ void attn_wg_body(const CUtensorMap& qmap, const CUte
   // exp2 of (logit·scale) = exp2 of one fma: raw logits times scale·log2(e)
   // (the masked instance folds the mask in first and then works in log2 units)
   const float cl2 = a.scale * kLog2e, sm = MASKED ? 1.f : cl2;
-  float o[HD / 2];
+  float o[DV / 2];
   float sc[32];                 // logits, then probabilities, of the chunk in hand
   float mk[MASKED ? 32 : 1];    // its mask values (masked instance)
   uint32_t pa[4][4];            // its probabilities as the A fragments of P·V
@@ -144,12 +152,12 @@ __device__ __forceinline__ void attn_wg_body(const CUtensorMap& qmap, const CUte
     const int qr[2] = {r0, r0 + 8};
     const unsigned char* Qw = Qs + (qb * NW + wg) * T;
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
     float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
 
     // S = Q Kᵀ of chunk iteration i (64 rows x 64 keys) into sc, asynchronously
     auto issue_s = [&](int i) {
-      const unsigned char* K = KV + 2 * ((ring + i) % kStages) * T;
+      const unsigned char* K = KV + ((ring + i) % kStages) * (T + TV);
 #pragma unroll
       for (int p = 0; p < Pl::P; ++p)
 #pragma unroll
@@ -254,7 +262,7 @@ __device__ __forceinline__ void attn_wg_body(const CUtensorMap& qmap, const CUte
       s9::fence_regs(o);
       if (i > 0) s9::bar_arrive(&empty[(ring + i - 1) % kStages]);
 #pragma unroll
-      for (int i2 = 0; i2 < HD / 2; ++i2) o[i2] *= alpha[(i2 >> 1) & 1];
+      for (int i2 = 0; i2 < DV / 2; ++i2) o[i2] *= alpha[(i2 >> 1) & 1];
       // keys 16kk .. 16kk+15 are the A fragment of logit tiles 2kk, 2kk+1
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
@@ -269,10 +277,10 @@ __device__ __forceinline__ void attn_wg_body(const CUtensorMap& qmap, const CUte
         wait_full(i + 1);
         issue_s(i + 1);
       }
-      const unsigned char* V = KV + (2 * ((ring + i) % kStages) + 1) * T;
+      const unsigned char* V = KV + ((ring + i) % kStages) * (T + TV) + T;
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        s9::Wgmma<HD, 1>::rs(o, pa[kk], s9::desc_mn(V, 16 * kk, PB), 1);
+        s9::Wgmma<DV, 1>::rs(o, pa[kk], s9::desc_mn(V, 16 * kk, PB), 1);
       s9::wgmma_commit();
       if (i + 1 < n_it) {
         load_mask(c + 1);
@@ -291,11 +299,11 @@ __device__ __forceinline__ void attn_wg_body(const CUtensorMap& qmap, const CUte
     for (int h = 0; h < 2; ++h) {
       if (qr[h] >= a.Lq) continue;
       const long long row = static_cast<long long>(bn) * a.Lq + qr[h];
-      if (a.splits > 1) {
+      if (DV == HD && a.splits > 1) {
         // partial state of this key split: unnormalised o, (m, l)
         float* w = a.ws + (static_cast<long long>(blockIdx.z) * gridDim.y * a.Lq * HD) + row * HD;
 #pragma unroll
-        for (int jj = 0; jj < HD / 8; ++jj)
+        for (int jj = 0; jj < DV / 8; ++jj)
           *reinterpret_cast<float2*>(w + 8 * jj + 2 * t4) =
               make_float2(o[4 * jj + 2 * h], o[4 * jj + 2 * h + 1]);
         if (t4 == 0)
@@ -304,11 +312,12 @@ __device__ __forceinline__ void attn_wg_body(const CUtensorMap& qmap, const CUte
         continue;
       }
       // the four lanes of a quad hold the same row statistics
-      if (a.lse != nullptr && t4 == 0) a.lse[row] = (m_run[h] + log2f(l_run[h])) * kLn2;
+      if (a.lse != nullptr && t4 == 0 && c0 == 0)
+        a.lse[row] = (m_run[h] + log2f(l_run[h])) * kLn2;
       const float inv = 1.f / l_run[h];
-      bf16* orow = static_cast<bf16*>(a.out) + b * a.osb + n * a.osn + qr[h] * a.osr;
+      bf16* orow = static_cast<bf16*>(a.out) + b * a.osb + n * a.osn + qr[h] * a.osr + c0;
 #pragma unroll
-      for (int jj = 0; jj < HD / 8; ++jj)
+      for (int jj = 0; jj < DV / 8; ++jj)
         *reinterpret_cast<__nv_bfloat162*>(orow + 8 * jj + 2 * t4) =
             __floats2bfloat162_rn(o[4 * jj + 2 * h] * inv, o[4 * jj + 2 * h + 1] * inv);
     }
@@ -316,12 +325,14 @@ __device__ __forceinline__ void attn_wg_body(const CUtensorMap& qmap, const CUte
 }
 
 // Encode q's, k's and v's tensor maps and launch `kern` (an instance that
-// calls attn_wg_body<HD, NW, ...>) over (query tiles / a.tpb, B·N, splits);
-// `attr_set` is the caller's once-per-instance flag for the shared-memory size.
-template <int HD, int NW, typename Kernel>
+// calls attn_wg_body<HD, NW, ..., DV>) over (query tiles / a.tpb, B·N,
+// splits, or HD / DV column slices); `attr_set` is the caller's
+// once-per-instance flag for the shared-memory size.
+template <int HD, int NW, int DV = HD, typename Kernel>
 cudaError_t launch_attn(Kernel kern, bool& attr_set, const AttnArgs& a, int B,
                         cudaStream_t stream) {
-  using Pl = WgPlan<HD, NW>;
+  using Pl = WgPlan<HD, NW, DV>;
+  if (DV < HD && a.splits != 1) return cudaErrorInvalidValue;
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(Pl::kSmem));
@@ -336,7 +347,7 @@ cudaError_t launch_attn(Kernel kern, bool& attr_set, const AttnArgs& a, int B,
       !s9::make_map(&vm, a.v, 4, kd, vs, kBK))
     return cudaErrorInvalidValue;
   const int qtiles = (a.Lq + 64 * NW - 1) / (64 * NW);
-  dim3 grid((qtiles + a.tpb - 1) / a.tpb, B * a.N, a.splits);
+  dim3 grid((qtiles + a.tpb - 1) / a.tpb, B * a.N, DV < HD ? HD / DV : a.splits);
   kern<<<grid, Pl::kThreads, Pl::kSmem, stream>>>(qm, km, vm, a);
   return cudaGetLastError();
 }

@@ -984,7 +984,8 @@ inline Shape pick_shape(const Args& a) {
 // Each library's launch_bf16 ends with it, so every width its wrapper and
 // eligibility predicate admit has an instance, chosen before the launch.
 // (At WR 1 with head dims above 240, its shared memory holds C ≤ 684 only:
-// the launch then fails and the wrapper raises.)
+// the route, csts_torch/models/mvit.py whole_block_fits, mirrors these sizes
+// and sends such blocks to K1+K2 before any launch.)
 // HD256: the library takes head dims above 128 (B4 does not: its predicate
 // stops at 128, and the instances it would not use are not compiled).
 template <int MODE, bool HD256>

@@ -11,8 +11,8 @@
 extern "C" int csts_mlp_tail(int dtype, const void* x, const void* ln_w, const void* ln_b,
                              const void* w1, const void* b1, const void* w2, const void* b2,
                              const void* wp, const void* bp, void* out, void* xn2, void* gbuf,
-                             int M, int C, int H, int Cout, float eps, void* stream) {
+                             int M, int C, int H, int Cout, int c_ln, float eps, void* stream) {
   TailArgs a{x, ln_w, ln_b, w1, b1, w2, b2, wp, bp, out, nullptr, nullptr,
-             M, C, H, Cout, 0, 1, eps};
+             M, C, H, Cout, 0, 1, eps, c_ln};
   return launch_tail<false>(a, dtype, xn2, gbuf, static_cast<cudaStream_t>(stream));
 }

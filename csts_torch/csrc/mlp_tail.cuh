@@ -71,6 +71,7 @@ struct TailArgs {
   void* hid;        // B7: pre-GELU hidden (M, H) in x's dtype
   int M, C, H, Cout, BN, L;  // L: token rows per sample (B7's dp index is row / L)
   float eps;
+  int Cln;  // the width LN2 normalises over: C, or the true width of rows zero-padded to C
 };
 
 // LN2 of rows m0 .. m0+BM into Xs (row stride ldx), one warp per row,
@@ -120,17 +121,20 @@ using bf16 = __nv_bfloat16;
 namespace s9 = csts::sm90;
 
 // LN2 of every row into xn2 (the rows rounded once), one warp a row, 16-byte
-// pieces, two-pass fp32 statistics over the row as it sits in L1.
-template <bool TRAIN>
-__global__ void __launch_bounds__(256) tail_ln_kernel(const bf16* __restrict__ x,
-                                                      const bf16* __restrict__ w,
-                                                      const bf16* __restrict__ b,
-                                                      bf16* __restrict__ y, int M, int C,
-                                                      float eps) {
+// pieces, two-pass fp32 statistics over the row as it sits in L1. Rows
+// zero-padded from Cln to C columns (a width off 16, padded by the wrapper):
+// the statistics are the first Cln columns' (the zeros add nothing to the
+// sum, and are left out of the variance), and the padded columns, whose
+// weight and bias are zero, come out zero.
+// (The body of a 256-thread kernel, rows of bf16 or, for B4's res1, fp32.)
+template <typename TX>
+__device__ __forceinline__ void ln_body(const TX* __restrict__ x, const bf16* __restrict__ w,
+                                        const bf16* __restrict__ b, bf16* __restrict__ y, int M,
+                                        int C, int Cln, float eps) {
   const long long row = static_cast<long long>(blockIdx.x) * 8 + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31, nc = C >> 3;
   if (row >= M) return;
-  const uint4* xr = reinterpret_cast<const uint4*>(x + row * C);
+  const TX* xr = x + row * C;
   auto unpack = [](const uint4& u, float (&f)[8]) {
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
@@ -140,24 +144,36 @@ __global__ void __launch_bounds__(256) tail_ln_kernel(const bf16* __restrict__ x
       f[2 * e + 1] = v.y;
     }
   };
+  // the 8 values of row piece j, widened to fp32
+  auto load8 = [&](int j, float (&f)[8]) {
+    if constexpr (sizeof(TX) == 2) {
+      unpack(reinterpret_cast<const uint4*>(xr)[j], f);
+    } else {
+      const float4 lo = reinterpret_cast<const float4*>(xr)[2 * j],
+                   hi = reinterpret_cast<const float4*>(xr)[2 * j + 1];
+      f[0] = lo.x, f[1] = lo.y, f[2] = lo.z, f[3] = lo.w;
+      f[4] = hi.x, f[5] = hi.y, f[6] = hi.z, f[7] = hi.w;
+    }
+  };
   float f[8], s = 0.f;
   for (int j = lane; j < nc; j += 32) {
-    unpack(xr[j], f);
+    load8(j, f);
 #pragma unroll
     for (int e = 0; e < 8; ++e) s += f[e];
   }
-  const float mean = warp_sum(s) / C;
+  const float mean = warp_sum(s) / Cln;
   float v = 0.f;
   for (int j = lane; j < nc; j += 32) {
-    unpack(xr[j], f);
+    load8(j, f);
 #pragma unroll
-    for (int e = 0; e < 8; ++e) v += (f[e] - mean) * (f[e] - mean);
+    for (int e = 0; e < 8; ++e)
+      if (8 * j + e < Cln) v += (f[e] - mean) * (f[e] - mean);
   }
-  const float rstd = rsqrtf(warp_sum(v) / C + eps);
+  const float rstd = rsqrtf(warp_sum(v) / Cln + eps);
   uint4* yr = reinterpret_cast<uint4*>(y + row * C);
   for (int j = lane; j < nc; j += 32) {
     float wf[8], bf[8];
-    unpack(xr[j], f);
+    load8(j, f);
     unpack(reinterpret_cast<const uint4*>(w)[j], wf);
     unpack(reinterpret_cast<const uint4*>(b)[j], bf);
     uint4 o;
@@ -168,6 +184,15 @@ __global__ void __launch_bounds__(256) tail_ln_kernel(const bf16* __restrict__ x
                           (f[2 * e + 1] - mean) * rstd * wf[2 * e + 1] + bf[2 * e + 1]);
     yr[j] = o;
   }
+}
+
+template <bool TRAIN>
+__global__ void __launch_bounds__(256) tail_ln_kernel(const bf16* __restrict__ x,
+                                                      const bf16* __restrict__ w,
+                                                      const bf16* __restrict__ b,
+                                                      bf16* __restrict__ y, int M, int C,
+                                                      int Cln, float eps) {
+  ln_body<bf16>(x, w, b, y, M, C, Cln, eps);
 }
 
 constexpr int kGemmThreads = 288;  // two consumer warpgroups and a producer warp
@@ -198,7 +223,14 @@ struct GemmArgs {
   const bf16* x;      // the identity base (fc2 without a phase 2), row stride N
   const float* dp;    // B7: per-sample factor of the MLP branch
   int L;              // B7: rows per sample
+  const float* x32 = nullptr;  // an fp32 identity base (EPI kBaseF32), row stride N
 };
+
+// fc2's epilogue: out = acc + b2 + (bp or the identity base) rounded to bf16,
+// the base bf16 (K2, B7: kBaseBf16) or fp32 (kBaseF32: B4's identity
+// blocks, whose base res1 is never rounded); or out = acc + b2 + x written
+// in fp32 (kOutF32: B4's res1 = av·Wprojᵀ + bproj + skip)
+enum { kBaseBf16 = 0, kBaseF32 = 1, kOutF32 = 2 };
 
 // The shared memory of a GEMM: the ring, the two warpgroups' output tiles,
 // the ring's full / empty barriers and two more (fc1's turns)
@@ -314,11 +346,10 @@ __device__ __forceinline__ void stage_out(unsigned char* out_s, int bar, bf16* o
 // GELU alone is a fifth of K2's and B7's device time: PERF.md.) Two
 // mbarriers hand the products over from one to the other, so their
 // products never overlap and each epilogue overlaps the other's products.
+// (The body of a kGemmThreads kernel whose tensor maps are __grid_constant__.)
 template <bool TRAIN, int BN>
-__global__ void __launch_bounds__(kGemmThreads, 1)
-    tail_fc1_kernel(const __grid_constant__ CUtensorMap amap,
-                    const __grid_constant__ CUtensorMap bmap, bf16* gout, bf16* hout,
-                    GemmArgs g) {
+__device__ __forceinline__ void fc1_body(const CUtensorMap& amap, const CUtensorMap& bmap,
+                                         bf16* gout, bf16* hout, const GemmArgs& g) {
   using P = GemmPlan<128, BN, 128>;
   extern __shared__ unsigned char smem_raw[];
   const Smem<P> sm(smem_raw);
@@ -369,6 +400,14 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
   }
 }
 
+template <bool TRAIN, int BN>
+__global__ void __launch_bounds__(kGemmThreads, 1)
+    tail_fc1_kernel(const __grid_constant__ CUtensorMap amap,
+                    const __grid_constant__ CUtensorMap bmap, bf16* gout, bf16* hout,
+                    GemmArgs g) {
+  fc1_body<TRAIN, BN>(amap, bmap, gout, hout, g);
+}
+
 // fc2 (tail_fc2_kernel): acc = G·W2ᵀ over H, then with the dim-change proj
 // (PROJ) + xn2·Wpᵀ over C into the same accumulators (B7 first sets acc =
 // dp·(acc + b2), so the factor scales the MLP branch only); out = acc + b2
@@ -377,12 +416,12 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
 // two consumer warpgroups taking 64 rows each of every tile (cooperative):
 // here the reduction is long (H) and the epilogue short, and a 128-row
 // tile reads each weight tile for twice the rows of a 64-row one.
-template <bool TRAIN, bool PROJ, int BN>
-__global__ void __launch_bounds__(kGemmThreads, 1)
-    tail_fc2_kernel(const __grid_constant__ CUtensorMap a1map,
-                    const __grid_constant__ CUtensorMap b1map,
-                    const __grid_constant__ CUtensorMap a2map,
-                    const __grid_constant__ CUtensorMap b2map, bf16* out, GemmArgs g) {
+// (The body of a kGemmThreads kernel; EPI: what the epilogue adds and
+// writes, see kBaseBf16.)
+template <bool TRAIN, bool PROJ, int BN, int EPI>
+__device__ __forceinline__ void fc2_body(const CUtensorMap& a1map, const CUtensorMap& b1map,
+                                         const CUtensorMap& a2map, const CUtensorMap& b2map,
+                                         void* out, const GemmArgs& g) {
   using P = GemmPlan<128, BN, 64>;
   extern __shared__ unsigned char smem_raw[];
   const Smem<P> sm(smem_raw);
@@ -431,21 +470,53 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
     // a compile-time choice: acc live across a branch that holds products
     // makes ptxas serialise them
     if constexpr (PROJ) ring_run<P, BN, 1>(acc, sm, arow, k2s, true, i);
-    stage_out<BN, 64>(out_s, 1 + wg, out, mw, n0, g.M, g.N, [&](int, int j, int e) {
-      // b2 (K2; B7 added it before proj), bp or the identity base x; zero past the edge
+    // b2 (K2; B7 added it before proj), bp or the identity base x; zero past the edge
+    auto add = [&](int j, int e) {
       const long long r = r0 + 8 * e;
       const int c = c0 + 8 * j;
-      float2 add = make_float2(0.f, 0.f);
+      float2 v = make_float2(0.f, 0.f);
       if (r < g.M && c < g.N) {
-        if (!TRAIN) add = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(g.bias + c));
-        const float2 base = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-            PROJ ? g.bias2 + c : g.x + r * g.N + c));
-        add.x += base.x;
-        add.y += base.y;
+        if (!TRAIN) v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(g.bias + c));
+        const float2 base =
+            EPI == kBaseF32 ? *reinterpret_cast<const float2*>(g.x32 + r * g.N + c)
+                            : __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                                  PROJ ? g.bias2 + c : g.x + r * g.N + c));
+        v.x += base.x;
+        v.y += base.y;
       }
-      return __floats2bfloat162_rn(acc[0][4 * j + 2 * e] + add.x, acc[0][4 * j + 2 * e + 1] + add.y);
-    });
+      return v;
+    };
+    if constexpr (EPI == kOutF32) {
+      // fp32 rows straight from the fragments (8 bytes a store)
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const long long r = r0 + 8 * e;
+          const int c = c0 + 8 * j;
+          const float2 v = add(j, e);
+          if (r < g.M && c < g.N)
+            *reinterpret_cast<float2*>(static_cast<float*>(out) + r * g.N + c) =
+                make_float2(acc[0][4 * j + 2 * e] + v.x, acc[0][4 * j + 2 * e + 1] + v.y);
+        }
+    } else {
+      stage_out<BN, 64>(out_s, 1 + wg, static_cast<bf16*>(out), mw, n0, g.M, g.N,
+                        [&](int, int j, int e) {
+                          const float2 v = add(j, e);
+                          return __floats2bfloat162_rn(acc[0][4 * j + 2 * e] + v.x,
+                                                       acc[0][4 * j + 2 * e + 1] + v.y);
+                        });
+    }
   }
+}
+
+template <bool TRAIN, bool PROJ, int BN>
+__global__ void __launch_bounds__(kGemmThreads, 1)
+    tail_fc2_kernel(const __grid_constant__ CUtensorMap a1map,
+                    const __grid_constant__ CUtensorMap b1map,
+                    const __grid_constant__ CUtensorMap a2map,
+                    const __grid_constant__ CUtensorMap b2map, bf16* out, GemmArgs g) {
+  fc2_body<TRAIN, PROJ, BN, kBaseBf16>(a1map, b1map, a2map, b2map, out, g);
 }
 
 inline int sm_count() {
@@ -547,17 +618,19 @@ cudaError_t launch_fc2_bn(const bf16* gbuf, const void* w2, const bf16* xn2, con
 }
 
 // Three launches: LN2 into xn2 (M x C), fc1 + GELU into G (M x H), fc2
-// (+ proj) into out. Widths are multiples of 16 (the wrapper checks): TMA
-// reads whole 16-byte pieces of every row, and a reduction that ends inside
-// a panel reads the panel's tail as zeros.
+// (+ proj) into out. Widths are multiples of 16 (the wrapper zero-pads
+// others to them, Cln the true width): TMA reads whole 16-byte pieces of
+// every row, and a reduction that ends inside a panel reads the panel's tail
+// as zeros.
 template <bool TRAIN>
 cudaError_t launch_bf16(const TailArgs& a, bf16* xn2, bf16* gbuf, cudaStream_t stream) {
   if (a.M == 0) return cudaSuccess;
-  if (xn2 == nullptr || gbuf == nullptr || a.C % 16 || a.H % 16 || a.Cout % 16)
+  if (xn2 == nullptr || gbuf == nullptr || a.C % 16 || a.H % 16 || a.Cout % 16 ||
+      a.Cln > a.C || a.Cln < 1)
     return cudaErrorInvalidValue;
   tail_ln_kernel<TRAIN><<<(a.M + 7) / 8, 256, 0, stream>>>(
       static_cast<const bf16*>(a.x), static_cast<const bf16*>(a.ln_w),
-      static_cast<const bf16*>(a.ln_b), xn2, a.M, a.C, a.eps);
+      static_cast<const bf16*>(a.ln_b), xn2, a.M, a.C, a.Cln, a.eps);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   // fc1's tiles are 64 columns wide: its ping-pong holds both 64-row halves
@@ -707,7 +780,7 @@ cudaError_t launch_f32(TailArgs a, cudaStream_t stream) {
 
 template <bool TRAIN>
 int launch_tail(const TailArgs& a, int dtype, void* xn2, void* gbuf, cudaStream_t s) {
-  if (dtype == kFloat32) return launch_f32<TRAIN>(a, s);
+  if (dtype == kFloat32) return a.Cln != a.C ? cudaErrorInvalidValue : launch_f32<TRAIN>(a, s);
   if (dtype != kBFloat16) return cudaErrorInvalidValue;
   return launch_bf16<TRAIN>(a, static_cast<bf16*>(xn2), static_cast<bf16*>(gbuf), s);
 }

@@ -14,9 +14,9 @@ extern "C" int csts_mlp_tail_train(int dtype, const void* x, const void* ln_w, c
                                    const void* w1, const void* b1, const void* w2, const void* b2,
                                    const void* wp, const void* bp, const void* dp, void* out,
                                    void* hid, void* xn2, void* gbuf, int M, int L, int C, int H,
-                                   int Cout, float eps, void* stream) {
+                                   int Cout, int c_ln, float eps, void* stream) {
   if (L < 1 || M % L) return cudaErrorInvalidValue;
   TailArgs a{x, ln_w, ln_b, w1, b1, w2, b2, wp, bp, out, static_cast<const float*>(dp), hid,
-             M, C, H, Cout, 0, L, eps};
+             M, C, H, Cout, 0, L, eps, c_ln};
   return launch_tail<true>(a, dtype, xn2, gbuf, static_cast<cudaStream_t>(stream));
 }

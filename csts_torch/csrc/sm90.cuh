@@ -1,6 +1,7 @@
 // Hopper (sm_90a) machinery shared by the redesigned kernels K1
-// (attention.cu), B5 (decoder_block.cu) and K2/B7 (mlp_tail.cuh), and meant
-// for the later redesigns of B3, B4 and B8: shared-memory barriers
+// (attention.cu), B4 and B5 (split_block.cuh), B8 (attention_bwd.cu) and
+// K2/B7 (mlp_tail.cuh), and meant for the later redesign of B3:
+// shared-memory barriers
 // (mbarrier), TMA tile loads through tensor maps, the warpgroup matrix
 // product (wgmma) with its shared-memory descriptors, and the host-side
 // encoding of a tensor map.
@@ -98,6 +99,16 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(saddr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(saddr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// a 1-D bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from global to shared memory, completing on `bar` like a TMA load
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(saddr(dst)), "l"(src), "r"(bytes), "r"(saddr(bar))
       : "memory");
 }
 

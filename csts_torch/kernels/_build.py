@@ -39,18 +39,19 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "csts_attention_fwd": [_P, _F, _P],
     },
     "attention_bwd": {
-        # dtype, q, k, v, o, g, lse, delta, dq, dk, dv, ws, max_chunks, B, N, Lq, Lk,
-        # hd, 18 strides (q, k, v, o, g, dq), scale, stream
-        "csts_attention_bwd": [_I] + [_P] * 11 + [_I] * 6 + [_LL] * 18 + [_F, _P],
+        # dtype, q, k, v, o, g, lse, delta, lse_pad, dq, dk, dv, ws, max_chunks, B, N,
+        # Lq, Lk, hd, 18 strides (q, k, v, o, g, dq), scale, stream
+        "csts_attention_bwd": [_I] + [_P] * 12 + [_I] * 6 + [_LL] * 18 + [_F, _P],
     },
     "mlp_tail": {
-        # dtype, x, 8 weights, out, the scratch xn2 and G, M, C, H, Cout, eps, stream
-        "csts_mlp_tail": [_I] + [_P] * 12 + [_I, _I, _I, _I, _F, _P],
+        # dtype, x, 8 weights, out, the scratch xn2 and G, M, C, H, Cout, LN2's
+        # width, eps, stream
+        "csts_mlp_tail": [_I] + [_P] * 12 + [_I] * 5 + [_F, _P],
     },
     "mlp_tail_train": {
         # dtype, x, 8 weights, dp, out, hid, the scratch xn2 and G, M, L, C, H, Cout,
-        # eps, stream
-        "csts_mlp_tail_train": [_I] + [_P] * 14 + [_I] * 5 + [_F, _P],
+        # LN2's width, eps, stream
+        "csts_mlp_tail_train": [_I] + [_P] * 14 + [_I] * 6 + [_F, _P],
     },
     "upsample": {
         "csts_t2_upsample": [_I, _P, _P, _I, _I, _LL, _P],
@@ -63,8 +64,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
 _FUSED_BLOCK_ARGS = [_I] + [_P] * 23 + [_LL] + [_I] * 17 + [_F, _P]
 SIGNATURES.update({
     "block": {"csts_fused_block": _FUSED_BLOCK_ARGS},
-    "pool_block": {"csts_fused_pool_block": _FUSED_BLOCK_ARGS},
-    # B5 also takes its three scratch buffers (q, av, res1) after the output
+    # B4 and B5 also take their split's scratch buffers after the output: q,
+    # av and res1, and B4 the hidden G
+    "pool_block": {"csts_fused_pool_block": [_I] + [_P] * 27 + _FUSED_BLOCK_ARGS[24:]},
     "decoder_block": {"csts_fused_decoder_block": [_I] + [_P] * 26 + _FUSED_BLOCK_ARGS[24:]},
 })
 

@@ -10,10 +10,11 @@ an exact FMA body) and :func:`fused_attention_bwd` the one in
 ``csrc/attention_bwd.cu``; on a CPU tensor each runs its ``*_plain`` twin,
 the same function in plain PyTorch. There is no other route.
 :func:`fused_attention_split_plain` is the plain model of the key split and
-its merge. Both wrappers take any head dim, as the JAX kernels do: one the
-bf16 bodies are not compiled for runs zero-padded to the next that is
-(:func:`kernel_head_dim`, :func:`pad_head_dim`; exact), and only a bf16 head
-dim above 192 raises.
+its merge. Both wrappers take any head dim up to 384, as the JAX kernels do:
+one the bf16 bodies are not compiled for runs zero-padded to the next that
+is (:func:`kernel_head_dim`, :func:`pad_head_dim`; exact); above 192 the
+bf16 bodies split the output columns over blocks (:func:`column_blocks`),
+and only a bf16 head dim above 384 raises.
 
 Training goes through :func:`attention_train` (the autograd Function
 :class:`FusedAttention`): unmasked sites run K1 forward, which then also
@@ -35,17 +36,17 @@ from csts_torch.kernels import _build
 
 
 # head dims the bf16 bodies are compiled for (the flagship uses 96, and 192 at d2)
-HEAD_DIMS = (64, 96, 128, 192)
+HEAD_DIMS = (64, 96, 128, 192, 256, 384)
 
 
 def kernel_head_dim(hd: int, dtype: torch.dtype) -> int:
     """The head dim a call of K1 or B8 runs at: the inputs' last axis is
     zero-padded to it and the outputs sliced back (see :func:`pad_head_dim`).
-    bf16: the next compiled head dim (16 and 32 run at 64, 112 at 128);
-    above 192 no instance holds a head, and the call raises. fp32: the exact
-    FMA bodies take any head dim their shared memory holds (B8's needs it
-    even), so an odd one gains one column; a head dim that does not fit
-    makes the launch fail (K1 above 280)."""
+    bf16: the next compiled head dim (16 and 32 run at 64, 112 at 128, 200
+    at 256); above 384 no instance holds a head, and the call raises. fp32:
+    the exact FMA bodies take any head dim their shared memory holds (B8's
+    needs it even), so an odd one gains one column; a head dim that does not
+    fit makes the launch fail (K1 above 280)."""
     if dtype == torch.bfloat16:
         for d in HEAD_DIMS:
             if hd <= d:
@@ -53,6 +54,20 @@ def kernel_head_dim(hd: int, dtype: torch.dtype) -> int:
         raise ValueError(f"attention: head dim {hd} is above the largest compiled one "
                          f"({HEAD_DIMS[-1]})")
     return hd + hd % 2
+
+
+def column_blocks(hd: int) -> Tuple[int, int, int]:
+    """How many blocks share the output columns of one head in the bf16
+    bodies at compiled head dim ``hd`` (``csrc/attention_wg.cuh``
+    ``WgPlan``, ``csrc/attention_bwd.cu`` ``BwdPlan``): (K1, B8's dq pass,
+    B8's dk/dv pass). A block holds its output columns in registers (a 64 x
+    D fp32 accumulator is D/2 of a thread's): K1 up to 192 columns, then
+    128 a block; the dq pass up to 192, then 128; the dk/dv pass's two
+    accumulators 96 each (64 at 128 and 256). Each block recomputes the
+    logits over the whole head dim."""
+    k1 = dq = 1 if hd <= 192 else hd // 128
+    dkv = hd // (hd if hd in (64, 96) else 96 if hd in (192, 384) else 64)
+    return k1, dq, dkv
 
 
 def pad_head_dim(hdp: int, *ts: torch.Tensor) -> list:
@@ -201,8 +216,11 @@ def _attention_fwd(q, k, v, scale, mask, with_lse: bool):
         mask_bf16 = int(mask.dtype == torch.bfloat16)
         mask = mask.contiguous()
     dev = q.device
-    splits = key_splits(b * n, lq, lk, _sm_count(dev)) if bf16 else 1
-    tpb = query_tiles_per_block(b * n, lq, _sm_count(dev)) if bf16 and splits == 1 else 1
+    # above head dim 192 a block takes one 64-row tile and a column slice
+    wide = hd > 192
+    splits = key_splits(b * n, lq, lk, _sm_count(dev)) if bf16 and not wide else 1
+    tpb = (query_tiles_per_block(b * n, lq, _sm_count(dev))
+           if bf16 and splits == 1 and not wide else 1)
     out = torch.empty((b, lq, n, hd), dtype=q.dtype, device=dev)
     lse = torch.empty((b * n, lq), dtype=torch.float32, device=dev) if with_lse else None
     ws = ml = None
@@ -252,6 +270,16 @@ fused_attention.launches = 0
 # ----------------------------------------------------------------------------------
 
 
+def _bwd_p_dl(q, k, v, out, g, scale):
+    """B8's p and dl rounded to q's dtype (as fp32), and g in fp32."""
+    dt = q.dtype
+    p = torch.softmax(torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale, dim=-1)
+    g32 = g.float()
+    delta = (g32 * out.float()).sum(dim=-1, keepdim=True)
+    dl = p * (torch.matmul(g32, v.float().transpose(-1, -2)) - delta)
+    return p.to(dt).float(), dl.to(dt).float(), g32
+
+
 def fused_attention_bwd_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, g: torch.Tensor,
     scale: float, lse: Optional[torch.Tensor] = None,
@@ -263,23 +291,65 @@ def fused_attention_bwd_plain(
     scale and dk = dlᵀ q · scale, each accumulated in fp32 and rounded once.
     Returns (dq, dk, dv) in the inputs' dtype."""
     dt = q.dtype
-    p = torch.softmax(torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale, dim=-1)
-    g32 = g.float()
-    delta = (g32 * out.float()).sum(dim=-1, keepdim=True)
-    dl = p * (torch.matmul(g32, v.float().transpose(-1, -2)) - delta)
-    p, dl = p.to(dt).float(), dl.to(dt).float()
+    p, dl, g32 = _bwd_p_dl(q, k, v, out, g, scale)
     dq = torch.matmul(dl, k.float()) * scale
     dk = torch.matmul(dl.transpose(-1, -2), q.float()) * scale
     dv = torch.matmul(p.transpose(-1, -2), g32)
     return dq.to(dt), dk.to(dt), dv.to(dt)
 
 
-def _bwd_max_chunks(device: torch.device, bn: int, lq: int, lk: int, hd: int) -> int:
+def _column_slices(hd: int, blocks: int) -> list:
+    w = hd // blocks
+    return [slice(i * w, (i + 1) * w) for i in range(blocks)]
+
+
+def fused_attention_columns_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain model of K1's bf16 plan at any head dim: q, k, v zero-padded to
+    :func:`kernel_head_dim`, each of :func:`column_blocks`'s output column
+    blocks computed from the logits over the whole padded head dim and its
+    own columns of v, the blocks side by side, sliced back to the head dim."""
+    hd = q.shape[-1]
+    hdp = kernel_head_dim(hd, torch.bfloat16)
+    qp, kp, vp = pad_head_dim(hdp, q, k, v)
+    outs = [fused_attention_plain(qp, kp, vp[..., c], scale, mask)
+            for c in _column_slices(hdp, column_blocks(hdp)[0])]
+    return torch.cat(outs, dim=-1)[..., :hd]
+
+
+def fused_attention_bwd_columns_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, g: torch.Tensor,
+    scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain model of B8's bf16 plan at any head dim: the inputs zero-padded
+    to :func:`kernel_head_dim`; p and dl over the whole padded head dim (each
+    column block of the kernel recomputes them), then dq by the dq pass's
+    column blocks (dl k[:, cols]), dk and dv by the dk/dv pass's (dlᵀ
+    q[:, cols], pᵀ g[:, cols]), side by side, sliced back to the head dim.
+    The rounding points are :func:`fused_attention_bwd_plain`'s."""
+    hd, dt = q.shape[-1], q.dtype
+    hdp = kernel_head_dim(hd, torch.bfloat16)
+    qp, kp, vp, op, gp = pad_head_dim(hdp, q, k, v, out, g)
+    p, dl, g32 = _bwd_p_dl(qp, kp, vp, op, gp, scale)
+    _, nq, nkv = column_blocks(hdp)
+    dq = torch.cat([torch.matmul(dl, kp[..., c].float()) * scale
+                    for c in _column_slices(hdp, nq)], dim=-1)
+    dlt, pt = dl.transpose(-1, -2), p.transpose(-1, -2)
+    dk = torch.cat([torch.matmul(dlt, qp[..., c].float()) * scale
+                    for c in _column_slices(hdp, nkv)], dim=-1)
+    dv = torch.cat([torch.matmul(pt, g32[..., c]) for c in _column_slices(hdp, nkv)], dim=-1)
+    return tuple(t[..., :hd].to(dt) for t in (dq, dk, dv))
+
+
+def bwd_max_chunks(sms: int, bn: int, lq: int, lk: int, col_blocks: int) -> int:
     """Query chunks of B8's dk/dv pass: about two blocks per SM (blocks are
-    64 keys x a chunk x batch·head, x2 where hd 128/192 halves the head dim),
-    at least four 64-row query tiles per chunk."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    blocks = -(-lk // 64) * (2 if hd in (128, 192) else 1) * bn
+    64 keys x a chunk x batch·head x ``col_blocks``, the bf16 body's column
+    blocks of :func:`column_blocks`, 1 for the fp32 body), at least four
+    64-row query tiles per chunk. The chunks' fp32 partials are summed in
+    chunk order by a third launch."""
+    blocks = -(-lk // 64) * col_blocks * bn
     return max(1, min(-(-lq // 64) // 4, -(-2 * sms // blocks)))
 
 
@@ -314,17 +384,22 @@ def fused_attention_bwd(
     q, k, v, out, g = (_rows16(t) for t in pad_head_dim(hd, q, k, v, out, g))
     lse = lse.contiguous()
     dev, dt = q.device, q.dtype
-    delta = torch.empty((b * n, lq), dtype=torch.float32, device=dev)
+    bf16 = dt == torch.bfloat16
+    # the bf16 body pads delta's and lse's rows to whole 64-row tiles
+    lq_pad = -(-lq // 64) * 64
+    delta = torch.empty((b * n, lq_pad), dtype=torch.float32, device=dev)
+    lse_pad = torch.empty_like(delta) if bf16 else None
     dq = torch.empty((b, lq, n, hd), dtype=dt, device=dev)
     dk = torch.empty((b, n, lk, hd), dtype=dt, device=dev)
     dv = torch.empty_like(dk)
-    chunks = _bwd_max_chunks(dev, b * n, lq, lk, hd)
+    chunks = bwd_max_chunks(_sm_count(dev), b * n, lq, lk, column_blocks(hd)[2] if bf16 else 1)
     ws = (torch.empty((chunks, 2, b * n, lk, hd), dtype=torch.float32, device=dev)
           if chunks > 1 else None)
     fn = _build.function("attention_bwd", "csts_attention_bwd")
     err = fn(
         _build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        lse_pad.data_ptr() if lse_pad is not None else None, dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), ws.data_ptr() if ws is not None else None, chunks,
         b, n, lq, lk, hd,
         *(s for t in (q, k, v, out, g) for s in (t.stride(0), t.stride(1), t.stride(2))),

@@ -16,7 +16,9 @@
   count, so the port has no ``variant`` argument.
 * B4 :func:`fused_pool_block` (``_pool_block_kernel``): a whole Q-pool block
   from the fine pre-pool Q, the max-pooled skip and the pooled K/V;
-  ``csrc/pool_block.cu``.
+  ``csrc/pool_block.cu`` (the Q conv, K1's body, a proj GEMM and K2's split
+  tail; :func:`fused_pool_block_split_plain` is the plain model of that
+  split).
 * B5 :func:`fused_decoder_block` (``_decoder_kernel``): a whole upsample-Q
   decoder block from the coarse pre-upsample Q, the trilinear skip and the
   pooled K/V; ``csrc/decoder_block.cu``.
@@ -41,12 +43,15 @@ LN_EPS = 1e-6
 Q_NORM_EPS = 1e-5  # norm_q: torch's default, as the reference hard-codes it
 
 
-def _layer_norm32(x32: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float) -> torch.Tensor:
-    """fp32 LayerNorm with two-pass statistics, the kernels' form."""
-    mean = x32.mean(dim=-1, keepdim=True)
-    centered = x32 - mean
-    var = centered.square().mean(dim=-1, keepdim=True)
-    return centered * torch.rsqrt(var + eps) * w.float() + b.float()
+def _layer_norm32(x32: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float,
+                  width: Optional[int] = None) -> torch.Tensor:
+    """fp32 LayerNorm with two-pass statistics, the kernels' form. ``width``:
+    the statistics over the first ``width`` columns only (rows zero-padded
+    past it, whose weight and bias are zero, so they come out zero)."""
+    xs = x32 if width is None else x32[..., :width]
+    mean = xs.mean(dim=-1, keepdim=True)
+    var = (xs - mean).square().mean(dim=-1, keepdim=True)
+    return (x32 - mean) * torch.rsqrt(var + eps) * w.float() + b.float()
 
 
 def _tail_plain(x32, dtype, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, proj_w, proj_b):
@@ -83,7 +88,7 @@ def fused_mlp_tail_split_plain(
     fc1_w: torch.Tensor, fc1_b: torch.Tensor,
     fc2_w: torch.Tensor, fc2_b: torch.Tensor,
     proj_w: Optional[torch.Tensor] = None, proj_b: Optional[torch.Tensor] = None,
-    dp: Optional[torch.Tensor] = None,
+    dp: Optional[torch.Tensor] = None, ln_width: Optional[int] = None,
 ):
     """Plain model of the bf16 body's split at the hidden (``csrc/mlp_tail.cuh``),
     launch by launch with its scratch in x's dtype: xn2 = LN2(x) rounded
@@ -92,10 +97,12 @@ def fused_mlp_tail_split_plain(
     where dim ≠ dim_out, and out = acc (+ b2 for K2) + (bp or x), rounded
     once. The same rounding points as :func:`fused_mlp_tail_plain` and
     :func:`fused_mlp_tail_train_plain`, summed in the kernel's order.
-    Returns out (K2), or (out, h rounded) (B7)."""
+    ``ln_width``: LN2's statistics over that many leading columns (the rows
+    and weights zero-padded past it, see :func:`pad_tail`). Returns out
+    (K2), or (out, h rounded) (B7)."""
     dt = x.dtype
     x32 = x.float()
-    xn2 = _layer_norm32(x32, ln_w, ln_b, LN_EPS).to(dt).float()
+    xn2 = _layer_norm32(x32, ln_w, ln_b, LN_EPS, ln_width).to(dt).float()
     h = torch.matmul(xn2, fc1_w.float().t()) + fc1_b.float()
     g = gelu(h).to(dt).float()
     acc = torch.matmul(g, fc2_w.float().t())
@@ -109,12 +116,41 @@ def fused_mlp_tail_split_plain(
     return out if dp is None else (out, h.to(dt))
 
 
+def _up16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def pad_tail(x: torch.Tensor, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, proj_w=None,
+             proj_b=None) -> tuple:
+    """The tail's rows and weights zero-padded to widths that are multiples
+    of 16 (the bf16 body's): x's and LN2's columns and fc1's and proj's
+    input columns to C', fc1's rows, its bias and fc2's input columns to H',
+    fc2's and proj's rows and their biases to C_out'. Exact where LN2 takes
+    its statistics over the true width (``ln_width``): the zero columns of
+    LN2's output meet zero weight columns, the zero hidden columns (GELU(0)
+    = 0) meet zero columns of fc2, and the zero output columns are sliced
+    off. Returns (x, *weights) padded (each unchanged where it already fits)."""
+    c, hidden, cout = x.shape[-1], fc1_w.shape[0], fc2_w.shape[0]
+    cp, hp, cop = _up16(c), _up16(hidden), _up16(cout)
+
+    def pad(t, *to):
+        if t is None:
+            return None
+        return F.pad(t, [a for n, m in zip(reversed(t.shape), reversed(to)) for a in (0, m - n)])
+    return (pad(x, *x.shape[:-1], cp), pad(ln_w, cp), pad(ln_b, cp), pad(fc1_w, hp, cp),
+            pad(fc1_b, hp), pad(fc2_w, cop, hp), pad(fc2_b, cop), pad(proj_w, cop, cp),
+            pad(proj_b, cop))
+
+
 def _tail_launch_args(name, x, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, proj_w, proj_b):
-    """K2's and B7's input checks: one CUDA device and dtype, widths that fit
-    and are multiples of 16. Returns x as (M, C) rows, the weights (proj's
-    last when present), each contiguous on a 16-byte boundary (the bf16 body
-    reads them with TMA, which takes 16-byte rows and bases), and (hidden,
-    dim_out)."""
+    """K2's and B7's input checks: one CUDA device and dtype, widths that
+    fit. The bf16 body takes widths that are multiples of 16: others are
+    zero-padded to them (:func:`pad_tail`; LN2 keeps its statistics over the
+    true width, passed as ``ln_width``, and the caller slices the outputs
+    back); the fp32 body takes any width. Returns x as (M, C') rows, the
+    weights (proj's last when present), each contiguous on a 16-byte
+    boundary (the bf16 body reads them with TMA, which takes 16-byte rows
+    and bases), and (hidden', dim_out', ln_width)."""
     if (proj_w is None) != (proj_b is None):
         raise ValueError(f"{name}: proj weight and bias go together")
     params = [ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b]
@@ -130,11 +166,12 @@ def _tail_launch_args(name, x, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, proj_w, p
         raise ValueError(f"{name}: dim != dim_out needs the proj weights")
     if proj_w is not None and proj_w.shape != (cout, c):
         raise ValueError(f"{name}: proj {tuple(proj_w.shape)} is not ({cout}, {c})")
-    if c % 16 or hidden % 16 or cout % 16:
-        raise ValueError(f"{name}: widths {c}/{hidden}/{cout} must be multiples of 16")
+    x2 = x.reshape(-1, c)
+    if x.dtype == torch.bfloat16 and (c % 16 or hidden % 16 or cout % 16):
+        x2, *params = (t for t in pad_tail(x2, *params) if t is not None)
     x2, *params = (t if t.data_ptr() % 16 == 0 else t.clone()
-                   for t in (x.reshape(-1, c).contiguous(), *(p.contiguous() for p in params)))
-    return x2, params, (hidden, cout)
+                   for t in (x2.contiguous(), *(p.contiguous() for p in params)))
+    return x2, params, (params[2].shape[0], params[4].shape[0], c)
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -167,10 +204,9 @@ def fused_mlp_tail(
         return fused_mlp_tail_plain(x, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, proj_w, proj_b)
     if x.device.type != "cuda":
         raise ValueError(f"fused_mlp_tail: unsupported device {x.device}")
-    x2, params, (hidden, cout) = _tail_launch_args("fused_mlp_tail", x, ln_w, ln_b, fc1_w, fc1_b,
-                                                   fc2_w, fc2_b, proj_w, proj_b)
-    *lead, c = x.shape
-    m = x2.shape[0]
+    x2, params, (hidden, cout, c) = _tail_launch_args("fused_mlp_tail", x, ln_w, ln_b, fc1_w,
+                                                      fc1_b, fc2_w, fc2_b, proj_w, proj_b)
+    m, cp = x2.shape
     wp, bp = (params[6], params[7]) if proj_w is not None else (None, None)
     out = torch.empty((m, cout), dtype=x.dtype, device=x.device)
     xn2, g = _tail_scratch(x2, hidden)
@@ -179,11 +215,12 @@ def fused_mlp_tail(
         _build.dtype_code(x), x2.data_ptr(),
         *(t.data_ptr() for t in params[:6]),
         _ptr(wp), _ptr(bp),
-        out.data_ptr(), _ptr(xn2), _ptr(g), m, c, hidden, cout, LN_EPS, _build.stream_ptr(x),
+        out.data_ptr(), _ptr(xn2), _ptr(g), m, cp, hidden, cout, c, LN_EPS,
+        _build.stream_ptr(x),
     )
     _build.check_launch("fused_mlp_tail", err)
     fused_mlp_tail.launches += 1
-    return out.reshape(*lead, cout)
+    return out[:, :fc2_w.shape[0]].reshape(*x.shape[:-1], fc2_w.shape[0])
 
 
 fused_mlp_tail.launches = 0
@@ -246,9 +283,9 @@ def fused_mlp_tail_train(
     b, l, c = x.shape
     if dp.shape != (b,) or dp.dtype != torch.float32 or dp.device != x.device:
         raise ValueError(f"fused_mlp_tail_train: dp must be fp32 ({b},) on x's device")
-    x2, params, (hidden, cout) = _tail_launch_args("fused_mlp_tail_train", x, ln_w, ln_b, fc1_w,
-                                                   fc1_b, fc2_w, fc2_b, proj_w, proj_b)
-    m = x2.shape[0]
+    x2, params, (hidden, cout, c) = _tail_launch_args("fused_mlp_tail_train", x, ln_w, ln_b,
+                                                      fc1_w, fc1_b, fc2_w, fc2_b, proj_w, proj_b)
+    m, cp = x2.shape
     wp, bp = (params[6], params[7]) if proj_w is not None else (None, None)
     dp = dp.detach().contiguous()
     out = torch.empty((m, cout), dtype=x.dtype, device=x.device)
@@ -260,11 +297,13 @@ def fused_mlp_tail_train(
         *(t.data_ptr() for t in params[:6]),
         _ptr(wp), _ptr(bp),
         dp.data_ptr(), out.data_ptr(), hid.data_ptr(), _ptr(xn2), _ptr(g),
-        m, l, c, hidden, cout, LN_EPS, _build.stream_ptr(x),
+        m, l, cp, hidden, cout, c, LN_EPS, _build.stream_ptr(x),
     )
     _build.check_launch("fused_mlp_tail_train", err)
     fused_mlp_tail_train.launches += 1
-    return out.reshape(b, l, cout), hid.reshape(b, l, hidden)
+    # padded widths (see pad_tail) are sliced back to the true ones
+    h_true, co_true = fc1_w.shape[0], fc2_w.shape[0]
+    return (out[:, :co_true].reshape(b, l, co_true), hid[:, :h_true].reshape(b, l, h_true))
 
 
 fused_mlp_tail_train.launches = 0
@@ -418,6 +457,35 @@ def fused_pool_block_plain(q, thw, skip, k, v, scale, wconv, nq_w, nq_b, wproj, 
     return _attend_plain(qh, k, v, scale, skip.float(), wproj, bproj, *tail)
 
 
+def fused_pool_block_split_plain(q, thw, skip, k, v, scale, wconv, nq_w, nq_b, wproj, bproj,
+                                 ln2_w, ln2_b, fc1_w, fc1_b, fc2_w, fc2_b, proj_w=None,
+                                 proj_b=None):
+    """Plain model of B4's split bf16 body (``csrc/pool_block.cu``), launch by
+    launch: the Q conv and norm_q in fp32, q rounded per head (the conv's
+    scratch); K1's attention with the probabilities rounded unnormalised
+    (:func:`~csts_torch.kernels.attention.fused_attention_split_plain` at one
+    split) and av rounded once (the attention's scratch); the proj GEMM's
+    res1 = av·Wprojᵀ + bproj + skip in fp32 (never rounded); LN2 of res1
+    rounded (xn2), G = GELU(xn2·W1ᵀ + b1) rounded; fc2's out = G·W2ᵀ
+    [+ xn2·Wpᵀ] + b2 + (bp or res1), rounded once. Arguments as
+    :func:`fused_pool_block`."""
+    from csts_torch.kernels.attention import fused_attention_split_plain
+
+    dt = q.dtype
+    qh = _q_conv_plain(q, thw, (1, 2, 2), wconv, nq_w, nq_b, k.shape[1], False)
+    b, n, lq, hd = qh.shape
+    av = fused_attention_split_plain(qh, k, v, scale, 1).float()
+    av = av.transpose(1, 2).reshape(b, lq, n * hd)
+    res1 = skip.float() + torch.matmul(av, wproj.float().t()) + bproj.float()
+    xn2 = _layer_norm32(res1, ln2_w, ln2_b, LN_EPS).to(dt).float()
+    g = gelu(torch.matmul(xn2, fc1_w.float().t()) + fc1_b.float()).to(dt).float()
+    acc = torch.matmul(g, fc2_w.float().t())
+    if proj_w is not None:
+        acc = torch.matmul(xn2, proj_w.float().t()) + acc
+    base = proj_b.float() if proj_w is not None else res1
+    return (acc + fc2_b.float() + base).to(dt)
+
+
 def fused_decoder_block_plain(q, thw, stride, skip, k, v, scale, wconv, nq_w, nq_b,
                               wproj, bproj, *tail):
     """B5 in plain PyTorch. q: (B, L_coarse, C) post-Wq coarse Q on grid
@@ -467,16 +535,20 @@ def _launch_block(name, lib, fn, *, x=None, q=None, q_rs=0, skip=None, k, v, ln1
           for t in (*ln1, wq, bq, wconv, *nq, wproj, bproj, *tail)]
     held = []
     if scratch:
-        # B5's bf16 body parks the fine q (64 rows of slack a clip: its conv
-        # writes whole tiles), av (both rounded) and res1 (fp32) between its
-        # launches; the fp32 body needs none of them. The tensors are held
-        # until all three launches are queued: a buffer freed earlier could be
-        # handed to the next one on the same stream, and one launch would
-        # write over what another reads.
+        # B4's and B5's split bf16 bodies park the conv's q (64 rows of slack
+        # a clip: the conv writes whole tiles; B4 then writes LN2's rows over
+        # it), av (both rounded), res1 (fp32) and, for B4, the hidden G
+        # between their launches; the fp32 body needs none of them. The
+        # tensors are held until all the launches are queued: a buffer freed
+        # earlier could be handed to the next one on the same stream, and one
+        # launch would write over what another reads.
         bf16 = dt == torch.bfloat16
+        shapes = [((b, out_rows + 64, c), dt), ((b * out_rows, c), dt),
+                  ((b * out_rows, c), torch.float32)]
+        if scratch == "hidden":
+            shapes.append(((b * out_rows, hidden), dt))
         held = [torch.empty(shape, dtype=t, device=dev) if bf16 else None
-                for shape, t in (((b, out_rows + 64, c), dt), ((b * out_rows, c), dt),
-                                 ((b * out_rows, c), torch.float32))]
+                for shape, t in shapes]
     err = _build.function(lib, fn)(
         _build.dtype_code(k), ptr(x), ptr(q), ptr(skip), ptr(k), ptr(v), *map(ptr, ws),
         out.data_ptr(), *map(ptr, held), int(q_rs), b, out_rows, c, cout, hidden, n, hd, lk,
@@ -542,7 +614,8 @@ def fused_pool_block(q, thw, skip, k, v, scale, wconv, nq_w, nq_b, wproj, bproj,
     out = _launch_block("fused_pool_block", "pool_block", "csts_fused_pool_block", q=q,
                         q_rs=q.stride(1), skip=skip, k=k, v=v, wconv=_taps(wconv),
                         nq=(nq_w, nq_b), wproj=wproj, bproj=bproj, tail=tail, out_rows=l_out,
-                        grid_out=out_grid, grid_src=(t, h, w), stride=(1, 2, 2), scale=scale)
+                        grid_out=out_grid, grid_src=(t, h, w), stride=(1, 2, 2), scale=scale,
+                        scratch="hidden")
     fused_pool_block.launches += 1
     return out
 

@@ -232,9 +232,84 @@ def _kernel_widths(spec: AttentionSpec) -> bool:
     16 columns a step and their loads 16-byte pieces of a row). The JAX
     predicates (``kb.eligible``, ``kb.pool_block_eligible``,
     ``kb.decoder_eligible``) pad to 128 lanes instead and have no such
-    guard: a block of other widths takes the K1+K2 route here, where K1 pads
-    its head dim and K2 takes multiples of 16 too (ROADMAP Queue C)."""
+    guard: a block of other widths takes the K1+K2 route here, which takes
+    every width (K1 pads its head dim, K2 its widths), so the route differs
+    from JAX's and the result does not."""
     return all(w % 16 == 0 for w in (spec.dim, spec.dim_out, spec.hidden_dim, spec.head_dim))
+
+
+# --- which compiled instance a whole-block launch picks, and whether it fits --
+# A mirror of csrc/fused_block.cuh (Plan::smem_bytes, pick_shape,
+# launch_widest, launch_mma's checks) and of the CSTS_FB_CASE lists and
+# split instances of block.cu, pool_block.cu and decoder_block.cu, so that a
+# width whose instance does not fit a block's shared memory is routed to
+# K1+K2 before any launch.
+
+_SMEM_MAX = 232448  # bytes of shared memory a block may take (common.cuh kMaxSmem)
+# the first design's (WR, NTP, NT, HDM) instances of each library
+_FB_CASES = {
+    "block": ((2, 3, 6, 128), (2, 3, 3, 128), (2, 6, 12, 128), (2, 6, 6, 128),
+              (2, 12, 12, 128), (1, 12, 12, 128), (2, 6, 12, 256)),
+    "pool_block": ((2, 6, 6, 128), (2, 6, 12, 128), (2, 12, 12, 128), (2, 3, 6, 128)),
+    "decoder_block": ((1, 12, 6, 256), (2, 12, 6, 128), (2, 6, 3, 128), (1, 12, 6, 128)),
+}
+_FB_HD256 = {"block": True, "pool_block": False, "decoder_block": True}  # launch_widest's HD256
+
+
+def _align128(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+def _pick_nt(cols: int, wc: int) -> int:
+    need = -(-cols // (8 * wc))
+    return 3 if need <= 3 else 6 if need <= 6 else 12 if need <= 12 else 0
+
+
+def _fb_smem(wr: int, ntp: int, nt: int, c: int, hd: int) -> int:
+    """Plan<WR, NTP, NT>::smem_bytes(C, hd) of ``fused_block.cuh``."""
+    kw = lambda rows: 128 if rows <= 192 else 64 if rows <= 384 else 32  # noqa: E731 tile_kw
+    bm, wc, rw = 32 * wr, 8 // wr, 2 * wr
+    bn, bnp = wc * 8 * nt, wc * 8 * ntp
+    tile = max(128 * (128 + 8), bn * (kw(bn) + 8), bnp * (kw(bnp) + 8))
+    region = max(2 * _align128(2 * tile), 4 * _align128(2 * 64 * (hd + 8)),
+                 4 * rw * (8 // rw - 1) * (16 * hd + 32), 4 * bm * (c + 4))
+    return 2 * _align128(2 * bm * (c + 8)) + _align128(2 * bm * (128 + 8)) + _align128(region)
+
+
+def _split_instance(lib: str, spec: AttentionSpec) -> bool:
+    """The redesigned split bodies' instances (pool_block.cu, decoder_block.cu
+    ``launch_bf16``), which fit by construction."""
+    c, co, hd, h, proj = spec.dim, spec.dim_out, spec.head_dim, spec.hidden_dim, spec.dim != spec.dim_out
+    if lib == "pool_block":
+        return (hd == 96 and (c, co) in ((192, 192), (192, 384), (384, 384), (384, 768))
+                and h % 128 == 0)
+    if lib == "decoder_block":
+        d4 = (c, co) == (192, 96)
+        return (proj and hd in (96, 192) and (d4 or (c, co) in ((768, 384), (384, 192)))
+                and h % (64 if d4 else 128) == 0)
+    return False
+
+
+def whole_block_fits(lib: str, spec: AttentionSpec) -> bool:
+    """Whether the bf16 instance that library ``lib`` ("block",
+    "pool_block", "decoder_block") would launch for this block holds it: a
+    split instance, or the first design's instance (one of its listed
+    shapes, else the widest of the row split) whose shared memory and Q-conv
+    weight fit. A width that fails takes K1+K2 instead of a launch that would
+    fail (at WR 1, head dims above 240 hold C ≤ 684 only)."""
+    if _split_instance(lib, spec):
+        return True
+    c, cout, hd = spec.dim, spec.dim_out, spec.head_dim
+    wr = 2 if c <= 384 else 1
+    wc = 8 // wr
+    shape = (wr, _pick_nt(c, wc), _pick_nt(min(cout, 96 * wc), wc), 128 if hd <= 128 else 256)
+    if shape not in _FB_CASES[lib]:
+        if shape[3] != 128 and not _FB_HD256[lib]:
+            return False
+        shape = (wr, 12, 12, shape[3])
+        if c > wc * 8 * 12:  # wider than the widest instance's column tiles
+            return False
+    return _fb_smem(*shape[:3], c, hd) <= _SMEM_MAX and 27 * 4 * hd <= 2 * 32 * wr * (c + 8)
 
 
 def block_eligible(spec: AttentionSpec, mask) -> bool:
@@ -243,7 +318,8 @@ def block_eligible(spec: AttentionSpec, mask) -> bool:
     ``L % 128`` token-tile guard serves the TPU's tiling only and is dropped.
     Beyond JAX's predicate: dim ≤ 768 and head dim ≤ 256 (the largest the
     kernel's instances hold: a one-head block of dim 384 or a two-head one
-    of 768 stays on K1+K2) and :func:`_kernel_widths`."""
+    of 768 stays on K1+K2), :func:`_kernel_widths` and
+    :func:`whole_block_fits`."""
     return (
         not spec.upsample_q
         and not spec.pool_q_on
@@ -255,6 +331,7 @@ def block_eligible(spec: AttentionSpec, mask) -> bool:
         and spec.dim <= 768
         and spec.head_dim <= 256
         and _kernel_widths(spec)
+        and whole_block_fits("block", spec)
     )
 
 
@@ -262,7 +339,8 @@ def pool_block_eligible(spec: AttentionSpec, mask, thw: THW) -> bool:
     """B4 (``kb.pool_block_eligible``): stride (1,2,2), kernel 3, MaxPool
     (1,3,3) skip, head dim ≤ 128, Lk ≤ 1024, fc weights ≤ 8 MiB, no mask, no
     cls token. The row and 128-lane alignment of ``_pool_tile_plan`` is the
-    TPU's tiling and is dropped; :func:`_kernel_widths` is the port's own."""
+    TPU's tiling and is dropped; :func:`_kernel_widths` and
+    :func:`whole_block_fits` are the port's own."""
     return (
         not spec.upsample_q
         and spec.pool_q_on
@@ -277,6 +355,7 @@ def pool_block_eligible(spec: AttentionSpec, mask, thw: THW) -> bool:
         and _fc_bytes(spec) <= 8 * 2 ** 20
         and _lk(spec, thw) <= 1024
         and _kernel_widths(spec)
+        and whole_block_fits("pool_block", spec)
     )
 
 
@@ -284,7 +363,8 @@ def decoder_eligible(spec: AttentionSpec, mask, thw: THW) -> bool:
     """B5 (``kb.decoder_eligible``): an upsample-Q block with kernel 3,
     strides in {1, 2}, head dim ≤ 256, dim ≤ 768, Lk ≤ 512, fc weights ≤ 8
     MiB, no mask. ``_decoder_tile_plan``'s row and 128-lane alignment is the
-    TPU's tiling and is dropped; :func:`_kernel_widths` is the port's own."""
+    TPU's tiling and is dropped; :func:`_kernel_widths` and
+    :func:`whole_block_fits` are the port's own."""
     return (
         spec.upsample_q
         and spec.pool_q_on
@@ -298,6 +378,7 @@ def decoder_eligible(spec: AttentionSpec, mask, thw: THW) -> bool:
         and _fc_bytes(spec) <= 8 * 2 ** 20
         and _lk(spec, thw) <= 512
         and _kernel_widths(spec)
+        and whole_block_fits("decoder_block", spec)
     )
 
 

@@ -1,7 +1,7 @@
 """Measurement tools of the port, the counterparts of the JAX package's
 ``tools/ab_block.py``, ``tools/ab_flags.py`` and ``tools/profile_forward.py``,
-and three of its own: ``ab_kernels`` (K1, B5, K2 and B7 of two checkouts in
-turns), ``b5_phases`` (B5's phase split from clock stamps) and
+and three of its own: ``ab_kernels`` (K1, B4, B5, K2, B7 and B8 of two
+checkouts in turns), ``b5_phases`` (B5's phase split from clock stamps) and
 ``tail_phases`` (K2's and B7's three kernels one by one, beside cuBLAS).
 The first three run on CUDA unless given ``--device cpu`` (``python -m
 csts_torch.tools.<name> --help``); a CPU run checks that the tool runs and

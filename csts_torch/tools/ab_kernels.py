@@ -1,6 +1,7 @@
-"""K1 (attention), B5 (the decoder block), K2 (the MLP tail) and B7 (the
-training MLP tail) of two checkouts of the repository, at the flagship's
-batch-8 shapes, in turns on one card:
+"""K1 (attention), B4 (the Q-pool block), B5 (the decoder block), K2 (the
+MLP tail), B7 (the training MLP tail) and B8 (the attention backward) of two
+checkouts of the repository, at the flagship's batch-8 shapes, in turns on
+one card:
 
     python csts_torch/tools/ab_kernels.py --roots OLD NEW [--rounds 1] [--out PATH]
     python csts_torch/tools/ab_kernels.py --key-split [--rounds 2] [--out PATH]
@@ -10,14 +11,17 @@ example a ``git archive`` of the parent commit unpacked under ``build/``); each 
 runs in a process of its own that imports that root's ``csts_torch`` (its
 kernels build into its own ``build/``). Turns go OLD, NEW, NEW, OLD per
 round. A turn times, at every K1 shape of the forward (16 launches), at
-B5's three sites (d2, d3, d4), at K2's 16 sites of the forward and at B7's
-26 sites of a training step, the root's wrapper with CUDA events over
+B4's four sites (v1, a1, v3, a2), at B5's three sites (d2, d3, d4), at K2's
+16 sites of the forward, at B7's 26 sites and B8's 25 sites of a training
+step, the root's wrapper with CUDA events over
 back-to-back calls (host cost included) and by its device time
 (``device_ms``: the summed durations of the device activities the calls
 launch, ``torch.profiler``), and at K1's shapes
 ``F.scaled_dot_product_attention`` the same two ways. Inputs are random from
 a seed, in bf16; q (and k, v where Lq = Lk) are head views of one fused qkv
-tensor, as in the model. A root's first turn also builds its kernels.
+tensor, as in the model (B8's g a head view of a token-major gradient, its
+out and lse from the root's K1). A root's first turn also builds its
+kernels.
 
 ``--key-split`` instead holds K1's key-split policy (``key_splits``) against
 no split in this checkout, at the batches where the policy splits (1, 2, 4;
@@ -70,7 +74,22 @@ B7_SITES = [
     ("d1", 1024, 768, 3072, 768, 1), ("d2", 4096, 768, 1536, 384, 1),
     ("d3", 16384, 384, 768, 192, 1), ("d4", 32768, 192, 384, 96, 1),
 ]
-BATCH, LK_DEC = 8, 64
+# (name, fine grid, dim, dim_out, heads): B4's sites at batch 8 (Lk 1024, hidden 4·dim)
+B4_SITES = [
+    ("v1", (4, 64, 64), 192, 192, 2), ("a1", (4, 64, 64), 192, 384, 2),
+    ("v3", (4, 32, 32), 384, 384, 4), ("a2", (4, 32, 32), 384, 768, 4),
+]
+# (name, heads, Lq, Lk, hd, launches a step): B8's 25 unmasked sites of a
+# training step at batch 8
+B8_SITES = [
+    ("v0,a0", 1, 16384, 256, 96, 2), ("v1,a1", 2, 4096, 1024, 96, 2),
+    ("v2", 2, 4096, 256, 96, 1), ("v3,a2", 4, 1024, 1024, 96, 2),
+    ("v4-v13", 4, 1024, 256, 96, 10), ("v14,a3", 8, 256, 1024, 96, 2),
+    ("v15", 8, 256, 256, 96, 1), ("temporal fusion", 8, 8, 8, 96, 1),
+    ("d1", 8, 1024, 64, 96, 1), ("d2", 4, 4096, 64, 192, 1), ("d3", 4, 16384, 64, 96, 1),
+    ("d4", 2, 32768, 64, 96, 1),
+]
+BATCH, LK_DEC, LK_POOL = 8, 64, 1024
 SPLIT_BATCHES = (1, 2, 4)
 # a profile that saw no device activity (torch.profiler now and then returns
 # none) reads 0.0: it is no reading and stays out of the median
@@ -113,6 +132,40 @@ def b5_inputs(thw, stride, c, cout, heads, gen):
             r(cout, c, scale=c ** -0.5), r(cout, scale=0.1)]
 
 
+def b4_inputs(thw, c, cout, heads, gen):
+    """B4's arguments at a site: the fine Q (the Q columns of a fused
+    projection), the max-pooled skip on the coarse grid, the pooled K/V and
+    the block's weights, bf16."""
+    import torch
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+    hd, hidden = c // heads, 4 * c
+    l_fine = thw[0] * thw[1] * thw[2]
+    l_coarse = thw[0] * ((thw[1] + 1) // 2) * ((thw[2] + 1) // 2)
+    proj = [r(cout, c, scale=c ** -0.5), r(cout, scale=0.1)] if c != cout else [None, None]
+    return [r(BATCH, l_fine, 3 * c)[..., :c], thw, r(BATCH, l_coarse, c),
+            r(BATCH, heads, LK_POOL, hd), r(BATCH, heads, LK_POOL, hd), hd ** -0.5,
+            r(hd, 1, 3, 3, 3, scale=0.2), 1 + r(hd, scale=0.1), r(hd, scale=0.1),
+            r(c, c, scale=c ** -0.5), r(c, scale=0.1), 1 + r(c, scale=0.1), r(c, scale=0.1),
+            r(hidden, c, scale=c ** -0.5), r(hidden, scale=0.1),
+            r(cout, hidden, scale=hidden ** -0.5), r(cout, scale=0.1)] + proj
+
+
+def b8_inputs(n, lq, lk, hd, gen):
+    """B8's arguments at a site: q, k, v, K1's out and lse from them, and g a
+    head view of a token-major (B, Lq, N·hd) gradient, bf16."""
+    import torch
+
+    from csts_torch.kernels import attention as ka
+
+    q, k, v, scale, _ = k1_inputs(BATCH, n, lq, lk, hd, False, gen)
+    out, lse = ka._attention_fwd(q, k, v, scale, None, with_lse=True)
+    g = torch.randn(BATCH, lq, n, hd, generator=gen, device="cuda").to(torch.bfloat16)
+    return q, k, v, out, g.permute(0, 2, 1, 3), scale, lse
+
+
 def tail_inputs(rows, c, h, cout, gen):
     """x (8, rows, C) and the tail's weights (LN2, fc1, fc2, the dim-change
     proj or None), bf16."""
@@ -140,8 +193,8 @@ def worker(root: str) -> dict:
 
     t0 = time.perf_counter()
     _build.build_all()
-    out = {"root": root, "build_s": time.perf_counter() - t0, "k1": [], "b5": [], "k2": [],
-           "b7": []}
+    out = {"root": root, "build_s": time.perf_counter() - t0, "k1": [], "b4": [], "b5": [],
+           "k2": [], "b7": [], "b8": []}
     gen = torch.Generator(device="cuda").manual_seed(0)
     dev = torch.device("cuda")
     with torch.inference_mode():
@@ -153,6 +206,18 @@ def worker(root: str) -> dict:
             out["k1"].append({"name": name, "launches": count, "ms": mean_ms(kern, dev, 50),
                               "device_ms": device_ms(kern), "library_ms": mean_ms(lib, dev, 50),
                               "library_device_ms": device_ms(lib)})
+        for name, thw, c, cout, heads in B4_SITES:
+            args = b4_inputs(thw, c, cout, heads, gen)
+            kern = lambda: kb.fused_pool_block(*args)  # noqa: E731
+            out["b4"].append({"name": name, "ms": mean_ms(kern, dev, 20),
+                              "device_ms": device_ms(kern, 10)})
+            del args
+        for name, n, lq, lk, hd, count in B8_SITES:
+            args = b8_inputs(n, lq, lk, hd, gen)
+            kern = lambda: ka.fused_attention_bwd(*args)  # noqa: E731
+            out["b8"].append({"name": name, "launches": count, "ms": mean_ms(kern, dev, 20),
+                              "device_ms": device_ms(kern, 10)})
+            del args
         for name, thw, stride, c, cout, heads in B5_SITES:
             args = b5_inputs(thw, stride, c, cout, heads, gen)
             kern = lambda: kb.fused_decoder_block(*args)  # noqa: E731
@@ -280,6 +345,14 @@ def main(argv=None) -> int:
                   for key in ("ms", "device_ms", "library_ms", "library_device_ms")}
             b5 = {site[0]: {key: med([t["b5"][i][key] for t in ts]) for key in ("ms", "device_ms")}
                   for i, site in enumerate(B5_SITES)}
+            b4 = {site[0]: {key: med([t["b4"][i][key] for t in ts]) for key in ("ms", "device_ms")}
+                  for i, site in enumerate(B4_SITES)}
+            b8_sites = {site[0]: {key: med([t["b8"][i][key] for t in ts])
+                                  for key in ("ms", "device_ms")}
+                        for i, site in enumerate(B8_SITES)}
+            b8 = {"sites": b8_sites, **{key: sum(b8_sites[site[0]][key] * site[5]
+                                                 for site in B8_SITES)
+                                        for key in ("ms", "device_ms")}}
             tails = {}
             for part, sites in (("k2", K2_SITES), ("b7", B7_SITES)):
                 per_site = {site[0]: {key: med([t[part][i][key] for t in ts])
@@ -288,8 +361,8 @@ def main(argv=None) -> int:
                 tails[part] = {"sites": per_site,
                                **{key: sum(per_site[site[0]][key] * site[5] for site in sites)
                                   for key in ("ms", "device_ms")}}
-            summary[root] = {"k1_forward": k1, "b5": b5, "k2_forward": tails["k2"],
-                             "b7_step": tails["b7"],
+            summary[root] = {"k1_forward": k1, "b4": b4, "b5": b5, "k2_forward": tails["k2"],
+                             "b7_step": tails["b7"], "b8_step": b8,
                              "k1_shapes": [{key: (med([t["k1"][i][key] for t in ts])
                                                   if key != "name" else ts[0]["k1"][i]["name"])
                                             for key in ts[0]["k1"][i] if key != "launches"}
@@ -299,7 +372,11 @@ def main(argv=None) -> int:
                   + ", ".join(f"{s} {v['ms']:.4f}/{v['device_ms']:.4f}" for s, v in b5.items())
                   + " ms events/device; K2 a forward {:.4f} / {:.4f}, B7 a step {:.4f} / "
                   "{:.4f} ms events/device".format(tails["k2"]["ms"], tails["k2"]["device_ms"],
-                                                   tails["b7"]["ms"], tails["b7"]["device_ms"]))
+                                                   tails["b7"]["ms"], tails["b7"]["device_ms"])
+                  + "; B4 " + ", ".join(f"{s} {v['ms']:.4f}/{v['device_ms']:.4f}"
+                                        for s, v in b4.items())
+                  + f" (sum {sum(v['device_ms'] for v in b4.values()):.4f} device); B8 a step "
+                  f"{b8['ms']:.4f} / {b8['device_ms']:.4f} ms events/device")
         result = {"card": card, "summary": summary, "turns": turns}
     print(card)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

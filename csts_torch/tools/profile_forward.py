@@ -27,7 +27,7 @@ import torch
 # reports (the first family whose key is in the lowered name takes it)
 FAMILIES = (
     ("K1 attention", ("attn_wg_kernel", "attn_merge_kernel", "attn_f32_kernel")),
-    ("B8 attention_bwd", ("dq_mma_kernel", "dkdv_mma_kernel", "dq_f32_kernel", "dkdv_f32_kernel",
+    ("B8 attention_bwd", ("dq_wg_kernel", "dkdv_wg_kernel", "dq_f32_kernel", "dkdv_f32_kernel",
                           "namespace)::reduce_kernel<")),
     # B7 is the TRAIN = true instance of K2's templates (LN2 and two GEMMs)
     ("B7 mlp_tail_train", ("tail_ln_kernel<true", "tail_fc1_kernel<true",
@@ -36,7 +36,11 @@ FAMILIES = (
                      "mlp_tail_f32_kernel")),
     ("K3 t2_upsample", ("t2_upsample_kernel",)),
     ("B9a hw2_upsample", ("hw2_upsample_kernel",)),
-    # B5's three kernels; its fp32 body stays with the whole blocks'
+    # B4's seven kernels (the Q conv, the attention, the proj GEMM and K2's
+    # split tail) and B5's three; their fp32 bodies and first designs stay
+    # with the whole blocks'
+    ("B4 pool_block", ("pool_conv_kernel", "pool_attn_kernel", "pool_proj_kernel",
+                       "pool_ln_kernel", "pool_fc1_kernel", "pool_fc2_kernel")),
     ("B5 decoder_block", ("decoder_conv_kernel", "decoder_attn_kernel", "decoder_tail_kernel")),
     ("B3-B5, B9b/c whole blocks", ("block_mma_kernel", "block_f32_kernel")),
     ("convolution", ("conv", "cudnn", "implicit", "dgrad", "fprop", "winograd")),

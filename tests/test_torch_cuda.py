@@ -664,3 +664,120 @@ def test_mlp_tail_scratch_held(gen):
         torch.cuda.synchronize()
     for x, y in zip(first, second):
         assert torch.equal(x, y)
+
+
+# --- the repaired widths and the redesigned B8 and B4 -------------------------
+
+
+@pytest.mark.parametrize("b,n,lq,lk,hd", [(2, 3, 200, 130, 256), (2, 2, 150, 70, 384),
+                                          (1, 2, 77, 90, 200)])
+def test_attention_wide_head_dims(gen, b, n, lq, lk, hd):
+    """K1 and B8 at bf16 head dims above 192 (the output columns split over
+    blocks; 200 runs padded to 256) against their plain versions, and B8's
+    two runs bit-equal."""
+    scale = hd ** -0.5
+    q, k, v = (_randn(gen, b, n, m, hd).to(torch.bfloat16) for m in (lq, lk, lk))
+    g = _randn(gen, b, lq, n, hd).to(torch.bfloat16).permute(0, 2, 1, 3)
+    with torch.inference_mode():
+        before = ka.fused_attention.launches
+        out = ka.fused_attention(q, k, v, scale)
+        torch.cuda.synchronize()
+        assert ka.fused_attention.launches == before + 1
+        want = ka.fused_attention_plain(q, k, v, scale)
+        assert float((out.float() - want.float()).abs().max()) <= bf16_bar("attention", want)
+        out, lse = _lse(q, k, v, scale)
+        got = ka.fused_attention_bwd(q, k, v, out, g, scale, lse)
+        again = ka.fused_attention_bwd(q, k, v, out, g, scale, lse)
+        want = ka.fused_attention_bwd_plain(q, k, v, out, g, scale)
+        for name, x, y, z in zip(("dq", "dk", "dv"), got, want, again):
+            assert x.shape == y.shape
+            err = float((x.float() - y.float()).abs().max())
+            bar = B8_BAR[torch.bfloat16] * max(1.0, float(y.float().abs().max()))
+            assert err <= bar, (name, err, bar)
+            assert torch.equal(x, z), name
+
+
+@pytest.mark.parametrize("b,n,lq,lk,hd", [(8, 2, 4096, 1024, 96), (8, 4, 4096, 64, 192),
+                                          (2, 2, 5000, 64, 96)])
+def test_attention_bwd_bit_equal(gen, b, n, lq, lk, hd):
+    """B8 without atomics: two runs of the same inputs give the same bits
+    (one chunk of queries a block, and chunked with the reduction)."""
+    scale = hd ** -0.5
+    q, k, v = (_randn(gen, b, n, m, hd).to(torch.bfloat16) for m in (lq, lk, lk))
+    g = _randn(gen, b, n, lq, hd).to(torch.bfloat16)
+    with torch.inference_mode():
+        out, lse = _lse(q, k, v, scale)
+        first = ka.fused_attention_bwd(q, k, v, out, g, scale, lse)
+        second = ka.fused_attention_bwd(q, k, v, out, g, scale, lse)
+        for x, y in zip(first, second):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("c,h,cout", [(40, 160, 72), (40, 160, 40), (200, 792, 200),
+                                      (24, 100, 24)])
+def test_tails_at_widths_off_16(gen, c, h, cout):
+    """K2 and B7 at widths that are not multiples of 16 (bf16 zero-padded to
+    16 with LN2 over the true width; fp32 as it is) against their plain
+    versions, with B7's stored hidden."""
+    args = _tail_args(gen, 2, 75, c, cout, h)
+    _check("mlp_tail", kb.fused_mlp_tail, kb.fused_mlp_tail_plain, args)
+    dp = torch.tensor([0.0, 1.25], device="cuda")
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.bfloat16):
+            cast = [None if a is None else a.to(dtype) for a in args]
+            out, hid = kb.fused_mlp_tail_train(*cast, dp)
+            want_out, want_hid = kb.fused_mlp_tail_train_plain(*cast, dp)
+            for got, want in ((out, want_out), (hid, want_hid)):
+                assert got.shape == want.shape and got.dtype == dtype
+                err = float((got.float() - want.float()).abs().max())
+                bar = (FP32_ATOL["mlp_tail"] + FP32_RTOL["mlp_tail"] * float(want.abs().max())
+                       if dtype == torch.float32 else bf16_bar("mlp_tail", want))
+                assert err <= bar, (dtype, err, bar)
+
+
+def test_unfit_block_takes_k1_k2(gen):
+    """A decoder block of dim 768 with three heads of 256 fits no whole-block
+    instance: its route is K1+K2 (K1 at head dim 256), and its output equals
+    the same block through the plain twins at B5's bf16 bar."""
+    from csts_torch.models import mvit as tmvit
+
+    spec = tmvit.AttentionSpec(dim=768, dim_out=384, num_heads=3, kernel_q=(3, 3, 3),
+                               kernel_kv=(3, 3, 3), stride_q=(1, 2, 2), stride_kv=(1, 1, 1),
+                               upsample_q=True)
+    assert tmvit.block_route(spec, None, (4, 8, 8)) == "composite"
+    blk = tmvit.MultiScaleBlock(spec)
+    with torch.no_grad():
+        for p in blk.parameters():
+            p.copy_(torch.randn(p.shape, generator=torch.Generator().manual_seed(1)) * 0.05)
+    blk = blk.cuda().to(torch.bfloat16).eval()
+    x = _randn(gen, 2, 256, 768).to(torch.bfloat16)
+    with torch.inference_mode():
+        n1, n2 = ka.fused_attention.launches, kb.fused_mlp_tail.launches
+        got, _ = blk(x, (4, 8, 8))
+        assert (ka.fused_attention.launches - n1, kb.fused_mlp_tail.launches - n2) == (1, 1)
+        saved = ka.fused_attention, kb.fused_mlp_tail
+        ka.fused_attention, kb.fused_mlp_tail = ka.fused_attention_plain, kb.fused_mlp_tail_plain
+        try:
+            want, _ = blk(x, (4, 8, 8))
+        finally:
+            ka.fused_attention, kb.fused_mlp_tail = saved
+    assert float((got.float() - want.float()).abs().max()) <= bf16_bar("decoder_block", want)
+
+
+@pytest.mark.parametrize("thw,c,cout,heads", [((4, 16, 16), 192, 192, 2),
+                                              ((2, 16, 24), 192, 384, 2),
+                                              ((4, 8, 8), 384, 384, 4),
+                                              ((3, 10, 14), 384, 768, 4)])
+def test_pool_block_split(gen, thw, c, cout, heads):
+    """B4's split (the flagship's four (dim, dim_out, heads) at small grids,
+    odd ones among them) against its plain version, fp32 and bf16, and
+    against the plain model of the split in bf16."""
+    from csts_torch.tools.ab_kernels import b4_inputs
+
+    args = b4_inputs(thw, c, cout, heads, gen)
+    _check("pool_block", kb.fused_pool_block, kb.fused_pool_block_plain,
+           [a.float() if isinstance(a, torch.Tensor) else a for a in args])
+    with torch.inference_mode():
+        got = kb.fused_pool_block(*args)
+        want = kb.fused_pool_block_split_plain(*args)
+        assert float((got.float() - want.float()).abs().max()) <= bf16_bar("pool_block", want)
