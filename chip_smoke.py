@@ -8,7 +8,8 @@ Phases (any failure exits non-zero; nothing is caught):
      ``csts_torch/csrc`` (seconds, registers per kernel, spills and wgmma
      serialisation warnings); 1b. the widths earlier slices could not run
      (``widths_phase``): K2 and B7 at widths off 16, K1 and B8 at bf16 head
-     dims 256 and 384, a decoder block of dim 768 with three heads of 256
+     dims 256, 384, 448 and 512 and at fp32 head dims 256, 320 and 448, a
+     decoder block of dim 768 with three heads of 256
      (no whole-block instance fits it: routed to K1+K2 before any launch),
      and B4 at a width without a split instance, each against its plain
      version with its launches counted;
@@ -125,8 +126,10 @@ BLOCK_BATCH = 8  # ab_block's stacks in the blocks phase
 #        largest output, 2**-6·max(1, max|ref|): both round LN2(x), the hidden
 #        and the output at the same points and differ only in fp32 summation
 #        order, which can flip one rounding. K3 one bf16 ulp, 2**-7·max(1,
-#        max|ref|): the same two-tap fp32 formula, the kernel's fused
-#        multiply-add may differ in the last fp32 bit and flip one rounding.
+#        max|ref|): the same two-tap fp32 formula, each product and the sum
+#        rounded on their own on both sides (no fused multiply-add in the
+#        kernel), so they agree bit for bit unless a compiler fuses a product
+#        into the sum.
 #  B3, B4, B5 (whole blocks): fp32 the CPU bars of tests/test_torch_blocks.py
 #        (B3 3e-5, B4 and B5 5e-5, each + 1e-4 relative). bf16 four ulps of the
 #        largest output, 2**-5·max(1, max|ref|): both sides round LN1, q, the
@@ -288,9 +291,12 @@ def _whole_block_cost(rows, q_in, skip, k, v, weights, taps_flops):
     return nbytes, flops
 
 
-def _block_cost(x, k, v, scale, *weights):
+def _block_cost(x, k, v, scale, ln1_w, ln1_b, wq, bq, *rest):
+    # Q = LN1(x)·Wq from phase 1's LN1 rows xn (the last argument, when given)
     c = x.shape[-1]
-    return _whole_block_cost(x.shape[1], x, None, k, v, weights, 2 * c * c)  # Q = LN1(x)·Wq
+    xn = rest[10] if len(rest) > 10 else None
+    return _whole_block_cost(x.shape[1], x, xn, k, v, (ln1_w, ln1_b, wq, bq, *rest[:10]),
+                             2 * c * c)
 
 
 def _pool_block_cost(q, thw, skip, k, v, scale, *weights):
@@ -644,10 +650,12 @@ def _randn(gen, *shape, dtype=torch.bfloat16):
 
 def widths_phase() -> dict:
     """Phase 1b: the widths the earlier slices could not run (ROADMAP Queue
-    C), each kernel against its plain twin on the card at its bf16 bar, the
+    C), each kernel against its plain twin on the card at its bar, the
     wrapper's launch counted: K2 and B7 at widths off 16 (zero-padded to 16,
     LN2 over the true width); K1 and B8 at bf16 head dims 256 and 384 (the
-    output columns split over blocks); a decoder block of dim 768 with three
+    output columns split over blocks), and their streamed bodies at bf16
+    head dims 448 and 512 and at fp32 head dims 256, 320 and 448 (the
+    head dim streamed in 64-column steps); a decoder block of dim 768 with three
     heads of 256, which fits no whole-block instance and takes K1+K2 (its
     route read before any launch), against the same block through the plain
     twins; B4 at a width without a split instance (the first design's
@@ -691,22 +699,34 @@ def widths_phase() -> dict:
             check(tag, "mlp_tail_train", out, want_o, bf16_bar("mlp_tail_train", want_o))
             check(tag + " (hidden)", "mlp_tail_train", hid, want_h,
                   bf16_bar("mlp_tail_train", want_h))
-        for b, n, lq, lk, hd in ((2, 3, 200, 130, 256), (2, 2, 150, 70, 384)):
-            q, k, v = (_randn(gen, b, n, m, hd) for m in (lq, lk, lk))
-            g = _randn(gen, b, lq, n, hd).permute(0, 2, 1, 3)
+        # K1 and B8: bf16 head dims 256 and 384 (the output columns split
+        # over blocks), the streamed bodies at bf16 448 and 512 and at fp32
+        # 256, 320 and 448 (the exactness check, any head dim)
+        for dt, b, n, lq, lk, hd in ((torch.bfloat16, 2, 3, 200, 130, 256),
+                                     (torch.bfloat16, 2, 2, 150, 70, 384),
+                                     (torch.bfloat16, 1, 2, 75, 130, 448),
+                                     (torch.bfloat16, 1, 2, 40, 70, 512),
+                                     (torch.float32, 2, 2, 90, 70, 256),
+                                     (torch.float32, 1, 2, 75, 130, 320),
+                                     (torch.float32, 1, 2, 40, 70, 448)):
+            q, k, v = (_randn(gen, b, n, m, hd, dtype=dt) for m in (lq, lk, lk))
+            g = _randn(gen, b, lq, n, hd, dtype=dt).permute(0, 2, 1, 3)
             scale = hd ** -0.5
-            tag = f"head dim {hd} (B {b}, N {n}, Lq {lq}, Lk {lk})"
+            body = "streamed" if ka.streamed(hd, dt) else "wgmma"
+            tag = (f"head dim {hd} {str(dt)[6:]} ({body}; B {b}, N {n}, Lq {lq}, Lk {lk}; "
+                   f"runs at {ka.kernel_head_dim(hd, dt)})")
             reset_launches()
             out = ka.fused_attention(q, k, v, scale)
             want = ka.fused_attention_plain(q, k, v, scale)
-            check(tag, "attention", out, want, bf16_bar("attention", want))
+            check(tag, "attention", out, want,
+                  bf16_bar("attention", want) if dt == torch.bfloat16 else FP32_ATOL["attention"])
             out, lse = ka._attention_fwd(q, k, v, scale, None, with_lse=True)
             reset_launches()
             got = ka.fused_attention_bwd(q, k, v, out, g, scale, lse)
             want = ka.fused_attention_bwd_plain(q, k, v, out, g, scale)
             for part, x, y in zip(("dq", "dk", "dv"), got, want):
                 check(f"{tag} {part}", "attention_bwd", x, y,
-                      B8_BAR[torch.bfloat16] * max(1.0, float(y.float().abs().max())))
+                      B8_BAR[dt] * max(1.0, float(y.float().abs().max())))
         thw = (4, 8, 8)
         route = tmvit.block_route(spec, None, thw)
         assert route == "composite", route
@@ -1296,11 +1316,13 @@ def main() -> int:
             "composite_device_ms": res.get("composite_device_ms"),
         })
     # yardsticks beside the kernels: cuBLAS's products alone at K2's and B7's
-    # sites, SDPA's backward at B8's, F.interpolate at B9a's (device ms)
+    # sites, SDPA's backward at B8's, B3's and B4's blocks against the same
+    # blocks through the K1+K2 route, F.interpolate at B9a's (device ms)
     k2_rows = [r for r in report["mlp_tail"]["shapes"] if "ms" in r]
     b7_rows = train_report["mlp_tail_train"]["shapes"]
     b8_rows = train_report["attention_bwd"]["shapes"]
     b4_rows = [r for r in report["pool_block"]["shapes"] if "ms" in r]
+    b3_rows = [r for r in report["block"]["shapes"] if "ms" in r]
     tot = lambda rows, key, count: sum(r[key] * r[count] for r in rows)  # noqa: E731
     yardsticks = {
         "k2_cublas_ms": tot(k2_rows, "cublas_ms", "launches_per_forward"),
@@ -1309,6 +1331,9 @@ def main() -> int:
         "b7_cublas_device_ms": tot(b7_rows, "cublas_device_ms", "launches_per_step"),
         "b8_device_ms": tot(b8_rows, "device_ms", "launches_per_step"),
         "b8_sdpa_bwd_device_ms": tot(b8_rows, "library_device_ms", "launches_per_step"),
+        "b3_device_ms": tot(b3_rows, "device_ms", "launches_per_forward"),
+        "b3_block_device_ms": tot(b3_rows, "block_device_ms", "launches_per_forward"),
+        "b3_k1k2_route_device_ms": tot(b3_rows, "composite_device_ms", "launches_per_forward"),
         "b4_device_ms": tot(b4_rows, "device_ms", "launches_per_forward"),
         "b4_block_device_ms": tot(b4_rows, "block_device_ms", "launches_per_forward"),
         "b4_k1k2_route_device_ms": tot(b4_rows, "composite_device_ms", "launches_per_forward"),
@@ -1319,6 +1344,8 @@ def main() -> int:
     log("yardsticks: K2 {k2_cublas_ms:.4f} ms cuBLAS products a forward (device "
         "{k2_cublas_device_ms:.4f}); B7 {b7_cublas_ms:.4f} a step (device {b7_cublas_device_ms:.4f}); "
         "B8 device {b8_device_ms:.4f} vs SDPA backward device {b8_sdpa_bwd_device_ms:.4f} a step; "
+        "B3 device {b3_device_ms:.4f} a forward, its blocks {b3_block_device_ms:.4f} vs the same "
+        "blocks through the K1+K2 route {b3_k1k2_route_device_ms:.4f} (device, phase 1 included); "
         "B4 device {b4_device_ms:.4f} a forward, its blocks {b4_block_device_ms:.4f} vs the same "
         "blocks through the K1+K2 route {b4_k1k2_route_device_ms:.4f} (device, phase 1 included); "
         "B9a device {b9a_device_ms:.4f} vs F.interpolate device {b9a_interpolate_device_ms:.4f} "

@@ -64,8 +64,15 @@
 //
 // The bf16 body is in attention_wg.cuh, which B5 (decoder_block.cu) also
 // runs for its attention. fp32 inputs (the exactness check against the plain
-// version) take a simple body here: the same online softmax with exact FMA
-// products in shared memory.
+// version) take a simple body here, attn_streamed_kernel: the same online
+// softmax with exact FMA products in shared memory, the head dim streamed in
+// 64-column steps (the logits summed over them, P·V walked in them) and the
+// query rows a block takes cut until its output accumulator fits, so that
+// it runs at any head dim (the whole-head-dim tiles it held before stopped
+// at 280). bf16 head dims above 384, which no wgmma instance holds (whole-
+// head-dim Q and K tiles fill a block's shared memory there), take the same
+// body with K1's rounding points, chosen by (head dim, dtype) before the
+// launch.
 #include "attention_wg.cuh"
 
 using namespace csts;
@@ -148,64 +155,98 @@ cudaError_t launch_wide(const AttnArgs& a, int B, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// fp32: exact FMA body through shared memory
+// the streamed body: fp32 inputs (the exactness check against the plain
+// version) at any head dim, and bf16 head dims above the largest wgmma
+// instance (384)
 // ---------------------------------------------------------------------------
 
-constexpr int kF32BQ = 32;
+constexpr int kSC = 64;  // head-dim columns a step
 constexpr int kThreads = 128;
 
-size_t f32_smem_bytes(int hd) {
-  const int ld = hd + kF32Pad;
-  return align128(sizeof(float) * kF32BQ * ld) + 2 * align128(sizeof(float) * kBK * ld) +
-         align128(sizeof(float) * kF32BQ * kBK) + align128(sizeof(float) * kF32BQ * kBK) +
-         align128(sizeof(float) * kF32BQ * hd) + 2 * align128(sizeof(float) * kF32BQ);
+// shared memory of a block of bq query rows at head dim hd: a column step of
+// Q, K and V, the chunk's logits and probabilities, the output accumulator
+// (bq x hd) and the row statistics
+size_t streamed_smem_bytes(int hd, int bq) {
+  const int ld = kSC + kF32Pad;
+  return align128(sizeof(float) * bq * ld) + 2 * align128(sizeof(float) * kBK * ld) +
+         2 * align128(sizeof(float) * bq * kBK) + align128(sizeof(float) * bq * hd) +
+         2 * align128(sizeof(float) * bq);
 }
 
-__global__ void __launch_bounds__(kThreads) attn_f32_kernel(AttnArgs a) {
-  constexpr int BQ = kF32BQ;
+// query rows a block: 32, halved until the block's tiles fit (32 up to head
+// dim ~1350, one row up to ~55000)
+int streamed_rows(int hd) {
+  int bq = 32;
+  while (bq > 1 && streamed_smem_bytes(hd, bq) > kMaxSmem) bq /= 2;
+  return bq;
+}
+
+// x rounded to T and widened back: the bf16 body's rounding of the
+// probabilities before P·V (none in fp32)
+template <typename T>
+__device__ __forceinline__ float rnd(float x) {
+  return to_f32(from_f32<T>(x));
+}
+
+// One block takes bq query rows of one (batch, head). Per 64-key chunk the
+// logits S = Σ_d Q[:, d]·K[:, d]ᵀ are summed over 64-column steps of the
+// head dim (one exact FMA chain carried across the steps, so S is bit for
+// bit that of one unsplit chain, as the whole-head-dim body had it), the online
+// softmax runs in fp32, and O += P·V is walked in the same column steps of V
+// and O; the output is O / l, rounded once. bf16 inputs are widened exactly
+// and take K1's rounding points: fp32 logits and softmax, the probabilities
+// rounded unnormalised before P·V (the row sums are of the unrounded ones),
+// fp32 accumulation, one rounding of the output.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) attn_streamed_kernel(AttnArgs a, int bq) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int hd = a.hd, ld = hd + kF32Pad;
+  const int hd = a.hd, ld = kSC + kF32Pad;
   unsigned char* p = smem_raw;
-  float* Qs = reinterpret_cast<float*>(carve(p, sizeof(float) * BQ * ld));
+  float* Qs = reinterpret_cast<float*>(carve(p, sizeof(float) * bq * ld));
   float* Ks = reinterpret_cast<float*>(carve(p, sizeof(float) * kBK * ld));
   float* Vs = reinterpret_cast<float*>(carve(p, sizeof(float) * kBK * ld));
-  float* S = reinterpret_cast<float*>(carve(p, sizeof(float) * BQ * kBK));
-  float* P = reinterpret_cast<float*>(carve(p, sizeof(float) * BQ * kBK));
-  float* O = reinterpret_cast<float*>(carve(p, sizeof(float) * BQ * hd));
-  float* Mrow = reinterpret_cast<float*>(carve(p, sizeof(float) * BQ));
-  float* Lrow = reinterpret_cast<float*>(carve(p, sizeof(float) * BQ));
+  float* S = reinterpret_cast<float*>(carve(p, sizeof(float) * bq * kBK));
+  float* P = reinterpret_cast<float*>(carve(p, sizeof(float) * bq * kBK));
+  float* O = reinterpret_cast<float*>(carve(p, sizeof(float) * bq * hd));
+  float* Mrow = reinterpret_cast<float*>(carve(p, sizeof(float) * bq));
+  float* Lrow = reinterpret_cast<float*>(carve(p, sizeof(float) * bq));
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int b = blockIdx.y / a.N, n = blockIdx.y % a.N;
-  const int q0 = blockIdx.x * BQ;
-  const float* qb = static_cast<const float*>(a.q) + b * a.qsb + n * a.qsn;
-  const float* kb = static_cast<const float*>(a.k) + b * a.ksb + n * a.ksn;
-  const float* vb = static_cast<const float*>(a.v) + b * a.vsb + n * a.vsn;
-  float* ob = static_cast<float*>(a.out) + b * a.osb + n * a.osn;
+  const int q0 = blockIdx.x * bq;
+  const T* qb = static_cast<const T*>(a.q) + b * a.qsb + n * a.qsn;
+  const T* kb = static_cast<const T*>(a.k) + b * a.ksb + n * a.ksn;
+  const T* vb = static_cast<const T*>(a.v) + b * a.vsb + n * a.vsn;
+  T* ob = static_cast<T*>(a.out) + b * a.osb + n * a.osn;
 
-  for (int idx = tid; idx < BQ * hd; idx += kThreads) {
-    const int r = idx / hd, d = idx - r * hd, row = q0 + r;
-    Qs[r * ld + d] = row < a.Lq ? qb[row * a.qsr + d] : 0.f;
-    O[idx] = 0.f;
-  }
-  for (int r = tid; r < BQ; r += kThreads) {
+  // rows x dc columns (from column d0) of src (row stride ls, rows from
+  // row0, valid below `valid`) into dst (row stride ld), zeros elsewhere
+  auto load = [&](float* dst, const T* src, long long ls, int row0, int rows, int valid, int d0,
+                  int dc) {
+    for (int idx = tid; idx < rows * dc; idx += kThreads) {
+      const int r = idx / dc, d = idx - r * dc, row = row0 + r;
+      dst[r * ld + d] = row < valid ? to_f32(src[row * ls + d0 + d]) : 0.f;
+    }
+  };
+
+  for (int idx = tid; idx < bq * hd; idx += kThreads) O[idx] = 0.f;
+  for (int r = tid; r < bq; r += kThreads) {
     Mrow[r] = -INFINITY;
     Lrow[r] = 0.f;
   }
 
   for (int c0 = 0; c0 < a.Lk; c0 += kBK) {
-    __syncthreads();  // previous chunk's P·V has read Ks/Vs/P
-    for (int idx = tid; idx < kBK * hd; idx += kThreads) {
-      const int r = idx / hd, d = idx - r * hd, row = c0 + r;
-      const bool ok = row < a.Lk;
-      Ks[r * ld + d] = ok ? kb[row * a.ksr + d] : 0.f;
-      Vs[r * ld + d] = ok ? vb[row * a.vsr + d] : 0.f;
+    for (int d0 = 0; d0 < hd; d0 += kSC) {
+      const int dc = min(kSC, hd - d0);
+      __syncthreads();  // the previous step's product has read Qs and Ks
+      load(Qs, qb, a.qsr, q0, bq, a.Lq, d0, dc);
+      load(Ks, kb, a.ksr, c0, kBK, a.Lk, d0, dc);
+      __syncthreads();
+      smem_gemm_chain<true>(S, kBK, Qs, ld, Ks, ld, bq, kBK, dc, d0 == 0);
     }
     __syncthreads();
-    smem_gemm<true>(S, kBK, Qs, ld, Ks, ld, BQ, kBK, hd, false);
-    __syncthreads();
     // online softmax, one warp per query row, two key columns per lane
-    for (int r = warp; r < BQ; r += kThreads / 32) {
+    for (int r = warp; r < bq; r += kThreads / 32) {
       const int qi = q0 + r;
       float s[kBK / 32];
       float mx = -INFINITY;
@@ -215,8 +256,11 @@ __global__ void __launch_bounds__(kThreads) attn_f32_kernel(AttnArgs a) {
         float val = -INFINITY;
         if (kc < a.Lk) {
           val = S[r * kBK + col] * a.scale;
-          if (a.mask != nullptr && qi < a.Lq)
-            val += static_cast<const float*>(a.mask)[(long long)qi * a.Lk + kc];
+          if (a.mask != nullptr && qi < a.Lq) {
+            const long long off = (long long)qi * a.Lk + kc;
+            val += a.mask_bf16 ? __bfloat162float(static_cast<const bf16*>(a.mask)[off])
+                               : static_cast<const float*>(a.mask)[off];
+          }
         }
         s[j] = val;
         mx = fmaxf(mx, val);
@@ -230,7 +274,7 @@ __global__ void __launch_bounds__(kThreads) attn_f32_kernel(AttnArgs a) {
       for (int j = 0; j < kBK / 32; ++j) {
         const float pj = expf(s[j] - m_new);
         sum += pj;
-        P[r * kBK + lane + 32 * j] = pj;
+        P[r * kBK + lane + 32 * j] = rnd<T>(pj);
       }
       sum = warp_sum(sum);
       for (int d = lane; d < hd; d += 32) O[r * hd + d] *= alpha;
@@ -239,28 +283,36 @@ __global__ void __launch_bounds__(kThreads) attn_f32_kernel(AttnArgs a) {
         Mrow[r] = m_new;
       }
     }
-    __syncthreads();
-    smem_gemm<false>(O, hd, P, kBK, Vs, ld, BQ, hd, kBK, true);
+    for (int d0 = 0; d0 < hd; d0 += kSC) {
+      const int dc = min(kSC, hd - d0);
+      __syncthreads();  // the softmax (first step) or the previous step's product is done
+      load(Vs, vb, a.vsr, c0, kBK, a.Lk, d0, dc);
+      __syncthreads();
+      smem_gemm<false>(O + d0, hd, P, kBK, Vs, ld, bq, dc, kBK, true);
+    }
   }
   __syncthreads();
-  for (int idx = tid; idx < BQ * hd; idx += kThreads) {
+  for (int idx = tid; idx < bq * hd; idx += kThreads) {
     const int r = idx / hd, d = idx - r * hd, row = q0 + r;
-    if (row < a.Lq) ob[row * a.osr + d] = O[idx] / Lrow[r];
+    if (row < a.Lq) ob[row * a.osr + d] = from_f32<T>(O[idx] / Lrow[r]);
   }
   if (a.lse != nullptr)
-    for (int r = tid; r < BQ; r += kThreads)
+    for (int r = tid; r < bq; r += kThreads)
       if (q0 + r < a.Lq) a.lse[(long long)blockIdx.y * a.Lq + q0 + r] = Mrow[r] + logf(Lrow[r]);
 }
 
-cudaError_t launch_f32(const AttnArgs& a, int B, cudaStream_t stream) {
-  const size_t smem = f32_smem_bytes(a.hd);
+template <typename T>
+cudaError_t launch_streamed(const AttnArgs& a, int B, cudaStream_t stream) {
+  if (a.splits != 1) return cudaErrorInvalidValue;
+  const int bq = streamed_rows(a.hd);
+  const size_t smem = streamed_smem_bytes(a.hd, bq);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(attn_f32_kernel,
+  cudaError_t e = cudaFuncSetAttribute(attn_streamed_kernel<T>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  dim3 grid((a.Lq + kF32BQ - 1) / kF32BQ, B * a.N);
-  attn_f32_kernel<<<grid, kThreads, smem, stream>>>(a);
+  dim3 grid((a.Lq + bq - 1) / bq, B * a.N);
+  attn_streamed_kernel<T><<<grid, kThreads, smem, stream>>>(a, bq);
   return cudaGetLastError();
 }
 
@@ -281,9 +333,11 @@ extern "C" int csts_attention_fwd(const long long* p, float scale, void* stream)
              p[17], p[18], p[19], p[20], p[21], p[22], p[23], p[24], p[25], p[26], p[27], p[28],
              scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32) return (mask_bf16 || splits != 1) ? cudaErrorInvalidValue : launch_f32(a, B, s);
+  if (dtype == kFloat32)
+    return (mask_bf16 || splits != 1) ? cudaErrorInvalidValue : launch_streamed<float>(a, B, s);
   if (dtype != kBFloat16 || splits < 1 || splits > 4 || tpb < 1 || (splits > 1 && tpb > 1))
     return cudaErrorInvalidValue;
+  if (hd > 384) return tpb != 1 ? cudaErrorInvalidValue : launch_streamed<bf16>(a, B, s);
   switch (hd) {
     case 64: return launch_hd<64>(a, B, s);
     case 96: return launch_hd<96>(a, B, s);

@@ -62,7 +62,15 @@
 // with unit columns (16-byte aligned, the wrapper checks).
 //
 // fp32 inputs (the exactness check against the plain version) take simple
-// bodies with the same passes and exact FMA products in shared memory.
+// bodies with the same passes and exact FMA products in shared memory
+// (dq_streamed_kernel, dkdv_streamed_kernel): the head dim streamed in
+// 64-column steps (S and dP summed over them, the products into dq, dk and
+// dv walked in them) and the rows a block takes cut until its accumulators
+// fit, so that they run at any head dim (the whole-head-dim tiles they held
+// before stopped at ~224). bf16 head dims above 384, which no wgmma instance
+// holds, take the same bodies with B8's rounding points (p and dl rounded to
+// bf16 before the products, one rounding of each output), chosen by (head
+// dim, dtype) before the launch.
 #include "common.cuh"
 #include "sm90.cuh"
 
@@ -611,55 +619,94 @@ cudaError_t launch_wg(BwdArgs a, int max_chunks, int B, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// fp32: exact FMA bodies through shared memory
+// the streamed bodies: fp32 inputs (the exactness check against the plain
+// version) at any head dim, and bf16 head dims above the largest wgmma
+// instance (384)
 // ---------------------------------------------------------------------------
 
 constexpr int kThreads = 128;
-constexpr int kF32BQ = 32;  // query rows per tile
-constexpr int kF32BK = 32;  // keys per dk/dv block (the dq pass walks chunks of kBK)
+constexpr int kF32BQ = 32;  // query rows of a dk/dv pass tile
+constexpr int kSC = 64;     // head-dim columns a step
 
-size_t dq_f32_smem_bytes(int hd) {
-  const int ld = hd + kF32Pad;
-  return 2 * align128(sizeof(float) * kF32BQ * ld) + 2 * align128(sizeof(float) * kBK * ld) +
-         2 * align128(sizeof(float) * kF32BQ * kBK) + align128(sizeof(float) * kF32BQ * hd) +
+// x rounded to T and widened back: the bf16 bodies' rounding of p and dl
+// before their products (none in fp32)
+template <typename T>
+__device__ __forceinline__ float rnd(float x) {
+  return to_f32(from_f32<T>(x));
+}
+
+// rows x dc columns (from column d0) of src (row stride ls, rows from row0,
+// valid below `valid`) into dst (row stride kSC + kF32Pad), zeros elsewhere
+template <typename T>
+__device__ __forceinline__ void load_cols(float* dst, const T* src, long long ls, int row0,
+                                          int rows, int valid, int d0, int dc) {
+  for (int idx = threadIdx.x; idx < rows * dc; idx += kThreads) {
+    const int r = idx / dc, d = idx - r * dc, row = row0 + r;
+    dst[r * (kSC + kF32Pad) + d] = row < valid ? to_f32(src[row * ls + d0 + d]) : 0.f;
+  }
+}
+
+// the dq pass's shared memory at bq query rows: a column step of q, g, k and
+// v, S and dP of a key chunk, the dq accumulator (bq x hd), lse and delta
+size_t dq_streamed_smem_bytes(int hd, int bq) {
+  const int ld = kSC + kF32Pad;
+  return 2 * align128(sizeof(float) * bq * ld) + 2 * align128(sizeof(float) * kBK * ld) +
+         2 * align128(sizeof(float) * bq * kBK) + align128(sizeof(float) * bq * hd) +
+         2 * align128(sizeof(float) * bq);
+}
+
+// the dk/dv pass's at bk keys: a column step of k, v, q and g, Sᵀ and dPᵀ of
+// a query tile, the dk and dv accumulators (bk x hd each), lse and delta
+size_t dkdv_streamed_smem_bytes(int hd, int bk) {
+  const int ld = kSC + kF32Pad;
+  return 2 * align128(sizeof(float) * bk * ld) + 2 * align128(sizeof(float) * kF32BQ * ld) +
+         2 * align128(sizeof(float) * bk * kF32BQ) + 2 * align128(sizeof(float) * bk * hd) +
          2 * align128(sizeof(float) * kF32BQ);
 }
 
-__global__ void __launch_bounds__(kThreads) dq_f32_kernel(BwdArgs a) {
-  constexpr int BQ = kF32BQ;
+// rows a block of either pass takes: 32, halved until its tiles fit
+template <class F>
+int streamed_rows(int hd, F smem) {
+  int rows = 32;
+  while (rows > 1 && smem(hd, rows) > kMaxSmem) rows /= 2;
+  return rows;
+}
+
+// The dq pass: bq query rows of one (batch, head). delta = rowsum(g·o) and
+// lse per row; per 64-key chunk, S = q kᵀ and dP = g vᵀ summed over 64-column
+// steps of the head dim (one exact FMA chain carried across the steps, bit
+// for bit the unsplit sum), p = exp(S·scale − lse), dl = p·(dP − delta) rounded
+// to T, dq += dl k walked in the same column steps; dq·scale rounded once.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) dq_streamed_kernel(BwdArgs a, int bq) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int hd = a.hd, ld = hd + kF32Pad;
+  const int hd = a.hd, ld = kSC + kF32Pad;
   unsigned char* p = smem_raw;
-  float* Qs = reinterpret_cast<float*>(carve(p, sizeof(float) * BQ * ld));
-  float* Gs = reinterpret_cast<float*>(carve(p, sizeof(float) * BQ * ld));
+  float* Qs = reinterpret_cast<float*>(carve(p, sizeof(float) * bq * ld));
+  float* Gs = reinterpret_cast<float*>(carve(p, sizeof(float) * bq * ld));
   float* Ks = reinterpret_cast<float*>(carve(p, sizeof(float) * kBK * ld));
   float* Vs = reinterpret_cast<float*>(carve(p, sizeof(float) * kBK * ld));
-  float* S = reinterpret_cast<float*>(carve(p, sizeof(float) * BQ * kBK));
-  float* dP = reinterpret_cast<float*>(carve(p, sizeof(float) * BQ * kBK));
-  float* dQ = reinterpret_cast<float*>(carve(p, sizeof(float) * BQ * hd));
-  float* Lrow = reinterpret_cast<float*>(carve(p, sizeof(float) * BQ));
-  float* Drow = reinterpret_cast<float*>(carve(p, sizeof(float) * BQ));
+  float* S = reinterpret_cast<float*>(carve(p, sizeof(float) * bq * kBK));
+  float* dP = reinterpret_cast<float*>(carve(p, sizeof(float) * bq * kBK));
+  float* dQ = reinterpret_cast<float*>(carve(p, sizeof(float) * bq * hd));
+  float* Lrow = reinterpret_cast<float*>(carve(p, sizeof(float) * bq));
+  float* Drow = reinterpret_cast<float*>(carve(p, sizeof(float) * bq));
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int bn = blockIdx.y, q0 = blockIdx.x * BQ;
-  const float* qb = head<float>(a.q, bn, a.N, a.qsb, a.qsn);
-  const float* kb = head<float>(a.k, bn, a.N, a.ksb, a.ksn);
-  const float* vb = head<float>(a.v, bn, a.N, a.vsb, a.vsn);
-  const float* ob = head<float>(a.o, bn, a.N, a.osb, a.osn);
-  const float* gb = head<float>(a.g, bn, a.N, a.gsb, a.gsn);
+  const int bn = blockIdx.y, q0 = blockIdx.x * bq;
+  const T* qb = head<T>(a.q, bn, a.N, a.qsb, a.qsn);
+  const T* kb = head<T>(a.k, bn, a.N, a.ksb, a.ksn);
+  const T* vb = head<T>(a.v, bn, a.N, a.vsb, a.vsn);
+  const T* ob = head<T>(a.o, bn, a.N, a.osb, a.osn);
+  const T* gb = head<T>(a.g, bn, a.N, a.gsb, a.gsn);
 
-  for (int idx = tid; idx < BQ * hd; idx += kThreads) {
-    const int r = idx / hd, d = idx - r * hd, row = q0 + r;
-    const bool ok = row < a.Lq;
-    Qs[r * ld + d] = ok ? qb[row * a.qsr + d] : 0.f;
-    Gs[r * ld + d] = ok ? gb[row * a.gsr + d] : 0.f;
-    dQ[idx] = 0.f;
-  }
-  for (int r = warp; r < BQ; r += kThreads / 32) {
+  for (int idx = tid; idx < bq * hd; idx += kThreads) dQ[idx] = 0.f;
+  for (int r = warp; r < bq; r += kThreads / 32) {
     const int row = q0 + r;
     float s = 0.f;
     if (row < a.Lq)
-      for (int d = lane; d < hd; d += 32) s += gb[row * a.gsr + d] * ob[row * a.osr + d];
+      for (int d = lane; d < hd; d += 32)
+        s += to_f32(gb[row * a.gsr + d]) * to_f32(ob[row * a.osr + d]);
     s = warp_sum(s);
     if (lane == 0) {
       Drow[r] = s;
@@ -669,130 +716,145 @@ __global__ void __launch_bounds__(kThreads) dq_f32_kernel(BwdArgs a) {
   }
 
   for (int c0 = 0; c0 < a.Lk; c0 += kBK) {
-    __syncthreads();  // the previous chunk's dQ product has read Ks and S
-    for (int idx = tid; idx < kBK * hd; idx += kThreads) {
-      const int r = idx / hd, d = idx - r * hd, row = c0 + r;
-      const bool ok = row < a.Lk;
-      Ks[r * ld + d] = ok ? kb[row * a.ksr + d] : 0.f;
-      Vs[r * ld + d] = ok ? vb[row * a.vsr + d] : 0.f;
+    for (int d0 = 0; d0 < hd; d0 += kSC) {
+      const int dc = min(kSC, hd - d0);
+      __syncthreads();  // the previous step's products have read the four tiles
+      load_cols(Qs, qb, a.qsr, q0, bq, a.Lq, d0, dc);
+      load_cols(Gs, gb, a.gsr, q0, bq, a.Lq, d0, dc);
+      load_cols(Ks, kb, a.ksr, c0, kBK, a.Lk, d0, dc);
+      load_cols(Vs, vb, a.vsr, c0, kBK, a.Lk, d0, dc);
+      __syncthreads();
+      smem_gemm_chain<true>(S, kBK, Qs, ld, Ks, ld, bq, kBK, dc, d0 == 0);
+      smem_gemm_chain<true>(dP, kBK, Gs, ld, Vs, ld, bq, kBK, dc, d0 == 0);
     }
     __syncthreads();
-    smem_gemm<true>(S, kBK, Qs, ld, Ks, ld, BQ, kBK, hd, false);
-    smem_gemm<true>(dP, kBK, Gs, ld, Vs, ld, BQ, kBK, hd, false);
-    __syncthreads();
-    for (int idx = tid; idx < BQ * kBK; idx += kThreads) {
+    for (int idx = tid; idx < bq * kBK; idx += kThreads) {
       const int r = idx / kBK, c = idx - r * kBK;
       const float pe = c0 + c < a.Lk ? expf(S[idx] * a.scale - Lrow[r]) : 0.f;
-      S[idx] = pe * (dP[idx] - Drow[r]);
+      S[idx] = rnd<T>(pe * (dP[idx] - Drow[r]));
     }
-    __syncthreads();
-    smem_gemm<false>(dQ, hd, S, kBK, Ks, ld, BQ, hd, kBK, true);
+    for (int d0 = 0; d0 < hd; d0 += kSC) {
+      const int dc = min(kSC, hd - d0);
+      __syncthreads();  // dl written (first step), the previous step's product done
+      load_cols(Ks, kb, a.ksr, c0, kBK, a.Lk, d0, dc);
+      __syncthreads();
+      smem_gemm<false>(dQ + d0, hd, S, kBK, Ks, ld, bq, dc, kBK, true);
+    }
   }
   __syncthreads();
-  float* dqb = static_cast<float*>(a.dq) + (bn / a.N) * a.dqsb + (bn % a.N) * a.dqsn;
-  for (int idx = tid; idx < BQ * hd; idx += kThreads) {
+  T* dqb = static_cast<T*>(a.dq) + (bn / a.N) * a.dqsb + (bn % a.N) * a.dqsn;
+  for (int idx = tid; idx < bq * hd; idx += kThreads) {
     const int r = idx / hd, d = idx - r * hd, row = q0 + r;
-    if (row < a.Lq) dqb[row * a.dqsr + d] = dQ[idx] * a.scale;
+    if (row < a.Lq) dqb[row * a.dqsr + d] = from_f32<T>(dQ[idx] * a.scale);
   }
 }
 
-size_t dkdv_f32_smem_bytes(int hd) {
-  const int ld = hd + kF32Pad;
-  return 2 * align128(sizeof(float) * kF32BK * ld) + 2 * align128(sizeof(float) * kF32BQ * ld) +
-         2 * align128(sizeof(float) * kF32BK * kF32BQ) + 2 * align128(sizeof(float) * kF32BK * hd) +
-         2 * align128(sizeof(float) * kF32BQ);
-}
-
-__global__ void __launch_bounds__(kThreads) dkdv_f32_kernel(BwdArgs a) {
-  constexpr int BQ = kF32BQ, BK = kF32BK;
+// The dk/dv pass: bk keys of one (batch, head) over the query tiles of its
+// chunk. Per 32-row tile, Sᵀ = k qᵀ and dPᵀ = v gᵀ summed over 64-column steps
+// of the head dim (the chain carried across them), pᵀ = exp(Sᵀ·scale − lse) and dlᵀ = pᵀ·(dPᵀ − delta), each
+// rounded to T, then dv += pᵀ g and dk += dlᵀ q walked in the same column
+// steps; dk·scale and dv rounded once (or the chunk's fp32 partials).
+template <typename T>
+__global__ void __launch_bounds__(kThreads) dkdv_streamed_kernel(BwdArgs a, int bk) {
+  constexpr int BQ = kF32BQ;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int hd = a.hd, ld = hd + kF32Pad;
+  const int hd = a.hd, ld = kSC + kF32Pad;
   unsigned char* p = smem_raw;
-  float* Ks = reinterpret_cast<float*>(carve(p, sizeof(float) * BK * ld));
-  float* Vs = reinterpret_cast<float*>(carve(p, sizeof(float) * BK * ld));
+  float* Ks = reinterpret_cast<float*>(carve(p, sizeof(float) * bk * ld));
+  float* Vs = reinterpret_cast<float*>(carve(p, sizeof(float) * bk * ld));
   float* Qs = reinterpret_cast<float*>(carve(p, sizeof(float) * BQ * ld));
   float* Gs = reinterpret_cast<float*>(carve(p, sizeof(float) * BQ * ld));
-  float* St = reinterpret_cast<float*>(carve(p, sizeof(float) * BK * BQ));
-  float* dPt = reinterpret_cast<float*>(carve(p, sizeof(float) * BK * BQ));
-  float* dK = reinterpret_cast<float*>(carve(p, sizeof(float) * BK * hd));
-  float* dV = reinterpret_cast<float*>(carve(p, sizeof(float) * BK * hd));
+  float* St = reinterpret_cast<float*>(carve(p, sizeof(float) * bk * BQ));
+  float* dPt = reinterpret_cast<float*>(carve(p, sizeof(float) * bk * BQ));
+  float* dK = reinterpret_cast<float*>(carve(p, sizeof(float) * bk * hd));
+  float* dV = reinterpret_cast<float*>(carve(p, sizeof(float) * bk * hd));
   float* L = reinterpret_cast<float*>(carve(p, sizeof(float) * BQ));
   float* D = reinterpret_cast<float*>(carve(p, sizeof(float) * BQ));
 
   const int tid = threadIdx.x;
-  const int k0 = blockIdx.x * BK, chunk = blockIdx.y, bn = blockIdx.z;
+  const int k0 = blockIdx.x * bk, chunk = blockIdx.y, bn = blockIdx.z;
   const int tiles = (a.Lq + BQ - 1) / BQ;
   const int t_begin = chunk * a.tiles_per_chunk;
   const int t_end = min(tiles, t_begin + a.tiles_per_chunk);
-  const float* qb = head<float>(a.q, bn, a.N, a.qsb, a.qsn);
-  const float* kb = head<float>(a.k, bn, a.N, a.ksb, a.ksn);
-  const float* vb = head<float>(a.v, bn, a.N, a.vsb, a.vsn);
-  const float* gb = head<float>(a.g, bn, a.N, a.gsb, a.gsn);
+  const T* qb = head<T>(a.q, bn, a.N, a.qsb, a.qsn);
+  const T* kb = head<T>(a.k, bn, a.N, a.ksb, a.ksn);
+  const T* vb = head<T>(a.v, bn, a.N, a.vsb, a.vsn);
+  const T* gb = head<T>(a.g, bn, a.N, a.gsb, a.gsn);
 
-  for (int idx = tid; idx < BK * hd; idx += kThreads) {
-    const int r = idx / hd, d = idx - r * hd, row = k0 + r;
-    const bool ok = row < a.Lk;
-    Ks[r * ld + d] = ok ? kb[row * a.ksr + d] : 0.f;
-    Vs[r * ld + d] = ok ? vb[row * a.vsr + d] : 0.f;
+  for (int idx = tid; idx < bk * hd; idx += kThreads) {
     dK[idx] = 0.f;
     dV[idx] = 0.f;
   }
   for (int t = t_begin; t < t_end; ++t) {
     const int r0 = t * BQ;
-    __syncthreads();  // the previous tile's products have read Qs, Gs, St, dPt
-    for (int idx = tid; idx < BQ * hd; idx += kThreads) {
-      const int r = idx / hd, d = idx - r * hd, row = r0 + r;
-      const bool ok = row < a.Lq;
-      Qs[r * ld + d] = ok ? qb[row * a.qsr + d] : 0.f;
-      Gs[r * ld + d] = ok ? gb[row * a.gsr + d] : 0.f;
-    }
-    for (int i = tid; i < BQ; i += kThreads) {
-      const bool ok = r0 + i < a.Lq;
-      L[i] = ok ? a.lse[(long long)bn * a.Lq + r0 + i] : INFINITY;
-      D[i] = ok ? a.delta[(long long)bn * a.Lq + r0 + i] : 0.f;
+    for (int d0 = 0; d0 < hd; d0 += kSC) {
+      const int dc = min(kSC, hd - d0);
+      __syncthreads();  // the previous step's (or tile's) products have read the tiles
+      if (d0 == 0)
+        for (int i = tid; i < BQ; i += kThreads) {
+          const bool ok = r0 + i < a.Lq;
+          L[i] = ok ? a.lse[(long long)bn * a.Lq + r0 + i] : INFINITY;
+          D[i] = ok ? a.delta[(long long)bn * a.Lq + r0 + i] : 0.f;
+        }
+      load_cols(Ks, kb, a.ksr, k0, bk, a.Lk, d0, dc);
+      load_cols(Vs, vb, a.vsr, k0, bk, a.Lk, d0, dc);
+      load_cols(Qs, qb, a.qsr, r0, BQ, a.Lq, d0, dc);
+      load_cols(Gs, gb, a.gsr, r0, BQ, a.Lq, d0, dc);
+      __syncthreads();
+      smem_gemm_chain<true>(St, BQ, Ks, ld, Qs, ld, bk, BQ, dc, d0 == 0);
+      smem_gemm_chain<true>(dPt, BQ, Vs, ld, Gs, ld, bk, BQ, dc, d0 == 0);
     }
     __syncthreads();
-    smem_gemm<true>(St, BQ, Ks, ld, Qs, ld, BK, BQ, hd, false);
-    smem_gemm<true>(dPt, BQ, Vs, ld, Gs, ld, BK, BQ, hd, false);
-    __syncthreads();
-    for (int idx = tid; idx < BK * BQ; idx += kThreads) {
+    for (int idx = tid; idx < bk * BQ; idx += kThreads) {
       const int c = idx % BQ;
       const float pe = expf(St[idx] * a.scale - L[c]);
-      dPt[idx] = pe * (dPt[idx] - D[c]);
-      St[idx] = pe;
+      dPt[idx] = rnd<T>(pe * (dPt[idx] - D[c]));
+      St[idx] = rnd<T>(pe);
     }
-    __syncthreads();
-    smem_gemm<false>(dV, hd, St, BQ, Gs, ld, BK, hd, BQ, true);
-    smem_gemm<false>(dK, hd, dPt, BQ, Qs, ld, BK, hd, BQ, true);
+    for (int d0 = 0; d0 < hd; d0 += kSC) {
+      const int dc = min(kSC, hd - d0);
+      __syncthreads();  // pᵀ and dlᵀ written (first step), the previous step's products done
+      load_cols(Qs, qb, a.qsr, r0, BQ, a.Lq, d0, dc);
+      load_cols(Gs, gb, a.gsr, r0, BQ, a.Lq, d0, dc);
+      __syncthreads();
+      smem_gemm<false>(dV + d0, hd, St, BQ, Gs, ld, bk, dc, BQ, true);
+      smem_gemm<false>(dK + d0, hd, dPt, BQ, Qs, ld, bk, dc, BQ, true);
+    }
   }
   __syncthreads();
-  for (int idx = tid; idx < BK * (hd / 2); idx += kThreads) {
+  for (int idx = tid; idx < bk * (hd / 2); idx += kThreads) {
     const int r = idx / (hd / 2), d = 2 * (idx - r * (hd / 2)), key = k0 + r;
     if (key < a.Lk)
-      store_dkdv<float>(a, chunk, bn, key, d, dK[r * hd + d], dK[r * hd + d + 1], dV[r * hd + d],
-                        dV[r * hd + d + 1]);
+      store_dkdv<T>(a, chunk, bn, key, d, dK[r * hd + d], dK[r * hd + d + 1], dV[r * hd + d],
+                    dV[r * hd + d + 1]);
   }
 }
 
-cudaError_t launch_f32(BwdArgs a, int max_chunks, cudaStream_t stream) {
-  const size_t smem_q = dq_f32_smem_bytes(a.hd), smem_kv = dkdv_f32_smem_bytes(a.hd);
-  if (smem_q > kMaxSmem || smem_kv > kMaxSmem || a.hd % 2) return cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(dq_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+template <typename T>
+cudaError_t launch_streamed(BwdArgs a, int max_chunks, cudaStream_t stream) {
+  if (a.hd % 2) return cudaErrorInvalidValue;
+  const int bq = streamed_rows(a.hd, dq_streamed_smem_bytes);
+  const int bk = streamed_rows(a.hd, dkdv_streamed_smem_bytes);
+  const size_t smem_q = dq_streamed_smem_bytes(a.hd, bq);
+  const size_t smem_kv = dkdv_streamed_smem_bytes(a.hd, bk);
+  if (smem_q > kMaxSmem || smem_kv > kMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(dq_streamed_kernel<T>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem_q));
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(dkdv_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  e = cudaFuncSetAttribute(dkdv_streamed_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(smem_kv));
   if (e != cudaSuccess) return e;
   const int tiles = (a.Lq + kF32BQ - 1) / kF32BQ;
   a.tiles_per_chunk = (tiles + max_chunks - 1) / max_chunks;
   a.chunks = (tiles + a.tiles_per_chunk - 1) / a.tiles_per_chunk;
   if (a.chunks > 1 && a.ws == nullptr) return cudaErrorInvalidValue;
-  dq_f32_kernel<<<dim3(tiles, a.BNh), kThreads, smem_q, stream>>>(a);
+  dq_streamed_kernel<T><<<dim3((a.Lq + bq - 1) / bq, a.BNh), kThreads, smem_q, stream>>>(a, bq);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  dkdv_f32_kernel<<<dim3((a.Lk + kF32BK - 1) / kF32BK, a.chunks, a.BNh), kThreads, smem_kv,
-                    stream>>>(a);
+  dkdv_streamed_kernel<T><<<dim3((a.Lk + bk - 1) / bk, a.chunks, a.BNh), kThreads, smem_kv,
+                            stream>>>(a, bk);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  if (a.chunks > 1) reduce_kernel<float><<<264, 256, 0, stream>>>(a);
+  if (a.chunks > 1) reduce_kernel<T><<<264, 256, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -817,8 +879,9 @@ extern "C" int csts_attention_bwd(int dtype, const void* q, const void* k, const
             qsb, qsn, qsr, ksb, ksn, ksr, vsb, vsn, vsr, osb, osn, osr, gsb, gsn, gsr,
             dqsb, dqsn, dqsr, 1, 1, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32) return launch_f32(a, max_chunks, s);
+  if (dtype == kFloat32) return launch_streamed<float>(a, max_chunks, s);
   if (dtype != kBFloat16 || lse_pad == nullptr) return cudaErrorInvalidValue;
+  if (hd > 384) return launch_streamed<bf16>(a, max_chunks, s);
   switch (hd) {
     case 64: return launch_wg<64>(a, max_chunks, B, s);
     case 96: return launch_wg<96>(a, max_chunks, B, s);

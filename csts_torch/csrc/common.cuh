@@ -186,4 +186,26 @@ __device__ void smem_gemm(float* C, int ldc, const float* A, int lda, const floa
   }
 }
 
+// C[M x N] = A[M x K] * B (as smem_gemm) continued from C where `first` is
+// false: each element's fused multiply-add chain starts from C's value (0
+// where first), so that a reduction cut into steps (the streamed attention
+// bodies' 64-column steps of the head dim) runs the very chain of one
+// unsplit reduction, bit for bit.
+template <bool B_COL>
+__device__ void smem_gemm_chain(float* C, int ldc, const float* A, int lda, const float* B,
+                                int ldb, int M, int N, int K, bool first) {
+  for (int idx = threadIdx.x; idx < M * N; idx += blockDim.x) {
+    const int i = idx / N, j = idx - (idx / N) * N;
+    const float* a = A + i * lda;
+    float s = first ? 0.f : C[i * ldc + j];
+    if constexpr (B_COL) {
+      const float* b = B + j * ldb;
+      for (int k = 0; k < K; ++k) s = fmaf(a[k], b[k], s);
+    } else {
+      for (int k = 0; k < K; ++k) s = fmaf(a[k], B[k * ldb + j], s);
+    }
+    C[i * ldc + j] = s;
+  }
+}
+
 }  // namespace csts

@@ -118,6 +118,7 @@ int launch_bf16(const Args& a, int B, bf16* qf, bf16* av, float* res1, cudaStrea
   if (a.wp == nullptr || (a.hd != 96 && a.hd != 192) || !(d2 || d3 || d4) ||
       a.H % (d4 ? 64 : 128))
     return launch_first_design(a, B, s);
+  if (qf == nullptr || av == nullptr || res1 == nullptr) return cudaErrorInvalidValue;
   static size_t conv_attr = 0;
   static bool set96 = false, set192 = false;
   cudaError_t e = a.hd == 96 ? launch_front<96>(decoder_conv_kernel, conv_attr,
@@ -135,7 +136,8 @@ int launch_bf16(const Args& a, int B, bf16* qf, bf16* av, float* res1, cudaStrea
 
 // The shared whole-block signature (fused_block.cuh) plus B5's three scratch
 // buffers: the fine q (B x (L + 64) x C) and av (B·L x C), both in the
-// activation dtype, and res1 (B·L x C fp32), all unused by the fp32 body.
+// activation dtype, and res1 (B·L x C fp32), all unused (and null) in the
+// fp32 body and the first design.
 extern "C" int csts_fused_decoder_block(
     int dtype, const void* x, const void* q, const void* skip, const void* k, const void* v,
     const void* ln1_w, const void* ln1_b, const void* wq, const void* bq, const void* wconv,
@@ -150,8 +152,7 @@ extern "C" int csts_fused_decoder_block(
          N,    hd,    Lk,   T,  Hh, W,     Ts,    Hs, Ws,  st,   sh,  sw,   scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == csts::kFloat32) return launch_f32<kDecoder>(a, B, s);
-  if (dtype != csts::kBFloat16 || qf == nullptr || av == nullptr || res1 == nullptr)
-    return cudaErrorInvalidValue;
+  if (dtype != csts::kBFloat16) return cudaErrorInvalidValue;
   return launch_bf16(a, B, static_cast<bf16*>(qf), static_cast<bf16*>(av),
                      static_cast<float*>(res1), s);
 }

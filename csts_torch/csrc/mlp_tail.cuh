@@ -120,21 +120,42 @@ __device__ __forceinline__ float row_dp(const TailArgs& a, long long row) {
 using bf16 = __nv_bfloat16;
 namespace s9 = csts::sm90;
 
-// LN2 of every row into xn2 (the rows rounded once), one warp a row, 16-byte
-// pieces, two-pass fp32 statistics over the row as it sits in L1. Rows
-// zero-padded from Cln to C columns (a width off 16, padded by the wrapper):
-// the statistics are the first Cln columns' (the zeros add nothing to the
-// sum, and are left out of the variance), and the padded columns, whose
-// weight and bias are zero, come out zero.
-// (The body of a 256-thread kernel, rows of bf16 or, for B4's res1, fp32.)
+// Lanes that share a row in ln_body: the power of two that holds its C / 8
+// 16-byte pieces, at most 32 (16 at C 96, 32 from C 136 on). A warp takes
+// 32 / lanes rows, a 256-thread block eight times that: ln_blocks(M, C)
+// blocks cover M rows.
+__host__ __device__ inline int ln_lanes(int C) {
+  int l = 1;
+  while (l < 32 && l * 8 < C) l *= 2;
+  return l;
+}
+
+inline int ln_blocks(int M, int C) {
+  const int rows = 8 * (32 / ln_lanes(C));
+  return (M + rows - 1) / rows;
+}
+
+// LN2 of every row into xn2 (the rows rounded once), 16-byte pieces,
+// two-pass fp32 statistics. Up to 768 columns the row's pieces are loaded
+// once into registers (three a lane at most) and the statistics and the
+// output come from there; narrow rows share a warp (two rows of 96 columns,
+// one a half-warp), so that more rows are in flight. Wider rows take one
+// warp a row and read the row three times, from L1 after the first. Rows
+// zero-padded from Cln to C columns (a width off 16, padded by the
+// wrapper): the statistics are the first Cln columns' (the zeros add
+// nothing to the sum, and are left out of the variance), and the padded
+// columns, whose weight and bias are zero, come out zero.
+// (The body of a 256-thread kernel launched over ln_blocks(M, C) blocks,
+// rows of bf16 or, for B3's and B4's res1, fp32.)
 template <typename TX>
 __device__ __forceinline__ void ln_body(const TX* __restrict__ x, const bf16* __restrict__ w,
                                         const bf16* __restrict__ b, bf16* __restrict__ y, int M,
                                         int C, int Cln, float eps) {
-  const long long row = static_cast<long long>(blockIdx.x) * 8 + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31, nc = C >> 3;
-  if (row >= M) return;
-  const TX* xr = x + row * C;
+  const int lanes = ln_lanes(C), nc = C >> 3, lane = threadIdx.x & (lanes - 1);
+  const long long row = (static_cast<long long>(blockIdx.x) * 8 + (threadIdx.x >> 5)) *
+                            (32 / lanes) + ((threadIdx.x & 31) / lanes);
+  const bool live = row < M;
+  const TX* xr = x + (live ? row : 0) * C;
   auto unpack = [](const uint4& u, float (&f)[8]) {
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
@@ -155,6 +176,54 @@ __device__ __forceinline__ void ln_body(const TX* __restrict__ x, const bf16* __
       f[4] = hi.x, f[5] = hi.y, f[6] = hi.z, f[7] = hi.w;
     }
   };
+  // a sum over the row's lanes (xor offsets below `lanes` stay in the group)
+  auto row_sum = [&](float v) {
+    for (int o = lanes >> 1; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    return v;
+  };
+  // piece j normalised, scaled and shifted, rounded to bf16
+  auto store8 = [&](int j, const float (&f)[8], float mean, float rstd) {
+    float wf[8], bf[8];
+    unpack(reinterpret_cast<const uint4*>(w)[j], wf);
+    unpack(reinterpret_cast<const uint4*>(b)[j], bf);
+    uint4 o;
+    uint32_t* op = reinterpret_cast<uint32_t*>(&o);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      op[e] = pack_bf16x2((f[2 * e] - mean) * rstd * wf[2 * e] + bf[2 * e],
+                          (f[2 * e + 1] - mean) * rstd * wf[2 * e + 1] + bf[2 * e + 1]);
+    reinterpret_cast<uint4*>(y + row * C)[j] = o;
+  };
+  if (nc <= 3 * lanes) {
+    float f[3][8], s = 0.f;
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+      const int j = lane + p * lanes;
+      if (live && j < nc) {
+        load8(j, f[p]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) f[p][e] = 0.f;
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) s += f[p][e];
+    }
+    const float mean = row_sum(s) / Cln;
+    float v = 0.f;
+#pragma unroll
+    for (int p = 0; p < 3; ++p)
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (8 * (lane + p * lanes) + e < Cln) v += (f[p][e] - mean) * (f[p][e] - mean);
+    const float rstd = rsqrtf(row_sum(v) / Cln + eps);
+    if (!live) return;
+#pragma unroll
+    for (int p = 0; p < 3; ++p)
+      if (lane + p * lanes < nc) store8(lane + p * lanes, f[p], mean, rstd);
+    return;
+  }
+  // rows above 768 columns: lanes is 32, one warp a row
+  if (!live) return;
   float f[8], s = 0.f;
   for (int j = lane; j < nc; j += 32) {
     load8(j, f);
@@ -170,19 +239,9 @@ __device__ __forceinline__ void ln_body(const TX* __restrict__ x, const bf16* __
       if (8 * j + e < Cln) v += (f[e] - mean) * (f[e] - mean);
   }
   const float rstd = rsqrtf(warp_sum(v) / Cln + eps);
-  uint4* yr = reinterpret_cast<uint4*>(y + row * C);
   for (int j = lane; j < nc; j += 32) {
-    float wf[8], bf[8];
     load8(j, f);
-    unpack(reinterpret_cast<const uint4*>(w)[j], wf);
-    unpack(reinterpret_cast<const uint4*>(b)[j], bf);
-    uint4 o;
-    uint32_t* op = reinterpret_cast<uint32_t*>(&o);
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      op[e] = pack_bf16x2((f[2 * e] - mean) * rstd * wf[2 * e] + bf[2 * e],
-                          (f[2 * e + 1] - mean) * rstd * wf[2 * e + 1] + bf[2 * e + 1]);
-    yr[j] = o;
+    store8(j, f, mean, rstd);
   }
 }
 
@@ -224,13 +283,22 @@ struct GemmArgs {
   const float* dp;    // B7: per-sample factor of the MLP branch
   int L;              // B7: rows per sample
   const float* x32 = nullptr;  // an fp32 identity base (EPI kBaseF32), row stride N
+  const bf16* ln_w = nullptr;  // kLnOut: LN2's weight and bias
+  const bf16* ln_b = nullptr;
+  bf16* xn = nullptr;          // kLnOut: LN2 of the output rows, rounded (M x N)
+  float eps = 0.f;
 };
 
 // fc2's epilogue: out = acc + b2 + (bp or the identity base) rounded to bf16,
-// the base bf16 (K2, B7: kBaseBf16) or fp32 (kBaseF32: B4's identity
-// blocks, whose base res1 is never rounded); or out = acc + b2 + x written
-// in fp32 (kOutF32: B4's res1 = av·Wprojᵀ + bproj + skip)
-enum { kBaseBf16 = 0, kBaseF32 = 1, kOutF32 = 2 };
+// the base bf16 (K2, B7: kBaseBf16) or fp32 (kBaseF32: B3's and B4's
+// identity blocks, whose base res1 is never rounded); or out = acc + b2 + x
+// written in fp32 (kOutF32: B3's and B4's res1 = av·Wprojᵀ + bproj + skip);
+// or out = acc + b2 rounded to bf16 (kBiasOnly: B3's q = LN1(x)·Wqᵀ + bq);
+// or kOutF32's rows normalised in the epilogue (kLnOut: B3's and B4's res1
+// where one output tile holds whole rows, N ≤ BN): xn = LN2(res1) rounded,
+// with two-pass fp32 statistics over the row, and res1 itself written in
+// fp32 only where `out` is given (an identity block's fc2 base)
+enum { kBaseBf16 = 0, kBaseF32 = 1, kOutF32 = 2, kBiasOnly = 3, kLnOut = 4 };
 
 // The shared memory of a GEMM: the ring, the two warpgroups' output tiles,
 // the ring's full / empty barriers and two more (fc1's turns)
@@ -477,28 +545,99 @@ __device__ __forceinline__ void fc2_body(const CUtensorMap& a1map, const CUtenso
       float2 v = make_float2(0.f, 0.f);
       if (r < g.M && c < g.N) {
         if (!TRAIN) v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(g.bias + c));
-        const float2 base =
-            EPI == kBaseF32 ? *reinterpret_cast<const float2*>(g.x32 + r * g.N + c)
-                            : __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-                                  PROJ ? g.bias2 + c : g.x + r * g.N + c));
-        v.x += base.x;
-        v.y += base.y;
+        if constexpr (EPI != kBiasOnly) {
+          const float2 base =
+              EPI == kBaseF32 ? *reinterpret_cast<const float2*>(g.x32 + r * g.N + c)
+                              : __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                                    PROJ ? g.bias2 + c : g.x + r * g.N + c));
+          v.x += base.x;
+          v.y += base.y;
+        }
       }
       return v;
     };
     if constexpr (EPI == kOutF32) {
-      // fp32 rows straight from the fragments (8 bytes a store)
+      // fp32 rows from the fragments, 16 bytes a store: lanes t4 and t4 ^ 1
+      // hold columns 4k .. 4k+3 (k = t4 / 2) of rows r0 and r0 + 8 in halves
+      // and swap one half, so that the even lane writes the four of row r0
+      // and the odd lane those of row r0 + 8, each with its 8-byte bias and
+      // skip pieces (N a multiple of 4, the wrapper's widths are of 16)
+      const bool odd = t4 & 1;
+      const long long r = r0 + (odd ? 8 : 0);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const float2 lo = make_float2(acc[0][4 * j], acc[0][4 * j + 1]),
+                     hi = make_float2(acc[0][4 * j + 2], acc[0][4 * j + 3]);
+        const float2 send = odd ? lo : hi;
+        const float2 got = make_float2(__shfl_xor_sync(0xffffffffu, send.x, 1),
+                                       __shfl_xor_sync(0xffffffffu, send.y, 1));
+        const float4 o = odd ? make_float4(got.x, got.y, hi.x, hi.y)
+                             : make_float4(lo.x, lo.y, got.x, got.y);
+        const int c = n0 + 8 * j + 4 * (t4 >> 1);
+        if (r < g.M && c < g.N) {
+          const uint2 bb = *reinterpret_cast<const uint2*>(g.bias + c);
+          const uint2 xx = *reinterpret_cast<const uint2*>(g.x + r * g.N + c);
+          const float2 b01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&bb.x)),
+                       b23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&bb.y)),
+                       x01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xx.x)),
+                       x23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xx.y));
+          *reinterpret_cast<float4*>(static_cast<float*>(out) + r * g.N + c) =
+              make_float4(o.x + (b01.x + x01.x), o.y + (b01.y + x01.y), o.z + (b23.x + x23.x),
+                          o.w + (b23.y + x23.y));
+        }
+      }
+    } else if constexpr (EPI == kLnOut) {
+      // res1 = acc + bproj + skip in fp32; the tile holds whole rows (n0 is
+      // 0, columns past N are zeros), a row's columns over the quad's lanes
+      float mean[2], rstd[2], sum[2] = {0.f, 0.f};
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const long long r = r0 + 8 * e;
-          const int c = c0 + 8 * j;
           const float2 v = add(j, e);
-          if (r < g.M && c < g.N)
-            *reinterpret_cast<float2*>(static_cast<float*>(out) + r * g.N + c) =
-                make_float2(acc[0][4 * j + 2 * e] + v.x, acc[0][4 * j + 2 * e + 1] + v.y);
+          acc[0][4 * j + 2 * e] += v.x;
+          acc[0][4 * j + 2 * e + 1] += v.y;
+          sum[e] += acc[0][4 * j + 2 * e] + acc[0][4 * j + 2 * e + 1];
         }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float s = sum[e];
+        s += __shfl_xor_sync(0xffffffffu, s, 1);
+        s += __shfl_xor_sync(0xffffffffu, s, 2);
+        mean[e] = s / g.N;
+        float q = 0.f;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+          if (c0 + 8 * j < g.N) {
+            const float d0 = acc[0][4 * j + 2 * e] - mean[e], d1 = acc[0][4 * j + 2 * e + 1] - mean[e];
+            q += d0 * d0 + d1 * d1;
+          }
+        q += __shfl_xor_sync(0xffffffffu, q, 1);
+        q += __shfl_xor_sync(0xffffffffu, q, 2);
+        rstd[e] = rsqrtf(q / g.N + g.eps);
+      }
+      if (out != nullptr) {
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const long long r = r0 + 8 * e;
+            const int c = c0 + 8 * j;
+            if (r < g.M && c < g.N)
+              *reinterpret_cast<float2*>(static_cast<float*>(out) + r * g.N + c) =
+                  make_float2(acc[0][4 * j + 2 * e], acc[0][4 * j + 2 * e + 1]);
+          }
+      }
+      stage_out<BN, 64>(out_s, 1 + wg, g.xn, mw, n0, g.M, g.N, [&](int, int j, int e) {
+        const int c = c0 + 8 * j;
+        float2 w = make_float2(0.f, 0.f), b = w;
+        if (c < g.N) {
+          w = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(g.ln_w + c));
+          b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(g.ln_b + c));
+        }
+        return __floats2bfloat162_rn((acc[0][4 * j + 2 * e] - mean[e]) * rstd[e] * w.x + b.x,
+                                     (acc[0][4 * j + 2 * e + 1] - mean[e]) * rstd[e] * w.y + b.y);
+      });
     } else {
       stage_out<BN, 64>(out_s, 1 + wg, static_cast<bf16*>(out), mw, n0, g.M, g.N,
                         [&](int, int j, int e) {
@@ -628,7 +767,7 @@ cudaError_t launch_bf16(const TailArgs& a, bf16* xn2, bf16* gbuf, cudaStream_t s
   if (xn2 == nullptr || gbuf == nullptr || a.C % 16 || a.H % 16 || a.Cout % 16 ||
       a.Cln > a.C || a.Cln < 1)
     return cudaErrorInvalidValue;
-  tail_ln_kernel<TRAIN><<<(a.M + 7) / 8, 256, 0, stream>>>(
+  tail_ln_kernel<TRAIN><<<ln_blocks(a.M, a.C), 256, 0, stream>>>(
       static_cast<const bf16*>(a.x), static_cast<const bf16*>(a.ln_w),
       static_cast<const bf16*>(a.ln_b), xn2, a.M, a.C, a.Cln, a.eps);
   cudaError_t e = cudaGetLastError();

@@ -26,10 +26,13 @@
 //    tokens a block, three blocks an SM, into a bf16 scratch q;
 //  * the attention (pool_attn_kernel): K1's wgmma body over the 1024 pooled
 //    keys, q from that scratch, av token-major into a second one;
-//  * the back, K2's split tail (mlp_tail.cuh) behind a proj GEMM:
+//  * the back, K2's split tail (mlp_tail.cuh) behind a proj GEMM, launched
+//    by split_back.cuh (which B3 shares):
 //    res1 = av·Wprojᵀ + bproj + skip (pool_proj_kernel, fc2's body with an
-//    fp32 output: res1 is never rounded), LN2 of the fp32 rows
-//    (pool_ln_kernel) into xn2, G = GELU(xn2·W1ᵀ + b1) (pool_fc1_kernel),
+//    fp32 output: res1 is never rounded), LN2 of the fp32 rows into xn2
+//    (in the proj GEMM's epilogue at v1 and a1, where a 192-wide output tile
+//    holds whole rows; pool_ln_kernel at v3 and a2), G = GELU(xn2·W1ᵀ + b1)
+//    (pool_fc1_kernel),
 //    out = G·W2ᵀ [+ xn2·Wpᵀ] + b2 + (bp at a1/a2, res1 at v1/v3)
 //    (pool_fc2_kernel). Each GEMM is persistent on wgmma with a producer
 //    warp feeding a TMA ring, and fc1 runs once per row.
@@ -41,11 +44,12 @@
 //    cost more than the split's extra round trips of res1, xn2 and G (at
 //    v1, one output pass, it was 0.05 ms faster).
 // The fine Q, the probabilities and the hidden's fp32 sums never reach
-// device memory; q, av, res1 (fp32), xn2 and G do, once each. The skip
+// device memory; q, av, res1 (fp32; not at a1, whose fc2 base is bp), xn2
+// and G do, once each. The skip
 // arrives pre-pooled, so MaxPool's -inf padding stays outside. Widths
 // outside these instances keep the first design's body (fused_block.cuh),
 // chosen before the launch.
-#include "mlp_tail.cuh"
+#include "split_back.cuh"
 #include "split_block.cuh"
 
 using csts::fb::Args;
@@ -74,12 +78,13 @@ __global__ void __launch_bounds__(csts::attn::WgPlan<HD, 2>::kThreads, 1)
   csts::attn::attn_wg_body<HD, 2, false>(qmap, kmap, vmap, a);
 }
 
-// res1 = av·Wprojᵀ + bproj + skip, fp32 (mlp_tail.cuh fc2_body, kOutF32)
-template <int BN>
+// res1 = av·Wprojᵀ + bproj + skip, fp32 (mlp_tail.cuh fc2_body, kOutF32), or
+// with LN2 in the epilogue where a tile holds whole rows (kLnOut: v1, a1)
+template <int BN, int EPI>
 __global__ void __launch_bounds__(kGemmThreads, 1)
     pool_proj_kernel(const __grid_constant__ CUtensorMap a1map,
                      const __grid_constant__ CUtensorMap b1map, float* out, GemmArgs g) {
-  fc2_body<false, false, BN, kOutF32>(a1map, b1map, a1map, b1map, out, g);
+  fc2_body<false, false, BN, EPI>(a1map, b1map, a1map, b1map, out, g);
 }
 
 // LN2 of res1's fp32 rows into xn2 (mlp_tail.cuh ln_body)
@@ -109,81 +114,17 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
   fc2_body<false, PROJ, BN, PROJ ? kBaseBf16 : kBaseF32>(a1map, b1map, a2map, b2map, out, g);
 }
 
-// the GEMMs' output tile widths: K2's choice (pick_bn) between 192 and 128
-// columns, the widths that fill the card at these sites' 8192-32768 rows
-constexpr int kWidths[2] = {192, 128};
-
-template <int BN>
-cudaError_t launch_proj(const bf16* av, const void* wproj, float* res1, const GemmArgs& g,
-                        cudaStream_t stream) {
-  using P = GemmPlan<128, BN, 64>;
-  static bool attr = false;
-  cudaError_t e = set_smem(pool_proj_kernel<BN>, P::kSmem, attr);
-  if (e != cudaSuccess) return e;
-  CUtensorMap am, bm;
-  if (!map2d(&am, av, g.M, g.K1, 128) || !map2d(&bm, wproj, g.N, g.K1, BN))
-    return cudaErrorInvalidValue;
-  const int tiles = (g.M + 127) / 128 * ((g.N + BN - 1) / BN);
-  pool_proj_kernel<BN><<<grid_for(tiles), kGemmThreads, P::kSmem, stream>>>(am, bm, res1, g);
-  return cudaGetLastError();
-}
-
-template <bool PROJ, int BN>
-cudaError_t launch_fc2_pool(const bf16* gbuf, const void* w2, const bf16* xn2, const void* wp,
-                            void* out, const GemmArgs& g, cudaStream_t stream) {
-  using P = GemmPlan<128, BN, 64>;
-  static bool attr = false;
-  cudaError_t e = set_smem(pool_fc2_kernel<PROJ, BN>, P::kSmem, attr);
-  if (e != cudaSuccess) return e;
-  CUtensorMap a1, b1, a2, b2;
-  if (!map2d(&a1, gbuf, g.M, g.K1, 128) || !map2d(&b1, w2, g.N, g.K1, BN))
-    return cudaErrorInvalidValue;
-  if (PROJ) {
-    if (!map2d(&a2, xn2, g.M, g.K2, 128) || !map2d(&b2, wp, g.N, g.K2, BN))
-      return cudaErrorInvalidValue;
-  } else {
-    a2 = a1;
-    b2 = b1;
-  }
-  const int tiles = (g.M + 127) / 128 * ((g.N + BN - 1) / BN);
-  pool_fc2_kernel<PROJ, BN><<<grid_for(tiles), kGemmThreads, P::kSmem, stream>>>(
-      a1, b1, a2, b2, static_cast<bf16*>(out), g);
-  return cudaGetLastError();
-}
-
-// The back: the proj GEMM into res1 (fp32), LN2 into xn2, fc1 + GELU into
-// G, fc2 (+ the dim-change proj) into out.
-template <bool PROJ>
-cudaError_t launch_back(const Args& a, int B, const bf16* av, float* res1, bf16* xn2,
-                        bf16* gbuf, cudaStream_t s) {
-  const int M = B * a.L;
-  GemmArgs gp{M, a.C, a.C, 0, static_cast<const bf16*>(a.bproj), nullptr,
-              static_cast<const bf16*>(a.skip), nullptr, 1};
-  cudaError_t e = pick_bn(M, a.C, kWidths) == 192 ? launch_proj<192>(av, a.wproj, res1, gp, s)
-                                                  : launch_proj<128>(av, a.wproj, res1, gp, s);
-  if (e != cudaSuccess) return e;
-  pool_ln_kernel<<<(M + 7) / 8, 256, 0, s>>>(res1, static_cast<const bf16*>(a.ln2_w),
-                                             static_cast<const bf16*>(a.ln2_b), xn2, M, a.C,
-                                             csts::fb::kLnEps);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  {
-    using P = GemmPlan<128, 64, 128>;
-    static bool attr = false;
-    if ((e = set_smem(pool_fc1_kernel<64>, P::kSmem, attr)) != cudaSuccess) return e;
-    CUtensorMap am, bm;
-    if (!map2d(&am, xn2, M, a.C, 128) || !map2d(&bm, a.w1, a.H, a.C, 64))
-      return cudaErrorInvalidValue;
-    GemmArgs g1{M, a.H, a.C, 0, static_cast<const bf16*>(a.b1), nullptr, nullptr, nullptr, 1};
-    const int tiles = (M + 127) / 128 * ((a.H + 63) / 64);
-    pool_fc1_kernel<64><<<grid_for(tiles), kGemmThreads, P::kSmem, s>>>(am, bm, gbuf, g1);
-    if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  }
-  GemmArgs g2{M, a.Cout, a.H, PROJ ? a.C : 0, static_cast<const bf16*>(a.b2),
-              static_cast<const bf16*>(a.bp), nullptr, nullptr, 1, res1};
-  return pick_bn(M, a.Cout, kWidths) == 192
-             ? launch_fc2_pool<PROJ, 192>(gbuf, a.w2, xn2, a.wp, a.out, g2, s)
-             : launch_fc2_pool<PROJ, 128>(gbuf, a.w2, xn2, a.wp, a.out, g2, s);
-}
+// the back's kernels (split_back.cuh); output tiles of 192 or 128 columns,
+// the widths that fill the card at these sites' 8192-32768 rows
+struct PoolBack {
+  static constexpr bool kNarrow = false;
+  template <int BN, int EPI>
+  static auto proj() { return pool_proj_kernel<BN, EPI>; }
+  static auto ln() { return pool_ln_kernel; }
+  static auto fc1() { return pool_fc1_kernel<64>; }
+  template <bool PROJ, int BN>
+  static auto fc2() { return pool_fc2_kernel<PROJ, BN>; }
+};
 
 // the first design's body (one launch): its instances and, for any other
 // width, the widest instance of its row split
@@ -206,13 +147,15 @@ int launch_bf16(const Args& a, int B, bf16* qf, bf16* av, float* res1, bf16* gbu
              v3 = a.C == 384 && a.Cout == 384, a2 = a.C == 384 && a.Cout == 768;
   if (a.hd != 96 || !(v1 || a1 || v3 || a2) || a.H % 128 || (a.wp != nullptr) != (a1 || a2))
     return launch_first_design(a, B, s);
+  if (qf == nullptr || av == nullptr || res1 == nullptr || gbuf == nullptr)
+    return cudaErrorInvalidValue;
   static size_t conv_attr = 0;
   static bool attn_set = false;
   cudaError_t e = launch_front<96>(pool_conv_kernel, conv_attr, pool_attn_kernel<96>, attn_set,
                                    a, B, qf, av, s);
   if (e != cudaSuccess) return e;
-  return a1 || a2 ? launch_back<true>(a, B, av, res1, qf, gbuf, s)
-                  : launch_back<false>(a, B, av, res1, qf, gbuf, s);
+  return a1 || a2 ? back::launch_back<PoolBack, true>(a, B, av, a.skip, res1, qf, gbuf, s)
+                  : back::launch_back<PoolBack, false>(a, B, av, a.skip, res1, qf, gbuf, s);
 }
 
 }  // namespace
@@ -220,7 +163,7 @@ int launch_bf16(const Args& a, int B, bf16* qf, bf16* av, float* res1, bf16* gbu
 // The shared whole-block signature (fused_block.cuh) plus the split's four
 // scratch buffers: q (B x (L + 64) x C; the attention's q, then xn2), av
 // (B·L x C) and G (B·L x H), in the activation dtype, and res1 (B·L x C
-// fp32), all unused by the fp32 body and by the first design.
+// fp32), all unused (and null) in the fp32 body and the first design.
 extern "C" int csts_fused_pool_block(
     int dtype, const void* x, const void* q, const void* skip, const void* k, const void* v,
     const void* ln1_w, const void* ln1_b, const void* wq, const void* bq, const void* wconv,
@@ -234,9 +177,7 @@ extern "C" int csts_fused_pool_block(
          N,    hd,    Lk,   T,  Hh, W,     Ts,    Hs, Ws,  st,   sh,  sw,   scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == csts::kFloat32) return csts::fb::launch_f32<kPool>(a, B, s);
-  if (dtype != csts::kBFloat16 || qf == nullptr || av == nullptr || res1 == nullptr ||
-      gbuf == nullptr)
-    return cudaErrorInvalidValue;
+  if (dtype != csts::kBFloat16) return cudaErrorInvalidValue;
   return launch_bf16(a, B, static_cast<bf16*>(qf), static_cast<bf16*>(av),
                      static_cast<float*>(res1), static_cast<bf16*>(gbuf), s);
 }

@@ -384,10 +384,26 @@ inline int sm_count() {
   return sms;
 }
 
+// The attention (`attn`, an instance calling attn_wg_body<HD, 2, false>)
+// from q (B clips of q_rows rows of C columns, head h at columns h·hd) into
+// av (B·L x C, token-major), the K/V pooled per head; attn_attr: the
+// caller's once-per-instance flag for the shared-memory attribute. One wave
+// of blocks, each walking its share of the (batch, head)'s query tiles.
+template <int HD, typename AttnKernel>
+cudaError_t launch_attention(AttnKernel attn, bool& attn_attr, const Args& a, int B,
+                             const bf16* q, long long q_rows, bf16* av, cudaStream_t stream) {
+  const int qtiles = (a.L + 127) / 128, tpb = (qtiles * B * a.N + sm_count() - 1) / sm_count();
+  const long long C = a.C, hd = a.hd, kv = (long long)a.Lk * hd;
+  csts::attn::AttnArgs at{q, a.k, a.v, nullptr, 0, av, nullptr, nullptr, nullptr, a.N, a.L,
+                          a.Lk, a.hd, 1, tpb, q_rows * C, hd, C, a.N * kv, kv, hd, a.N * kv, kv,
+                          hd, a.L * C, hd, C, a.scale};
+  return csts::attn::launch_attn<HD, 2>(attn, attn_attr, at, B, stream);
+}
+
 // The Q conv (`conv`, an instance calling conv_body<MODE>), then the
-// attention (`attn`, an instance calling attn_wg_body<HD, 2, false>) from
-// its scratch qf into av. conv_attr / attn_attr: the caller's flags for the
-// shared-memory attribute (the largest conv size set so far; once for attn).
+// attention (launch_attention) from its scratch qf into av. conv_attr /
+// attn_attr: the caller's flags for the shared-memory attribute (the
+// largest conv size set so far; once for attn).
 template <int HD, typename ConvKernel, typename AttnKernel>
 cudaError_t launch_front(ConvKernel conv, size_t& conv_attr, AttnKernel attn, bool& attn_attr,
                          const Args& a, int B, bf16* qf, bf16* av, cudaStream_t stream) {
@@ -402,13 +418,7 @@ cudaError_t launch_front(ConvKernel conv, size_t& conv_attr, AttnKernel attn, bo
   conv<<<dim3(lpad / rows, B), kThreads, smem, stream>>>(a, qf, lpad);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  // one wave of blocks, each walking its share of the (batch, head)'s query tiles
-  const int qtiles = (a.L + 127) / 128, tpb = (qtiles * B * a.N + sm_count() - 1) / sm_count();
-  const long long C = a.C, hd = a.hd, kv = (long long)a.Lk * hd;
-  csts::attn::AttnArgs at{qf, a.k, a.v, nullptr, 0, av, nullptr, nullptr, nullptr, a.N, a.L,
-                          a.Lk, a.hd, 1, tpb, lpad * C, hd, C, a.N * kv, kv, hd, a.N * kv, kv,
-                          hd, a.L * C, hd, C, a.scale};
-  return csts::attn::launch_attn<HD, 2>(attn, attn_attr, at, B, stream);
+  return launch_attention<HD>(attn, attn_attr, a, B, qf, lpad, av, stream);
 }
 
 // The back (`kern`, an instance calling tail_body<C, COUT, ...>) over the

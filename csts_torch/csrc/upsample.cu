@@ -13,9 +13,20 @@
 //
 // Bound on the H100: pure data movement, read x once (B·T·S elements) and
 // write the output once (2·B·T·S), at 3.35 TB/s; ~3 operations per output.
-// Design: one thread per output element over the flattened (B, 2T, S) grid,
-// S = H·W·C contiguous, so neighbouring threads read and write neighbouring
-// addresses; the two source planes of an output plane are re-read from L2.
+// The first design (one thread an output element over a grid-stride loop,
+// scalar 2-byte loads and stores, a 64-bit division and remainder per
+// element, each input plane read twice) ran at a quarter of that bound,
+// paced by its instructions. The redesign is a sliding window over T: one
+// thread owns one 16-byte piece of S = H·W·C of one clip and walks its
+// planes m = 0 .. T-1 in order, holding x[m-1], x[m] and x[m+1] in
+// registers, so each input piece is loaded once and each output piece
+// (out[2m], out[2m+1]) stored once, with 16-byte accesses and no division
+// in the loop (the grid's y is the clip). Neighbouring threads own
+// neighbouring pieces, so every load and store of a warp is contiguous.
+// Where S·sizeof(T) or a pointer is not a multiple of 16 bytes, the same
+// body runs one element a thread. The products and the sum round on their
+// own (as B9a's tap2, no fused multiply-add), as the plain version and the
+// JAX kernel compute them, so the outputs agree bit for bit.
 //
 // B9a (csts_hw2_upsample): x2 along H, then x2 along W (the stride-(1,2,2)
 // decoder skips of d2 and d3 when HW2_SKIP_KERNEL is set), each pass the
@@ -48,47 +59,6 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    t2_upsample_kernel(const T* __restrict__ x, T* __restrict__ out, int Tc, long long S,
-                       long long total) {
-  const long long stride = (long long)gridDim.x * kThreads;
-  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < total; i += stride) {
-    const long long s = i % S, bt = i / S;
-    const int t = static_cast<int>(bt % (2 * Tc));
-    const long long b = bt / (2 * Tc);
-    const int m = t >> 1;
-    int lo, hi;
-    float w_hi;
-    if (t & 1) {
-      lo = m;
-      hi = min(m + 1, Tc - 1);
-      w_hi = 0.25f;
-    } else {
-      lo = max(m - 1, 0);
-      hi = m;
-      w_hi = 0.75f;
-    }
-    const T* xb = x + b * Tc * S + s;
-    if (lo == hi) {
-      out[i] = xb[lo * S];
-    } else {
-      out[i] = from_f32<T>(to_f32(xb[lo * S]) * (1.f - w_hi) + to_f32(xb[hi * S]) * w_hi);
-    }
-  }
-}
-
-template <typename T>
-cudaError_t launch(const void* x, void* out, int B, int Tc, long long S, cudaStream_t stream) {
-  const long long total = (long long)B * 2 * Tc * S;
-  if (total == 0) return cudaSuccess;
-  long long blocks = (total + kThreads - 1) / kThreads;
-  if (blocks > 132LL * 64) blocks = 132LL * 64;
-  t2_upsample_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(out), Tc, S, total);
-  return cudaGetLastError();
-}
-
 // VEC consecutive channels, moved as one piece (16 bytes when VEC·sizeof(T) is)
 template <typename T, int VEC>
 struct alignas(sizeof(T) * VEC) Pack {
@@ -99,6 +69,57 @@ struct alignas(sizeof(T) * VEC) Pack {
 // and the sum rounded on their own
 __device__ __forceinline__ float tap2(float a, float b, float wa, float wb) {
   return __fadd_rn(__fmul_rn(wa, a), __fmul_rn(wb, b));
+}
+
+// K3: one thread a VEC-element piece p of S for clip blockIdx.y, walking
+// the clip's T planes with the window (prev, cur, next) in registers
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads)
+    t2_upsample_kernel(const T* __restrict__ x, T* __restrict__ out, int Tc, long long S) {
+  using P = Pack<T, VEC>;
+  const long long p = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (p * VEC >= S) return;
+  const P* src = reinterpret_cast<const P*>(x + (long long)blockIdx.y * Tc * S) + p;
+  P* dst = reinterpret_cast<P*>(out + (long long)blockIdx.y * 2 * Tc * S) + p;
+  const long long plane = S / VEC;  // pieces a plane
+  P cur = src[0], prev = cur;
+  for (int m = 0; m < Tc; ++m) {
+    const P nxt = m + 1 < Tc ? src[(m + 1) * plane] : cur;
+    P even, odd;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      const float c = to_f32(cur.v[e]);
+      // the clamped edge planes are copies: out[0] = x[0], out[2T-1] = x[T-1]
+      even.v[e] = m == 0 ? cur.v[e] : from_f32<T>(tap2(to_f32(prev.v[e]), c, 0.25f, 0.75f));
+      odd.v[e] = m + 1 == Tc ? cur.v[e] : from_f32<T>(tap2(c, to_f32(nxt.v[e]), 0.75f, 0.25f));
+    }
+    dst[2 * m * plane] = even;
+    dst[(2 * m + 1) * plane] = odd;
+    prev = cur;
+    cur = nxt;
+  }
+}
+
+template <typename T, int VEC>
+cudaError_t launch_t2(const void* x, void* out, int B, int Tc, long long S,
+                      cudaStream_t stream) {
+  const long long blocks = (S / VEC + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffLL || B > 65535) return cudaErrorInvalidValue;
+  t2_upsample_kernel<T, VEC><<<dim3(static_cast<unsigned>(blocks), B), kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(out), Tc, S);
+  return cudaGetLastError();
+}
+
+// 16 bytes of S a thread where S and both pointers allow it, else one
+// element a thread
+template <typename T>
+cudaError_t launch(const void* x, void* out, int B, int Tc, long long S, cudaStream_t stream) {
+  if ((long long)B * Tc * S == 0) return cudaSuccess;
+  constexpr int kVec = 16 / sizeof(T);
+  const bool wide = S % kVec == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  return wide ? launch_t2<T, kVec>(x, out, B, Tc, S, stream)
+              : launch_t2<T, 1>(x, out, B, Tc, S, stream);
 }
 
 template <typename T, int VEC>

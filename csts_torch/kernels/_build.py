@@ -63,9 +63,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
 # dtype, 22 input pointers and the output, q's row stride, 17 sizes, scale, stream
 _FUSED_BLOCK_ARGS = [_I] + [_P] * 23 + [_LL] + [_I] * 17 + [_F, _P]
 SIGNATURES.update({
-    "block": {"csts_fused_block": _FUSED_BLOCK_ARGS},
-    # B4 and B5 also take their split's scratch buffers after the output: q,
-    # av and res1, and B4 the hidden G
+    # B3, B4 and B5 also take their split's scratch buffers after the output:
+    # q, av and res1, and B3 and B4 the hidden G
+    "block": {"csts_fused_block": [_I] + [_P] * 27 + _FUSED_BLOCK_ARGS[24:]},
     "pool_block": {"csts_fused_pool_block": [_I] + [_P] * 27 + _FUSED_BLOCK_ARGS[24:]},
     "decoder_block": {"csts_fused_decoder_block": [_I] + [_P] * 26 + _FUSED_BLOCK_ARGS[24:]},
 })

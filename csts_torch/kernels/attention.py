@@ -10,11 +10,16 @@ an exact FMA body) and :func:`fused_attention_bwd` the one in
 ``csrc/attention_bwd.cu``; on a CPU tensor each runs its ``*_plain`` twin,
 the same function in plain PyTorch. There is no other route.
 :func:`fused_attention_split_plain` is the plain model of the key split and
-its merge. Both wrappers take any head dim up to 384, as the JAX kernels do:
-one the bf16 bodies are not compiled for runs zero-padded to the next that
-is (:func:`kernel_head_dim`, :func:`pad_head_dim`; exact); above 192 the
-bf16 bodies split the output columns over blocks (:func:`column_blocks`),
-and only a bf16 head dim above 384 raises.
+its merge. Both wrappers take any head dim, as the JAX kernels do. Which
+body a call takes is a function of (head dim, dtype) alone, chosen before
+the launch (:func:`kernel_head_dim`, :func:`streamed`): bf16 head dims up to
+384 run the wgmma bodies at the next compiled head dim, zero-padded to it
+(:func:`pad_head_dim`; exact), with the output columns split over blocks
+above 192 (:func:`column_blocks`); fp32 at any head dim, and bf16 above 384,
+run the streamed bodies, which sum the logits over 64-column steps of the
+head dim and cut the rows a block takes until its accumulators fit
+(:func:`fused_attention_streamed_plain` and
+:func:`fused_attention_bwd_streamed_plain` are their plain models).
 
 Training goes through :func:`attention_train` (the autograd Function
 :class:`FusedAttention`): unmasked sites run K1 forward, which then also
@@ -35,24 +40,29 @@ import torch.nn.functional as F
 from csts_torch.kernels import _build
 
 
-# head dims the bf16 bodies are compiled for (the flagship uses 96, and 192 at d2)
+# head dims the bf16 wgmma bodies are compiled for (the flagship uses 96, and 192 at d2)
 HEAD_DIMS = (64, 96, 128, 192, 256, 384)
+# head-dim columns a step of the streamed bodies (csrc/attention.cu, attention_bwd.cu)
+STREAM_COLS = 64
+
+
+def streamed(hd: int, dtype: torch.dtype) -> bool:
+    """Whether a call at head dim ``hd`` runs the streamed bodies
+    (``attn_streamed_kernel``, ``dq_streamed_kernel``, ``dkdv_streamed_kernel``):
+    every fp32 call, and bf16 above the largest wgmma instance (384), where
+    whole-head-dim Q and K tiles no longer fit a block's shared memory."""
+    return dtype != torch.bfloat16 or hd > HEAD_DIMS[-1]
 
 
 def kernel_head_dim(hd: int, dtype: torch.dtype) -> int:
     """The head dim a call of K1 or B8 runs at: the inputs' last axis is
     zero-padded to it and the outputs sliced back (see :func:`pad_head_dim`).
-    bf16: the next compiled head dim (16 and 32 run at 64, 112 at 128, 200
-    at 256); above 384 no instance holds a head, and the call raises. fp32:
-    the exact FMA bodies take any head dim their shared memory holds (B8's
-    needs it even), so an odd one gains one column; a head dim that does not
-    fit makes the launch fail (K1 above 280)."""
-    if dtype == torch.bfloat16:
-        for d in HEAD_DIMS:
-            if hd <= d:
-                return d
-        raise ValueError(f"attention: head dim {hd} is above the largest compiled one "
-                         f"({HEAD_DIMS[-1]})")
+    bf16 up to 384: the next compiled head dim of the wgmma bodies (16 and
+    32 run at 64, 112 at 128, 200 at 256). The streamed bodies (fp32, and
+    bf16 above 384, see :func:`streamed`) take any head dim (B8's needs it
+    even), so an odd one gains one column."""
+    if not streamed(hd, dtype):
+        return next(d for d in HEAD_DIMS if hd <= d)
     return hd + hd % 2
 
 
@@ -64,7 +74,10 @@ def column_blocks(hd: int) -> Tuple[int, int, int]:
     D fp32 accumulator is D/2 of a thread's): K1 up to 192 columns, then
     128 a block; the dq pass up to 192, then 128; the dk/dv pass's two
     accumulators 96 each (64 at 128 and 256). Each block recomputes the
-    logits over the whole head dim."""
+    logits over the whole head dim. The streamed bodies (bf16 above 384)
+    keep every column in one block: (1, 1, 1)."""
+    if hd > HEAD_DIMS[-1]:
+        return 1, 1, 1
     k1 = dq = 1 if hd <= 192 else hd // 128
     dkv = hd // (hd if hd in (64, 96) else 96 if hd in (192, 384) else 64)
     return k1, dq, dkv
@@ -251,9 +264,11 @@ def fused_attention(
     fused qkv projection pass without a copy; unaligned rows are copied);
     mask: additive (Lq, Lk), broadcast over batch and heads. Returns
     (B, N, Lq, hd); on CUDA it is a view of a token-major (B, Lq, N·hd)
-    buffer, so merging the heads afterwards is free (at a head dim the bf16
-    body is compiled for; any other up to 192 runs padded, see
-    :func:`kernel_head_dim`).
+    buffer, so merging the heads afterwards is free. Which body a head dim
+    takes: bf16 up to 384 the wgmma body at the next compiled head dim
+    (zero-padded; the output columns split over blocks above 192), bf16
+    above 384 and fp32 at any head dim the streamed body (see
+    :func:`kernel_head_dim`, :func:`streamed`).
     """
     if q.device.type == "cpu":
         return fused_attention_plain(q, k, v, scale, mask)
@@ -343,6 +358,70 @@ def fused_attention_bwd_columns_plain(
     return tuple(t[..., :hd].to(dt) for t in (dq, dk, dv))
 
 
+def _streamed_logits(q32: torch.Tensor, k32: torch.Tensor) -> torch.Tensor:
+    """q kᵀ summed over :data:`STREAM_COLS`-column steps of the head dim, in
+    step order (the streamed bodies carry one FMA chain across the steps;
+    here each step is a matmul added in turn: the same sum, another order)."""
+    s = None
+    for d0 in range(0, q32.shape[-1], STREAM_COLS):
+        part = torch.matmul(q32[..., d0:d0 + STREAM_COLS],
+                            k32[..., d0:d0 + STREAM_COLS].transpose(-1, -2))
+        s = part if s is None else s + part
+    return s
+
+
+def fused_attention_streamed_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain model of K1's streamed body (``csrc/attention.cu``
+    ``attn_streamed_kernel``): per 64-key chunk the logits summed over
+    64-column steps of the head dim, times scale (+ mask), an online softmax
+    in fp32 (m, l), the probabilities rounded to v's dtype unnormalised
+    before o += p·v (l sums the unrounded ones), out = o / l rounded once.
+    In fp32 nothing is rounded but the output."""
+    dt = v.dtype
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    lead = q.shape[:-1]
+    m = torch.full((*lead, 1), -float("inf"))
+    l = torch.zeros((*lead, 1))
+    o = torch.zeros((*lead, v.shape[-1]))
+    for c0 in range(0, k.shape[2], KEY_CHUNK):
+        s = _streamed_logits(q32, k32[..., c0:c0 + KEY_CHUNK, :]) * scale
+        if mask is not None:
+            s = s + mask[:, c0:c0 + KEY_CHUNK].float()
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha, p = torch.exp(m - m_new), torch.exp(s - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        o = o * alpha + torch.matmul(p.to(dt).float(), v32[..., c0:c0 + KEY_CHUNK, :])
+        m = m_new
+    return (o / l).to(dt)
+
+
+def fused_attention_bwd_streamed_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, g: torch.Tensor,
+    scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain model of B8's streamed bodies (``csrc/attention_bwd.cu``
+    ``dq_streamed_kernel``, ``dkdv_streamed_kernel``): the logits q kᵀ and
+    dP = g vᵀ summed over 64-column steps of the head dim, p = exp(logits·
+    scale − lse) with lse the rows' log-sum-exp, delta = rowsum(g·out), dl =
+    p·(dP − delta); p and dl rounded to q's dtype before dv = pᵀ g, dq = dl k
+    · scale and dk = dlᵀ q · scale, each accumulated in fp32 and rounded
+    once. The rounding points are :func:`fused_attention_bwd_plain`'s."""
+    dt = q.dtype
+    q32, k32, v32, g32 = q.float(), k.float(), v.float(), g.float()
+    s = _streamed_logits(q32, k32) * scale
+    p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
+    delta = (g32 * out.float()).sum(dim=-1, keepdim=True)
+    dl = (p * (_streamed_logits(g32, v32) - delta)).to(dt).float()
+    p = p.to(dt).float()
+    dq = torch.matmul(dl, k32) * scale
+    dk = torch.matmul(dl.transpose(-1, -2), q32) * scale
+    dv = torch.matmul(p.transpose(-1, -2), g32)
+    return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
 def bwd_max_chunks(sms: int, bn: int, lq: int, lk: int, col_blocks: int) -> int:
     """Query chunks of B8's dk/dv pass: about two blocks per SM (blocks are
     64 keys x a chunk x batch·head x ``col_blocks``, the bf16 body's column
@@ -363,7 +442,10 @@ def fused_attention_bwd(
     columns; lse: K1's fp32 (B·N, Lq) log-sum-exp rows, required on CUDA.
     dq is a view of a token-major (B, Lq, N·hd) buffer, dk and dv are
     contiguous, all in q's dtype (views of the padded ones where the head dim
-    runs padded, see :func:`kernel_head_dim`).
+    runs padded). Which body a head dim takes: bf16 up to 384 the wgmma
+    passes at the next compiled head dim (the output columns split over
+    blocks from 128 on), bf16 above 384 and fp32 at any head dim the
+    streamed passes (see :func:`kernel_head_dim`, :func:`streamed`).
     """
     if q.device.type == "cpu":
         return fused_attention_bwd_plain(q, k, v, out, g, scale, lse)

@@ -10,7 +10,9 @@
   package's is XLA outside any kernel), and :func:`mlp_tail_train` puts the
   two behind one autograd Function.
 * B3 :func:`fused_block` (``_block_kernel``): a whole identity-skip block
-  from x and the pooled K/V; ``csrc/block.cu``. At 3-8 heads the same
+  from x and the pooled K/V; ``csrc/block.cu`` (a Q GEMM on the caller's
+  LN1 rows, K1's body and B4's back; :func:`fused_block_split_plain` is the
+  plain model of that split). At 3-8 heads the same
   kernel is B9b/B9c, the JAX package's head-grid (``_block_hg_kernel``) and
   block-diagonal (``_block_bd_kernel``) variants: one kernel for any head
   count, so the port has no ``variant`` argument.
@@ -421,9 +423,15 @@ def _attend_plain(q, k, v, scale, skip32, wproj, bproj, *tail):
     return _tail_plain(res1, dt, *tail)
 
 
-def fused_block_plain(x, k, v, scale, ln1_w, ln1_b, wq, bq, wproj, bproj, *tail):
-    """B3 in plain PyTorch. x: (B, L, C); k, v: (B, N, Lk, hd) pooled;
-    wq, bq: the Q rows of the qkv projection. Returns (B, L, dim_out)."""
+def fused_block_plain(x, k, v, scale, ln1_w, ln1_b, wq, bq, wproj, bproj, ln2_w, ln2_b,
+                      fc1_w, fc1_b, fc2_w, fc2_b, proj_w=None, proj_b=None, xn=None):
+    """B3 in plain PyTorch: the TPU kernel's function, LN1 included. x:
+    (B, L, C); k, v: (B, N, Lk, hd) pooled; wq, bq: the Q rows of the qkv
+    projection. LN1 is computed here from x in fp32, so that the twin also
+    holds the LN1 rows the kernel is given. ``xn`` is taken, and not read,
+    only so that the twin can stand in the kernel's place in the block's
+    call (``chip_smoke.py``'s reference run). Returns (B, L, dim_out)."""
+    tail = (ln2_w, ln2_b, fc1_w, fc1_b, fc2_w, fc2_b, proj_w, proj_b)
     dt = x.dtype
     b, l, c = x.shape
     n, hd = k.shape[1], k.shape[3]
@@ -457,26 +465,16 @@ def fused_pool_block_plain(q, thw, skip, k, v, scale, wconv, nq_w, nq_b, wproj, 
     return _attend_plain(qh, k, v, scale, skip.float(), wproj, bproj, *tail)
 
 
-def fused_pool_block_split_plain(q, thw, skip, k, v, scale, wconv, nq_w, nq_b, wproj, bproj,
-                                 ln2_w, ln2_b, fc1_w, fc1_b, fc2_w, fc2_b, proj_w=None,
-                                 proj_b=None):
-    """Plain model of B4's split bf16 body (``csrc/pool_block.cu``), launch by
-    launch: the Q conv and norm_q in fp32, q rounded per head (the conv's
-    scratch); K1's attention with the probabilities rounded unnormalised
-    (:func:`~csts_torch.kernels.attention.fused_attention_split_plain` at one
-    split) and av rounded once (the attention's scratch); the proj GEMM's
-    res1 = av·Wprojᵀ + bproj + skip in fp32 (never rounded); LN2 of res1
-    rounded (xn2), G = GELU(xn2·W1ᵀ + b1) rounded; fc2's out = G·W2ᵀ
-    [+ xn2·Wpᵀ] + b2 + (bp or res1), rounded once. Arguments as
-    :func:`fused_pool_block`."""
-    from csts_torch.kernels.attention import fused_attention_split_plain
-
-    dt = q.dtype
-    qh = _q_conv_plain(q, thw, (1, 2, 2), wconv, nq_w, nq_b, k.shape[1], False)
-    b, n, lq, hd = qh.shape
-    av = fused_attention_split_plain(qh, k, v, scale, 1).float()
-    av = av.transpose(1, 2).reshape(b, lq, n * hd)
-    res1 = skip.float() + torch.matmul(av, wproj.float().t()) + bproj.float()
+def _split_back_plain(av, skip32, dt, wproj, bproj, ln2_w, ln2_b, fc1_w, fc1_b, fc2_w, fc2_b,
+                      proj_w=None, proj_b=None):
+    """Plain model of the split back (``csrc/split_back.cuh``, B3's and B4's)
+    from av (rounded, fp32 values) and the fp32 skip: the proj GEMM's res1 =
+    av·Wprojᵀ + bproj + skip in fp32 (never rounded); LN2 of res1 rounded
+    (xn2; the kernels compute it in the proj GEMM's epilogue where one output
+    tile holds whole rows, the same values), G = GELU(xn2·W1ᵀ + b1) rounded;
+    fc2's out = G·W2ᵀ [+ xn2·Wpᵀ] + b2 + (bp or res1), rounded once to
+    ``dt``."""
+    res1 = skip32 + torch.matmul(av, wproj.float().t()) + bproj.float()
     xn2 = _layer_norm32(res1, ln2_w, ln2_b, LN_EPS).to(dt).float()
     g = gelu(torch.matmul(xn2, fc1_w.float().t()) + fc1_b.float()).to(dt).float()
     acc = torch.matmul(g, fc2_w.float().t())
@@ -484,6 +482,45 @@ def fused_pool_block_split_plain(q, thw, skip, k, v, scale, wconv, nq_w, nq_b, w
         acc = torch.matmul(xn2, proj_w.float().t()) + acc
     base = proj_b.float() if proj_w is not None else res1
     return (acc + fc2_b.float() + base).to(dt)
+
+
+def fused_block_split_plain(x, k, v, scale, ln1_w, ln1_b, wq, bq, wproj, bproj, ln2_w, ln2_b,
+                            fc1_w, fc1_b, fc2_w, fc2_b, proj_w, proj_b, xn):
+    """Plain model of B3's split bf16 body (``csrc/block.cu``), launch by
+    launch from the caller's LN1 rows ``xn`` (phase 1's, as the kernel takes
+    them): q = xn·Wqᵀ + bq in fp32, rounded once
+    (token-major, head h at columns h·hd); K1's attention with
+    the probabilities rounded unnormalised
+    (:func:`~csts_torch.kernels.attention.fused_attention_split_plain` at one
+    split) and av rounded once; then the split back
+    (:func:`_split_back_plain`). Arguments as :func:`fused_block`."""
+    from csts_torch.kernels.attention import fused_attention_split_plain
+
+    dt = x.dtype
+    b, l, c = x.shape
+    n, hd = k.shape[1], k.shape[3]
+    q = (torch.matmul(xn.float(), wq.float().t()) + bq.float()).to(dt)
+    av = fused_attention_split_plain(q.reshape(b, l, n, hd).transpose(1, 2), k, v, scale, 1)
+    av = av.float().transpose(1, 2).reshape(b, l, c)
+    return _split_back_plain(av, x.float(), dt, wproj, bproj, ln2_w, ln2_b, fc1_w, fc1_b,
+                             fc2_w, fc2_b, proj_w, proj_b)
+
+
+def fused_pool_block_split_plain(q, thw, skip, k, v, scale, wconv, nq_w, nq_b, wproj, bproj,
+                                 *tail):
+    """Plain model of B4's split bf16 body (``csrc/pool_block.cu``), launch by
+    launch: the Q conv and norm_q in fp32, q rounded per head (the conv's
+    scratch); K1's attention with the probabilities rounded unnormalised
+    (:func:`~csts_torch.kernels.attention.fused_attention_split_plain` at one
+    split) and av rounded once (the attention's scratch); then the split
+    back (:func:`_split_back_plain`). Arguments as :func:`fused_pool_block`."""
+    from csts_torch.kernels.attention import fused_attention_split_plain
+
+    qh = _q_conv_plain(q, thw, (1, 2, 2), wconv, nq_w, nq_b, k.shape[1], False)
+    b, n, lq, hd = qh.shape
+    av = fused_attention_split_plain(qh, k, v, scale, 1).float()
+    av = av.transpose(1, 2).reshape(b, lq, n * hd)
+    return _split_back_plain(av, skip.float(), q.dtype, wproj, bproj, *tail)
 
 
 def fused_decoder_block_plain(q, thw, stride, skip, k, v, scale, wconv, nq_w, nq_b,
@@ -499,6 +536,26 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     """Contiguous and on a 16-byte boundary (the kernels copy 16-byte pieces)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def split_instance(lib: str, c: int, cout: int, hidden: int, hd: int, proj: bool) -> bool:
+    """Whether the bf16 widths have an instance of the redesigned split body
+    of ``lib`` ("block", "pool_block", "decoder_block"; ``split_instance`` in
+    ``csrc/block.cu``, ``launch_bf16`` in ``pool_block.cu`` and
+    ``decoder_block.cu``); other widths take the first design. ``proj``: the
+    dim-change proj weights are given."""
+    if lib == "block":
+        return (hd == 96 and (c, cout) in ((96, 96), (96, 192), (192, 192), (192, 384),
+                                           (384, 384), (384, 768), (768, 768))
+                and hidden % 128 == 0 and proj == (c != cout))
+    if lib == "pool_block":
+        return (hd == 96 and (c, cout) in ((192, 192), (192, 384), (384, 384), (384, 768))
+                and hidden % 128 == 0 and proj == (c != cout))
+    if lib == "decoder_block":
+        d4 = (c, cout) == (192, 96)
+        return (proj and hd in (96, 192) and (d4 or (c, cout) in ((768, 384), (384, 192)))
+                and hidden % (64 if d4 else 128) == 0)
+    return False
 
 
 def _launch_block(name, lib, fn, *, x=None, q=None, q_rs=0, skip=None, k, v, ln1=(None, None),
@@ -535,14 +592,17 @@ def _launch_block(name, lib, fn, *, x=None, q=None, q_rs=0, skip=None, k, v, ln1
           for t in (*ln1, wq, bq, wconv, *nq, wproj, bproj, *tail)]
     held = []
     if scratch:
-        # B4's and B5's split bf16 bodies park the conv's q (64 rows of slack
-        # a clip: the conv writes whole tiles; B4 then writes LN2's rows over
-        # it), av (both rounded), res1 (fp32) and, for B4, the hidden G
-        # between their launches; the fp32 body needs none of them. The
-        # tensors are held until all the launches are queued: a buffer freed
-        # earlier could be handed to the next one on the same stream, and one
-        # launch would write over what another reads.
-        bf16 = dt == torch.bfloat16
+        # The split bf16 bodies park q (B4's and B5's conv writes whole tiles:
+        # 64 rows of slack a clip; B3's Q GEMM writes it; B3 and B4 then write
+        # LN2's rows over it), av, both rounded, res1 (fp32) and, for B3 and
+        # B4, the hidden G between their launches; the fp32 body and the
+        # first design (widths without a split instance) need none of them
+        # and get null pointers. The tensors are held until all the launches
+        # are queued: a buffer freed earlier could be handed to the next one
+        # on the same stream, and one launch would write over what another
+        # reads.
+        bf16 = dt == torch.bfloat16 and split_instance(lib, c, cout, hidden, hd,
+                                                       proj_w is not None)
         shapes = [((b, out_rows + 64, c), dt), ((b * out_rows, c), dt),
                   ((b * out_rows, c), torch.float32)]
         if scratch == "hidden":
@@ -577,20 +637,33 @@ def _rows_view(q: torch.Tensor) -> torch.Tensor:
     return _aligned(q)
 
 
-def fused_block(x, k, v, scale, ln1_w, ln1_b, wq, bq, wproj, bproj, *tail):
+def fused_block(x, k, v, scale, ln1_w, ln1_b, wq, bq, wproj, bproj, ln2_w, ln2_b, fc1_w,
+                fc1_b, fc2_w, fc2_b, proj_w=None, proj_b=None, xn=None):
     """B3: a whole identity-skip block. x: (B, L, C); k, v: (B, N, Lk, hd)
     pooled and normed; wq, bq: the Q rows of the qkv projection; then wproj,
-    bproj, ln2_w, ln2_b, fc1_w, fc1_b, fc2_w, fc2_b, proj_w, proj_b.
-    Returns (B, L, dim_out)."""
+    bproj, ln2_w, ln2_b, fc1_w, fc1_b, fc2_w, fc2_b, proj_w, proj_b; xn:
+    LN1(x) in x's dtype, the rows phase 1 normalised for the K/V projection
+    (``MultiScaleBlock.forward_block`` passes them), required in bf16: the
+    split body (:func:`split_instance`) takes its Q product from them. The
+    first design and the fp32 body compute LN1 from x themselves and do not
+    read xn. Returns (B, L, dim_out)."""
+    tail = (ln2_w, ln2_b, fc1_w, fc1_b, fc2_w, fc2_b, proj_w, proj_b)
     if x.device.type == "cpu":
         return fused_block_plain(x, k, v, scale, ln1_w, ln1_b, wq, bq, wproj, bproj, *tail)
     if x.device.type != "cuda":
         raise ValueError(f"fused_block: unsupported device {x.device}")
     if x.shape[0] != k.shape[0] or x.shape[2] != wproj.shape[0]:
         raise ValueError(f"fused_block: x {tuple(x.shape)} does not fit k {tuple(k.shape)}")
-    out = _launch_block("fused_block", "block", "csts_fused_block", x=x, k=k, v=v,
+    if x.dtype == torch.bfloat16:
+        if xn is None or xn.shape != x.shape:
+            raise ValueError("fused_block: bf16 needs xn = LN1(x), of x's shape "
+                             f"{tuple(x.shape)}")
+        xn = _aligned(xn)
+    else:
+        xn = None
+    out = _launch_block("fused_block", "block", "csts_fused_block", x=x, q=xn, k=k, v=v,
                         ln1=(ln1_w, ln1_b), wq=wq, bq=bq, wproj=wproj, bproj=bproj, tail=tail,
-                        out_rows=x.shape[1], scale=scale)
+                        out_rows=x.shape[1], scale=scale, scratch="hidden")
     fused_block.launches += 1
     return out
 

@@ -2,7 +2,9 @@
 
 * K3 :func:`t2_upsample` (``_t2_kernel``, ``t2_upsample_padded`` without its
   128-lane padding): x2 half-pixel linear interpolation along T. It serves
-  d4's stride-(2,1,1) skip and the stem-skip T-resize at the head.
+  d4's stride-(2,1,1) skip and the stem-skip T-resize at the head; a
+  sliding window over T, one thread a 16-byte piece of a clip's plane
+  (:func:`t2_upsample_window_plain` is the plain model of that plan).
 * B9a :func:`hw2_upsample` (``_hw2_kernel``): x2 along H, then x2 along W,
   the stride-(1,2,2) skips of d2 and d3, taken only when
   :data:`HW2_SKIP_KERNEL` is set (the JAX package's switch, with its name
@@ -43,6 +45,28 @@ def t2_upsample_plain(x: torch.Tensor, thw: Sequence[int]) -> torch.Tensor:
     t = int(thw[0])
     g = x.reshape(b, t, l // t * c).float()
     return upsample2x(g, 1).reshape(b, 2 * l, c).to(x.dtype)
+
+
+def t2_upsample_window_plain(x: torch.Tensor, thw: Sequence[int]) -> torch.Tensor:
+    """Plain model of K3's sliding window (``csrc/upsample.cu``
+    ``t2_upsample_kernel``): each clip's planes walked in order with the
+    window (x[m-1], x[m], x[m+1]); out[2m] is a copy of x[0] at m = 0, else
+    0.25·x[m-1] + 0.75·x[m], and out[2m+1] a copy of x[T-1] at the last
+    plane, else 0.75·x[m] + 0.25·x[m+1], each product and the sum rounded on
+    their own in fp32, then once to x's dtype. Same shapes as
+    :func:`t2_upsample_plain`."""
+    b, l, c = x.shape
+    t = int(thw[0])
+    g = x.reshape(b, t, l // t * c)
+    cur = g[:, 0]
+    prev, outs = cur, []
+    for m in range(t):
+        nxt = g[:, m + 1] if m + 1 < t else cur
+        c32 = cur.float()
+        outs.append(cur if m == 0 else (prev.float() * 0.25 + c32 * 0.75).to(x.dtype))
+        outs.append(cur if m + 1 == t else (c32 * 0.75 + nxt.float() * 0.25).to(x.dtype))
+        prev, cur = cur, nxt
+    return torch.stack(outs, dim=1).reshape(b, 2 * l, c)
 
 
 def t2_upsample(x: torch.Tensor, thw: Sequence[int]) -> torch.Tensor:

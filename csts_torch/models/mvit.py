@@ -277,17 +277,10 @@ def _fb_smem(wr: int, ntp: int, nt: int, c: int, hd: int) -> int:
 
 
 def _split_instance(lib: str, spec: AttentionSpec) -> bool:
-    """The redesigned split bodies' instances (pool_block.cu, decoder_block.cu
-    ``launch_bf16``), which fit by construction."""
-    c, co, hd, h, proj = spec.dim, spec.dim_out, spec.head_dim, spec.hidden_dim, spec.dim != spec.dim_out
-    if lib == "pool_block":
-        return (hd == 96 and (c, co) in ((192, 192), (192, 384), (384, 384), (384, 768))
-                and h % 128 == 0)
-    if lib == "decoder_block":
-        d4 = (c, co) == (192, 96)
-        return (proj and hd in (96, 192) and (d4 or (c, co) in ((768, 384), (384, 192)))
-                and h % (64 if d4 else 128) == 0)
-    return False
+    """The redesigned split bodies' instances (``kb.split_instance``), which
+    fit by construction."""
+    return kb.split_instance(lib, spec.dim, spec.dim_out, spec.hidden_dim, spec.head_dim,
+                             spec.dim != spec.dim_out)
 
 
 def whole_block_fits(lib: str, spec: AttentionSpec) -> bool:
@@ -550,9 +543,10 @@ class MultiScaleBlock(nn.Module):
         xn = ops.layer_norm(x, self.norm1.weight, self.norm1.bias)
         _, k, v = a.project(xn, thw, with_q=False)
         bq = a.qkv.bias[:s.dim] if a.qkv.bias is not None else a.qkv.weight.new_zeros(s.dim)
+        # xn, the rows phase 1 normalised, is also LN1 for the kernel's Q product
         out = kb.fused_block(x, k, v, s.scale, self.norm1.weight.to(x.dtype),
                              self.norm1.bias.to(x.dtype), a.qkv.weight[:s.dim].to(x.dtype),
-                             bq.to(x.dtype), *tail)
+                             bq.to(x.dtype), *tail, xn)
         return out, thw
 
     def _skip(self, x: torch.Tensor, thw: THW, decoder_kernel: bool = False) -> torch.Tensor:

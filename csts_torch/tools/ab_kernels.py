@@ -1,17 +1,20 @@
-"""K1 (attention), B4 (the Q-pool block), B5 (the decoder block), K2 (the
-MLP tail), B7 (the training MLP tail) and B8 (the attention backward) of two
-checkouts of the repository, at the flagship's batch-8 shapes, in turns on
-one card:
+"""K1 (attention), B3 (the identity block), B4 (the Q-pool block), B5 (the
+decoder block), K2 (the MLP tail), K3 (the T×2 upsample), B7 (the training
+MLP tail) and B8 (the attention backward) of two checkouts of the
+repository, at the flagship's batch-8 shapes, in turns on one card:
 
     python csts_torch/tools/ab_kernels.py --roots OLD NEW [--rounds 1] [--out PATH]
     python csts_torch/tools/ab_kernels.py --key-split [--rounds 2] [--out PATH]
 
-Each root is a checkout whose ``profile_forward`` has ``device_ms`` (for
-example a ``git archive`` of the parent commit unpacked under ``build/``); each turn
-runs in a process of its own that imports that root's ``csts_torch`` (its
-kernels build into its own ``build/``). Turns go OLD, NEW, NEW, OLD per
+Each root is a checkout of the port (for example a ``git archive`` of the
+parent commit unpacked under ``build/``); each turn runs in a process of its
+own that imports that root's ``csts_torch`` (its kernels build into its own
+``build/``) and times it with this checkout's ``mean_ms``, ``device_ms`` and
+``device_trace``, so that both roots are read by the same clock and the same
+profiler rule. Turns go OLD, NEW, NEW, OLD per
 round. A turn times, at every K1 shape of the forward (16 launches), at
-B4's four sites (v1, a1, v3, a2), at B5's three sites (d2, d3, d4), at K2's
+B3's three sites (v0, a0, v2), at B4's four sites (v1, a1, v3, a2), at B5's
+three sites (d2, d3, d4), at K3's two (d4's skip, the head's stem skip), at K2's
 16 sites of the forward, at B7's 26 sites and B8's 25 sites of a training
 step, the root's wrapper with CUDA events over
 back-to-back calls (host cost included) and by its device time
@@ -37,6 +40,8 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import importlib.util
+import inspect
 import json
 import os
 import statistics
@@ -89,7 +94,12 @@ B8_SITES = [
     ("d1", 8, 1024, 64, 96, 1), ("d2", 4, 4096, 64, 192, 1), ("d3", 4, 16384, 64, 96, 1),
     ("d4", 2, 32768, 64, 96, 1),
 ]
-BATCH, LK_DEC, LK_POOL = 8, 64, 1024
+# (name, rows a clip, dim, dim_out, heads, launches a forward): B3's sites
+# (Lk 256, hidden 4·dim)
+B3_SITES = [("v0,a0", 16384, 96, 192, 1, 2), ("v2", 4096, 192, 384, 2, 1)]
+# (name, grid, channels): K3's two launches a forward
+K3_SITES = [("d4 skip", (4, 64, 64), 192), ("stem skip", (4, 64, 64), 1)]
+BATCH, LK_DEC, LK_POOL, LK_BLOCK = 8, 64, 1024, 256
 SPLIT_BATCHES = (1, 2, 4)
 # a profile that saw no device activity (torch.profiler now and then returns
 # none) reads 0.0: it is no reading and stays out of the median
@@ -153,6 +163,25 @@ def b4_inputs(thw, c, cout, heads, gen):
             r(cout, hidden, scale=hidden ** -0.5), r(cout, scale=0.1)] + proj
 
 
+def b3_inputs(rows, c, cout, heads, gen):
+    """B3's arguments at a site but the last: x, the pooled K/V and the
+    block's weights (LN1, the Q rows of the fused projection, proj, the
+    tail), bf16. The block also passes LN1(x), phase 1's rows."""
+    import torch
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+    hd, hidden = c // heads, 4 * c
+    proj = [r(cout, c, scale=c ** -0.5), r(cout, scale=0.1)] if c != cout else [None, None]
+    x, ln1_w, ln1_b = r(BATCH, rows, c), 1 + r(c, scale=0.1), r(c, scale=0.1)
+    return [x, r(BATCH, heads, LK_BLOCK, hd), r(BATCH, heads, LK_BLOCK, hd),
+            hd ** -0.5, ln1_w, ln1_b, r(c, c, scale=c ** -0.5),
+            r(c, scale=0.1), r(c, c, scale=c ** -0.5), r(c, scale=0.1), 1 + r(c, scale=0.1),
+            r(c, scale=0.1), r(hidden, c, scale=c ** -0.5), r(hidden, scale=0.1),
+            r(cout, hidden, scale=hidden ** -0.5), r(cout, scale=0.1)] + proj
+
+
 def b8_inputs(n, lq, lk, hd, gen):
     """B8's arguments at a site: q, k, v, K1's out and lse from them, and g a
     head view of a token-major (B, Lq, N·hd) gradient, bf16."""
@@ -179,8 +208,24 @@ def tail_inputs(rows, c, h, cout, gen):
             r(h, scale=0.1), r(cout, h, scale=h ** -0.5), r(cout, scale=0.1)] + proj
 
 
+def own_timers():
+    """``mean_ms``, ``device_ms`` and ``device_trace`` of this checkout,
+    loaded from their files (which import nothing of the package), whatever
+    root the turn imports."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    mods = []
+    for name, rel in (("ab_timer_tools", "__init__.py"),
+                      ("ab_timer_profile", "profile_forward.py")):
+        spec = importlib.util.spec_from_file_location(name, os.path.join(here, rel))
+        mods.append(importlib.util.module_from_spec(spec))
+        spec.loader.exec_module(mods[-1])
+    return mods[0].mean_ms, mods[1].device_ms, mods[1].device_trace
+
+
 def worker(root: str) -> dict:
-    """One turn: the root's K1 and B5 at every shape (imports the root's package)."""
+    """One turn: the root's kernels at every site (imports the root's package,
+    times it with this checkout's timers)."""
+    mean_ms, device_ms, device_trace = own_timers()
     sys.path.insert(0, os.path.abspath(root))
     import torch
     import torch.nn.functional as F
@@ -188,13 +233,12 @@ def worker(root: str) -> dict:
     from csts_torch.kernels import _build
     from csts_torch.kernels import attention as ka
     from csts_torch.kernels import block as kb
-    from csts_torch.tools import mean_ms
-    from csts_torch.tools.profile_forward import device_ms
+    from csts_torch.kernels import upsample as kup
 
     t0 = time.perf_counter()
     _build.build_all()
-    out = {"root": root, "build_s": time.perf_counter() - t0, "k1": [], "b4": [], "b5": [],
-           "k2": [], "b7": [], "b8": []}
+    out = {"root": root, "build_s": time.perf_counter() - t0, "k1": [], "b3": [], "b4": [],
+           "b5": [], "k2": [], "k3": [], "b7": [], "b8": []}
     gen = torch.Generator(device="cuda").manual_seed(0)
     dev = torch.device("cuda")
     with torch.inference_mode():
@@ -206,6 +250,32 @@ def worker(root: str) -> dict:
             out["k1"].append({"name": name, "launches": count, "ms": mean_ms(kern, dev, 50),
                               "device_ms": device_ms(kern), "library_ms": mean_ms(lib, dev, 50),
                               "library_device_ms": device_ms(lib)})
+        # A root whose B3 computes LN1 in its body (before this port's
+        # redesign of B3) takes no xn; a root that takes xn is timed with the
+        # LN1 that makes it (phase 1's op) inside each call, so that both
+        # sides count LN1
+        takes_xn = "xn" in inspect.signature(kb.fused_block).parameters
+        for name, rows, c, cout, heads, count in B3_SITES:
+            args = b3_inputs(rows, c, cout, heads, gen)
+            if takes_xn:
+                kern = lambda: kb.fused_block(  # noqa: E731
+                    *args, F.layer_norm(args[0], (args[0].shape[-1],), args[4], args[5], 1e-6))
+            else:
+                kern = lambda: kb.fused_block(*args)  # noqa: E731
+            # the device time of each of the launches a call makes (B3's split
+            # runs five to six kernels a call), over 10 calls
+            by_name = device_trace(lambda: [kern() for _ in range(10)])[2]
+            out["b3"].append({"name": name, "launches": count, "ms": mean_ms(kern, dev, 20),
+                              "device_ms": device_ms(kern, 10),
+                              "kernels_device_ms": {k: v / 10 for k, v in by_name.items()}})
+            del args
+        for name, thw, c in K3_SITES:
+            x = torch.randn(BATCH, thw[0] * thw[1] * thw[2], c, generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            kern = lambda: kup.t2_upsample(x, thw)  # noqa: E731
+            out["k3"].append({"name": name, "launches": 1, "ms": mean_ms(kern, dev, 50),
+                              "device_ms": device_ms(kern)})
+            del x
         for name, thw, c, cout, heads in B4_SITES:
             args = b4_inputs(thw, c, cout, heads, gen)
             kern = lambda: kb.fused_pool_block(*args)  # noqa: E731
@@ -232,6 +302,9 @@ def worker(root: str) -> dict:
                         else (lambda: kb.fused_mlp_tail_train(*args, dp)))
                 out[key].append({"name": name, "launches": count, "ms": mean_ms(kern, dev, 20),
                                  "device_ms": device_ms(kern, 10)})
+                if key == "k2":  # each of K2's three kernels (LN2, fc1, fc2), over 10 calls
+                    by_name = device_trace(lambda: [kern() for _ in range(10)])[2]
+                    out[key][-1]["kernels_device_ms"] = {k: v / 10 for k, v in by_name.items()}
                 del args
     return out
 
@@ -354,14 +427,17 @@ def main(argv=None) -> int:
                                                  for site in B8_SITES)
                                         for key in ("ms", "device_ms")}}
             tails = {}
-            for part, sites in (("k2", K2_SITES), ("b7", B7_SITES)):
+            for part, sites in (("k2", K2_SITES), ("b7", B7_SITES), ("b3", B3_SITES),
+                                ("k3", [(name, thw, c, None, None, 1)
+                                        for name, thw, c in K3_SITES])):
                 per_site = {site[0]: {key: med([t[part][i][key] for t in ts])
                                       for key in ("ms", "device_ms")}
                             for i, site in enumerate(sites)}
                 tails[part] = {"sites": per_site,
                                **{key: sum(per_site[site[0]][key] * site[5] for site in sites)
                                   for key in ("ms", "device_ms")}}
-            summary[root] = {"k1_forward": k1, "b4": b4, "b5": b5, "k2_forward": tails["k2"],
+            summary[root] = {"k1_forward": k1, "b3_forward": tails["b3"], "b4": b4, "b5": b5,
+                             "k2_forward": tails["k2"], "k3_forward": tails["k3"],
                              "b7_step": tails["b7"], "b8_step": b8,
                              "k1_shapes": [{key: (med([t["k1"][i][key] for t in ts])
                                                   if key != "name" else ts[0]["k1"][i]["name"])
@@ -376,7 +452,11 @@ def main(argv=None) -> int:
                   + "; B4 " + ", ".join(f"{s} {v['ms']:.4f}/{v['device_ms']:.4f}"
                                         for s, v in b4.items())
                   + f" (sum {sum(v['device_ms'] for v in b4.values()):.4f} device); B8 a step "
-                  f"{b8['ms']:.4f} / {b8['device_ms']:.4f} ms events/device")
+                  f"{b8['ms']:.4f} / {b8['device_ms']:.4f} ms events/device; B3 a forward "
+                  + "{:.4f} / {:.4f} (".format(tails["b3"]["ms"], tails["b3"]["device_ms"])
+                  + ", ".join(f"{s} {v['device_ms']:.4f}" for s, v in tails["b3"]["sites"].items())
+                  + " device); K3 a forward {:.4f} / {:.4f} ms events/device".format(
+                      tails["k3"]["ms"], tails["k3"]["device_ms"]))
         result = {"card": card, "summary": summary, "turns": turns}
     print(card)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -26,9 +26,9 @@ import torch
 # device kernels by family, matched in order on the kernel name the profiler
 # reports (the first family whose key is in the lowered name takes it)
 FAMILIES = (
-    ("K1 attention", ("attn_wg_kernel", "attn_merge_kernel", "attn_f32_kernel")),
-    ("B8 attention_bwd", ("dq_wg_kernel", "dkdv_wg_kernel", "dq_f32_kernel", "dkdv_f32_kernel",
-                          "namespace)::reduce_kernel<")),
+    ("K1 attention", ("attn_wg_kernel", "attn_merge_kernel", "attn_streamed_kernel")),
+    ("B8 attention_bwd", ("dq_wg_kernel", "dkdv_wg_kernel", "dq_streamed_kernel",
+                          "dkdv_streamed_kernel", "namespace)::reduce_kernel<")),
     # B7 is the TRAIN = true instance of K2's templates (LN2 and two GEMMs)
     ("B7 mlp_tail_train", ("tail_ln_kernel<true", "tail_fc1_kernel<true",
                            "tail_fc2_kernel<true", "mlp_tail_f32_kernel<true")),
@@ -36,12 +36,16 @@ FAMILIES = (
                      "mlp_tail_f32_kernel")),
     ("K3 t2_upsample", ("t2_upsample_kernel",)),
     ("B9a hw2_upsample", ("hw2_upsample_kernel",)),
-    # B4's seven kernels (the Q conv, the attention, the proj GEMM and K2's
-    # split tail) and B5's three; their fp32 bodies and first designs stay
+    # B4's kernels (the Q conv, the attention, the proj GEMM and K2's split
+    # tail), B5's three and B3's; their fp32 bodies and first designs stay
     # with the whole blocks'
     ("B4 pool_block", ("pool_conv_kernel", "pool_attn_kernel", "pool_proj_kernel",
                        "pool_ln_kernel", "pool_fc1_kernel", "pool_fc2_kernel")),
     ("B5 decoder_block", ("decoder_conv_kernel", "decoder_attn_kernel", "decoder_tail_kernel")),
+    # B3's (the Q GEMM, the attention, the proj GEMM, LN2 where the proj does
+    # not hold whole rows, and K2's split tail; at 3-8 heads also B9b/B9c's)
+    ("B3 block", ("block_ln_kernel", "block_q_kernel", "block_attn_kernel", "block_proj_kernel",
+                  "block_fc1_kernel", "block_fc2_kernel")),
     ("B3-B5, B9b/c whole blocks", ("block_mma_kernel", "block_f32_kernel")),
     ("convolution", ("conv", "cudnn", "implicit", "dgrad", "fprop", "winograd")),
     ("matmul", ("gemm", "cutlass", "xmma", "matmul", "nvjet")),
@@ -91,13 +95,17 @@ def device_ms(fn: Callable[[], object], calls: int = 20) -> float:
     """Device time per call of ``fn``: the summed durations of the device
     activities (kernels, copies) that ``calls`` calls launch, over ``calls``.
     It does not depend on how fast the host launches. 0 without a card.
-    The profiler now and then reports no device activity for a window that
-    had some; such a window is traced again (up to three tries)."""
-    for _ in range(3 if torch.cuda.is_available() else 1):
+    The profiler now and then reports no device activity, or only part of
+    it, for a window that had more: two windows that saw activity are
+    traced (up to four tries) and the larger reading is kept."""
+    readings = []
+    for _ in range(4 if torch.cuda.is_available() else 1):
         _, _, by_name, _ = device_trace(lambda: [fn() for _ in range(calls)])
         if by_name:
-            break
-    return sum(by_name.values()) / calls
+            readings.append(sum(by_name.values()) / calls)
+            if len(readings) == 2:
+                break
+    return max(readings, default=0.0)
 
 
 def profile_forward(fn: Callable[[], object], fwd_ms: float, log: Callable[[str], None] = print,

@@ -30,6 +30,7 @@ from csts_torch.kernels import attention as ka
 from csts_torch.kernels import block as kb
 from csts_torch.kernels import upsample as kup
 from csts_torch.models.mvit import build_inframe_mask
+from csts_torch.ops import layer_norm
 
 pytestmark = pytest.mark.cuda
 
@@ -46,13 +47,21 @@ def _randn(gen, *shape, scale=1.0):
     return torch.randn(*shape, generator=gen, device="cuda") * scale
 
 
+def _ln1(args):
+    """B3's xn: LN1 of its x in x's dtype, as the block's phase 1 gives it."""
+    return layer_norm(args[0], args[4], args[5])
+
+
 def _check(name, kernel, plain, args, keep=()):
     """Kernel vs plain version in fp32 and in bf16, at the bars of chip_smoke.
-    Arguments at the indices in ``keep`` stay as they are (the fp32 mask)."""
+    Arguments at the indices in ``keep`` stay as they are (the fp32 mask).
+    B3 ("block") is also given LN1(x) in each dtype, as the block gives it."""
     with torch.inference_mode():
         for dtype in (torch.float32, torch.bfloat16):
             cast = [a.to(dtype) if isinstance(a, torch.Tensor) and i not in keep else a
                     for i, a in enumerate(args)]
+            if name == "block":
+                cast.append(_ln1(cast))
             before = kernel.launches
             got = kernel(*cast)
             torch.cuda.synchronize()
@@ -781,3 +790,128 @@ def test_pool_block_split(gen, thw, c, cout, heads):
         got = kb.fused_pool_block(*args)
         want = kb.fused_pool_block_split_plain(*args)
         assert float((got.float() - want.float()).abs().max()) <= bf16_bar("pool_block", want)
+
+
+# --- the head dims every body takes, and the redesigned B3 and K3 -------------
+
+
+@pytest.mark.parametrize("dtype,hd", [(torch.float32, 256), (torch.float32, 320),
+                                      (torch.float32, 448), (torch.bfloat16, 448),
+                                      (torch.bfloat16, 512)])
+def test_attention_streamed_head_dims(gen, dtype, hd):
+    """K1 and B8 where the streamed bodies run (fp32 at any head dim, bf16
+    above 384: the head dim in 64-column steps, the rows a block takes cut to
+    fit) against their plain versions at their bars, B8 twice bit-equal."""
+    b, n, lq, lk = 2, 2, 75, 130
+    scale = hd ** -0.5
+    assert ka.streamed(hd, dtype) and ka.kernel_head_dim(hd, dtype) == hd
+    q, k, v = (_randn(gen, b, n, m, hd).to(dtype) for m in (lq, lk, lk))
+    g = _randn(gen, b, lq, n, hd).to(dtype).permute(0, 2, 1, 3)
+    with torch.inference_mode():
+        before = ka.fused_attention.launches
+        out = ka.fused_attention(q, k, v, scale)
+        torch.cuda.synchronize()
+        assert ka.fused_attention.launches == before + 1
+        want = ka.fused_attention_plain(q, k, v, scale)
+        bar = bf16_bar("attention", want) if dtype == torch.bfloat16 else FP32_ATOL["attention"]
+        assert float((out.float() - want.float()).abs().max()) <= bar
+        out, lse = _lse(q, k, v, scale)
+        got = ka.fused_attention_bwd(q, k, v, out, g, scale, lse)
+        again = ka.fused_attention_bwd(q, k, v, out, g, scale, lse)
+        want = ka.fused_attention_bwd_plain(q, k, v, out, g, scale)
+        for name, x, y, z in zip(("dq", "dk", "dv"), got, want, again):
+            assert x.shape == y.shape and x.dtype == dtype
+            err = float((x.float() - y.float()).abs().max())
+            bar = B8_BAR[dtype] * max(1.0, float(y.float().abs().max()))
+            assert err <= bar, (name, err, bar)
+            assert torch.equal(x, z), name
+
+
+@pytest.mark.parametrize("site", ["v0,a0", "v2"])
+def test_block_split_flagship_sites(gen, site):
+    """B3's split at the flagship's batch-8 sites (v0 and a0: 96 -> 192, one
+    head, L 16384; v2: 192 -> 384, two heads, L 4096) against its plain
+    version and the plain model of the split, bf16, one launch counted."""
+    from csts_torch.tools.ab_kernels import B3_SITES, b3_inputs
+
+    _, rows, c, cout, heads, _ = next(s for s in B3_SITES if s[0] == site)
+    args = b3_inputs(rows, c, cout, heads, gen)
+    args.append(_ln1(args))
+    with torch.inference_mode():
+        before = kb.fused_block.launches
+        got = kb.fused_block(*args)
+        torch.cuda.synchronize()
+        assert kb.fused_block.launches == before + 1
+        for plain in (kb.fused_block_plain, kb.fused_block_split_plain):
+            want = plain(*args)
+            assert float((got.float() - want.float()).abs().max()) <= bf16_bar("block", want)
+
+
+@pytest.mark.parametrize("b,l,c,cout,heads", [(2, 1024, 384, 384, 4), (1, 1000, 384, 768, 4),
+                                              (2, 256, 768, 768, 8), (2, 500, 96, 96, 1)])
+def test_block_split_multihead(gen, b, l, c, cout, heads):
+    """B3's split at ab_block's 3-8-head widths (B9b/B9c) and the 96-wide
+    identity block, fp32 (the exact body) and bf16 against the plain
+    version, and against the plain model of the split in bf16."""
+    hd = c // heads
+    k, v = _kv(gen, b, heads, 256, hd)
+    args = [_randn(gen, b, l, c), k, v, hd ** -0.5, 1 + _randn(gen, c, scale=0.1),
+            _randn(gen, c, scale=0.1), _randn(gen, c, c, scale=c ** -0.5),
+            _randn(gen, c, scale=0.1)] + _tail(gen, c, cout, 4 * c)
+    _check("block", kb.fused_block, kb.fused_block_plain, args)
+    cast = [a.bfloat16() if isinstance(a, torch.Tensor) else a for a in args]
+    cast.append(_ln1(cast))
+    with torch.inference_mode():
+        got = kb.fused_block(*cast)
+        want = kb.fused_block_split_plain(*cast)
+        assert float((got.float() - want.float()).abs().max()) <= bf16_bar("block", want)
+
+
+def test_block_scratch_held(gen):
+    """B3's split parks q, av, res1, LN2's rows and G in four scratch
+    buffers between its five launches. Twice with other allocations
+    in between, each call must match the plain version and the other call
+    bit for bit."""
+    c, cout, heads, b, l = 192, 384, 2, 2, 777
+    k, v = _kv(gen, b, heads, 256, c // heads)
+    args = [a.bfloat16() if isinstance(a, torch.Tensor) else a
+            for a in [_randn(gen, b, l, c), k, v, (c // heads) ** -0.5,
+                      1 + _randn(gen, c, scale=0.1), _randn(gen, c, scale=0.1),
+                      _randn(gen, c, c, scale=c ** -0.5), _randn(gen, c, scale=0.1)]
+            + _tail(gen, c, cout, 4 * c)]
+    args.append(_ln1(args))
+    with torch.inference_mode():
+        first = kb.fused_block(*args)
+        churn = [torch.empty(b * l * c * n, dtype=torch.bfloat16, device="cuda")
+                 for n in (1, 2, 4, 8)]
+        second = kb.fused_block(*args)
+        del churn
+        torch.cuda.synchronize()
+        want = kb.fused_block_plain(*args)
+        for got in (first, second):
+            assert float((got.float() - want.float()).abs().max()) <= bf16_bar("block", want)
+        assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("b,thw,c", [(8, (4, 64, 64), 192),   # d4's skip
+                                     (8, (4, 64, 64), 1),     # the head's stem skip
+                                     (2, (3, 5, 7), 5),       # S = 175: one element a thread
+                                     (3, (1, 4, 4), 8)])      # one plane: both outputs copies
+def test_t2_upsample_window(gen, b, thw, c):
+    """K3's sliding window at the flagship's two shapes and at an S that is
+    no multiple of 16 bytes, against its plain version: fp32 within 1e-6,
+    bf16 bit for bit, one launch a call."""
+    x = _randn(gen, b, thw[0] * thw[1] * thw[2], c)
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.bfloat16):
+            xd = x.to(dtype)
+            before = kup.t2_upsample.launches
+            got = kup.t2_upsample(xd, thw)
+            torch.cuda.synchronize()
+            assert kup.t2_upsample.launches == before + 1
+            want = kup.t2_upsample_plain(xd, thw)
+            assert got.shape == want.shape and got.dtype == dtype
+            if dtype == torch.bfloat16:
+                assert torch.equal(got, want)
+            else:
+                assert float((got - want).abs().max()) <= 1e-6

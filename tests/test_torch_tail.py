@@ -125,12 +125,15 @@ def test_kernel_head_dim(hd, dtype, want):
 
 
 def test_kernel_head_dim_above_192_raises_in_bf16():
-    """Above 192 the bf16 bodies split the output columns (head dims 256 and
-    384); only a head dim above the largest instance raises."""
+    """Above 192 the bf16 wgmma bodies split the output columns (head dims
+    256 and 384); above the largest instance the streamed bodies take the
+    head dim itself: no bf16 head dim raises any more (448 and 512 run)."""
     assert ka.kernel_head_dim(256, torch.bfloat16) == 256
     assert ka.kernel_head_dim(384, torch.bfloat16) == 384
-    with pytest.raises(ValueError, match="head dim 448"):
-        ka.kernel_head_dim(448, torch.bfloat16)
+    assert not ka.streamed(384, torch.bfloat16)
+    for hd in (448, 512):
+        assert ka.kernel_head_dim(hd, torch.bfloat16) == hd
+        assert ka.streamed(hd, torch.bfloat16)
 
 
 @pytest.mark.parametrize("hd,lq,lk", [(16, 40, 24), (32, 33, 70)])
