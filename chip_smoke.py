@@ -45,6 +45,22 @@ Phases (any failure exits non-zero; nothing is caught):
      4-head, 384->768 and 8-head stacks (B9b/B9c, bf16 and fp32) with
      times and bounds, and every stack timed through the kernel and
      through the K1+K2 route;
+  4d. the eval entry point: ``csts_torch.eval.tester.test`` at flagship
+     width (bf16, ``TEST.BATCH_SIZE`` 8) on a synthetic test split of 20
+     clips (150 frames, 256x320, npy backend) listed 15 times (300 rows),
+     written to a temporary directory, from a ``.pyth`` saved from seeded
+     weights: launch counters set to 0, the loop run, counters read (each
+     its launches per forward times the batches); the rows scored against
+     the split; the loop's logits and heatmaps against the same batches
+     through the fp32 plain twins (``csts_torch.tools.heatmap_check``:
+     logits within 0.05 of the largest |logit|, per-frame softmax max|Δ| <
+     0.02, at least one decided frame, argmax within 1 px on decided
+     frames), and the same check made to reject the first batch against
+     weights from another seed (a planted fault); its whole-set F1, recall,
+     precision, threshold and AUC against a float64 numpy twin on the same
+     predictions (1e-6, same threshold); the start-up (test() called to the
+     first batch in hand) and, after the first batch, clips/s with the
+     loader, the consumer's wait share and the forwards' share printed;
   5. the training path: the flagship from ``flagship_train_cfg`` (fp32
      master weights, bf16 compute, batch 8, kldiv+egonce, AdamW, drop-path
      0.2) through ``make_train_step``: one warm-up step records the inputs of
@@ -90,7 +106,7 @@ from csts_torch.models.csts import CSTS, build_spec, init_params  # noqa: E402
 from csts_torch.ops import sample_drop_masks  # noqa: E402
 from csts_torch.presets import flagship_cfg, flagship_train_cfg  # noqa: E402
 from csts_torch.serving import GazePredictor  # noqa: E402
-from csts_torch.tools import ab_block, ab_flags, card_line  # noqa: E402
+from csts_torch.tools import ab_block, ab_flags, card_line, plain_twins  # noqa: E402
 from csts_torch.tools.ab_kernels import b4_inputs, tail_inputs  # noqa: E402
 from csts_torch.tools.profile_forward import device_ms, device_trace, profile_forward  # noqa: E402
 from csts_torch.train import step as train_lib  # noqa: E402
@@ -489,18 +505,6 @@ def recording(calls: dict):
 
 
 @contextlib.contextmanager
-def plain_kernels():
-    """The model's kernel calls go to the plain PyTorch versions (the reference run)."""
-    try:
-        for k in KERNELS.values():
-            setattr(k["module"], k["attr"], k["plain"])
-        yield
-    finally:
-        for name, k in KERNELS.items():
-            setattr(k["module"], k["attr"], WRAPPERS[name])
-
-
-@contextlib.contextmanager
 def train_twins(attrs=tuple(attr for _, attr, _ in TRAIN_ENTRIES)):
     """The training route's autograd entries named in ``attrs`` replaced by
     autograd of their plain twins (the reference run)."""
@@ -734,7 +738,7 @@ def widths_phase() -> dict:
         reset_launches()
         got, _ = blk(x, thw)
         ran = {name: WRAPPERS[name].launches for name in ("attention", "mlp_tail", "decoder_block")}
-        with plain_kernels():
+        with plain_twins():
             want, _ = blk(x, thw)
         tag = "decoder block 768 -> 384, 3 heads of 256 (route composite)"
         rows.append({"case": tag, "launches": ran})
@@ -1117,6 +1121,251 @@ def blocks_phase() -> dict:
             "composite_device_ms": sum(s["composite_device_ms"] for s in multi)}
 
 
+# the eval phase: a synthetic test split in the reference's layout (npy
+# backend), short side 256 so the flagship's test transform is a centre crop.
+# The split lists the 20 clips 15 times: 300 rows, 38 batches, so that the
+# loop runs on after the 16 batches the 8 workers fetch while they start
+# (prefetch 2 each) and its rate after the first batch is the loop's, not
+# the workers' start-up.
+EVAL_CLIPS = 20
+EVAL_REPEATS = 15
+EVAL_ROWS = EVAL_CLIPS * EVAL_REPEATS
+EVAL_RES = (256, 320)
+EVAL_BATCH = 8  # TEST.BATCH_SIZE: 300 rows leave a final batch of 4
+EVAL_TOL = 1e-6  # the loop's StreamingF1 against the float64 twin
+
+
+def _bf16_round(x) -> np.ndarray:
+    """float32 -> the nearest bf16 (ties to even), as float64."""
+    u = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    u = ((u + 0x7FFF + ((u >> 16) & 1)) >> 16) << 16
+    return u.astype(np.uint32).view(np.float32).astype(np.float64)
+
+
+def stream_twin(batches, dataset: str) -> dict:
+    """A float64 numpy twin of ``StreamingF1`` over bf16 rescaled heatmaps:
+    the threshold grid and the AUC's ranks rounded to bf16 where the port
+    (and the JAX package) holds them in the predictions' dtype, every sum
+    in float64."""
+    from csts_torch.eval.metrics import fixation_index, thresholds_for
+
+    th = _bf16_round(np.asarray(thresholds_for(dataset), np.float64))
+    fix = fixation_index(dataset)
+    r_sum = np.zeros(len(th))
+    p_sum = np.zeros(len(th))
+    count = auc_sum = auc_count = 0.0
+    for preds, labels_hm, labels in batches:
+        b, t, h, w = preds.shape
+        pos = labels_hm > 0.001
+        fg_l = pos.sum(axis=(2, 3))
+        over = preds[None] > th[:, None, None, None, None]
+        tp = (over & pos[None]).sum(axis=(3, 4))
+        fg_p = over.sum(axis=(3, 4))
+        mask = labels[:, :, 2] == fix
+        r_sum += (tp / (fg_l[None] + 1e-6) * mask[None]).sum(axis=(1, 2))
+        p_sum += (tp / (fg_p + 1e-6) * mask[None]).sum(axis=(1, 2))
+        count += mask.sum()
+        ranks = _bf16_round(_bf16_round(np.arange(h * w)) + 1.0)
+        for i in range(b):
+            for f in range(t):
+                flat, pf = preds[i, f].reshape(-1), pos[i, f].reshape(-1)
+                n_pos = pf.sum()
+                if not (mask[i, f] and n_pos):
+                    continue
+                rank = np.empty(h * w)
+                rank[np.argsort(flat, kind="stable")] = ranks
+                auc_sum += (rank[pf].sum() - n_pos * (n_pos + 1) / 2) / (n_pos * (h * w - n_pos))
+                auc_count += 1
+    recall, precision = r_sum / count, p_sum / count
+    f1 = 2 * recall * precision / (recall + precision + 1e-6)
+    i = int(np.argmax(f1))
+    return {"f1": float(f1[i]), "recall": float(recall[i]), "precision": float(precision[i]),
+            "threshold": float(thresholds_for(dataset)[i]), "auc": float(auc_sum / auc_count)}
+
+
+def eval_phase(rng: np.random.Generator) -> dict:
+    """The eval entry point (``csts_torch.eval.tester.test``) at flagship width
+    on a synthetic test split written to a temporary directory: loader
+    (spawned workers, pinned batches, the side-stream prefetcher), the bf16
+    forward through the kernels, the streaming metrics, the results npz.
+    Counters set to 0 before and read after; the loop's logits and heatmaps
+    held against the same batches through the fp32 plain twins (and the
+    check shown to reject weights from another seed), its metrics against
+    ``stream_twin`` on the same predictions."""
+    import tempfile
+
+    from csts_torch.data import loader as loader_lib
+    from csts_torch.data.synthetic import write_dataset
+    from csts_torch.eval import metrics as tmetrics
+    from csts_torch.eval import tester
+    from csts_torch.tools import check_line, heatmap_check
+
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        prefix, splits = write_dataset(root, "ego4d", num_clips=EVAL_CLIPS, frames=150,
+                                       res=EVAL_RES, fps=30, seed=int(rng.integers(1 << 30)))
+        test_csv = os.path.join(splits, "test_ego4d_gaze.csv")
+        with open(test_csv) as f:
+            clips = f.read().splitlines()
+        with open(test_csv, "w") as f:
+            f.write("\n".join(clips * EVAL_REPEATS) + "\n")
+        write_s = time.perf_counter() - t0
+        cfg = flagship_cfg()
+        cfg.TRAIN.MIXED_PRECISION = True
+        spec = build_spec(cfg)
+        ref_model = CSTS(dataclasses.replace(spec, dtype="float32"))
+        init_params(ref_model, torch.Generator().manual_seed(SEED + 1))
+        weights = os.path.join(root, "weights.pyth")
+        torch.save({"model_state": ref_model.state_dict()}, weights)
+        cfg.DATA.PATH_PREFIX, cfg.DATA.PATH_TO_DATA_DIR = prefix, splits
+        cfg.DATA.DECODING_BACKEND = "npy"
+        cfg.TRAIN.ENABLE = False
+        cfg.TEST.DATASET = "ego4d_av_gaze_forecast"
+        cfg.TEST.BATCH_SIZE = EVAL_BATCH
+        cfg.TEST.NUM_ENSEMBLE_VIEWS = cfg.TEST.NUM_SPATIAL_CROPS = 1
+        cfg.TEST.CHECKPOINT_FILE_PATH = weights
+        cfg.TEST.SAVE_RESULTS_PATH = "results.npz"
+        cfg.OUTPUT_DIR = os.path.join(root, "out")
+        cfg.LOG_PERIOD = 1
+
+        # what the loop did: its batches, logits and heatmaps, the consumer's
+        # wait on the loader, each forward's span on the card (CUDA events)
+        seen = {"batches": [], "waits": [], "first": None, "last": None, "events": []}
+        make_eval_step, next_batch = train_lib.make_eval_step, loader_lib.DevicePrefetcher.__next__
+
+        def timed_next(self):
+            t = time.perf_counter()
+            if seen["first"] is None:
+                seen["first"] = t
+            try:
+                return next_batch(self)
+            finally:
+                seen["last"] = time.perf_counter()
+                seen["waits"].append(seen["last"] - t)
+
+        def recording_step(cfg_, spec_):
+            step = make_eval_step(cfg_, spec_)
+
+            def run(model, batch):
+                logits = []
+                hook = model.register_forward_hook(lambda m, i, o: logits.append(o))
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                try:
+                    start.record()
+                    out = step(model, batch)
+                    end.record()
+                finally:
+                    hook.remove()
+                seen["events"].append((start, end))
+                seen["batches"].append({k: v.clone() for k, v in batch.items()}
+                                       | {"probs": out, "logits": logits[0]})
+                return out
+            return run
+
+        reset_launches()
+        t_test = time.perf_counter()
+        try:
+            train_lib.make_eval_step = recording_step
+            loader_lib.DevicePrefetcher.__next__ = timed_next
+            stats = tester.test(cfg)
+        finally:
+            train_lib.make_eval_step = make_eval_step
+            loader_lib.DevicePrefetcher.__next__ = next_batch
+        test_s = time.perf_counter() - t_test
+        launches = {name: WRAPPERS[name].launches for name in PER_FORWARD}
+        res = np.load(os.path.join(cfg.OUTPUT_DIR, "results.npz"))
+        result_rows = [int(i) for i in res["index"]]
+        # the host's cost a clip alone: the split read and collated in this
+        # process, no workers, no card
+        cfg.DATA_LOADER.NUM_WORKERS = 0
+        t_read = time.perf_counter()
+        decoded = sum(len(b["index"]) for b in loader_lib.construct_loader(cfg, "test"))
+        decode_s = time.perf_counter() - t_read
+
+    batches = seen["batches"]
+    rows = sum(len(b["index"]) for b in batches)
+    forwards = [s.elapsed_time(e) for s, e in seen["events"]]
+    # start-up: test() called until the first batch is in hand (the model
+    # built and loaded while the workers start, then the first batch's
+    # wait); the loop: from there to its end, over the batches after the first
+    first_in_hand = seen["first"] + seen["waits"][0]
+    loop_s = seen["last"] - first_in_hand
+    loop_rows = rows - len(batches[0]["index"])
+    wait_s, forward_ms = sum(seen["waits"][1:]), sum(forwards[1:])
+    out = {"write_s": write_s, "test_s": test_s, "startup_s": first_in_hand - t_test,
+           "setup_s": seen["first"] - t_test, "first_batch_wait_s": seen["waits"][0],
+           "loop_s": loop_s, "loop_rows": loop_rows, "rows": rows, "batches": len(batches),
+           "clips_per_s": loop_rows / loop_s, "test_clips_per_s": rows / test_s,
+           "loader_wait_s": wait_s, "loader_wait_share": wait_s / loop_s,
+           "forward_ms": forward_ms, "forward_share": forward_ms / 1e3 / loop_s,
+           "waits_s": seen["waits"], "forwards_ms": forwards,
+           "decode_ms_per_clip": decode_s * 1e3 / decoded, "launches": launches, "stats": stats}
+    log(f"phase eval: {rows} rows in {len(batches)} batches; test() {test_s:.2f} s "
+        f"({out['test_clips_per_s']:.2f} clips/s, start-up included); start-up "
+        f"{out['startup_s']:.2f} s to the first batch in hand (model built and loaded "
+        f"{out['setup_s']:.2f} s while the loader's workers start, then the first batch waited "
+        f"{out['first_batch_wait_s']:.2f} s); loop after the first batch {loop_s:.3f} s for "
+        f"{loop_rows} rows = {out['clips_per_s']:.2f} clips/s loader included, consumer waited "
+        f"on the loader {wait_s:.3f} s (share {out['loader_wait_share']:.3f}), forwards "
+        f"{forward_ms:.2f} ms on the card (share {out['forward_share']:.3f}), first forward "
+        f"{forwards[0]:.2f} ms; dataset written in {write_s:.2f} s; waits "
+        + ", ".join(f"{w * 1e3:.1f}" for w in seen["waits"]) + " ms, forwards "
+        + ", ".join(f"{f:.2f}" for f in forwards)
+        + f" ms; one process reads and collates a clip in {out['decode_ms_per_clip']:.1f} ms "
+        f"({1e3 / out['decode_ms_per_clip']:.1f} clips/s); launches {launches} ({CARD})")
+    assert rows == EVAL_ROWS and result_rows == list(range(EVAL_ROWS)), (rows, result_rows)
+    assert sorted(int(i) for b in batches for i in b["index"]) == list(range(EVAL_ROWS))
+    for name, per in PER_FORWARD.items():
+        assert launches[name] == per * len(batches), (name, launches[name], per, len(batches))
+
+    # the loop's logits and heatmaps against the same batches through the
+    # fp32 plain twins; then a planted fault, the first batch against
+    # weights from another seed (what a tester that scored the wrong
+    # weights would give), which the same check must reject
+    ref_model = ref_model.cuda().eval()
+    worst = None
+    twin_in = []
+    with plain_twins(), torch.inference_mode():
+        for b in batches:
+            chk = heatmap_check(b["logits"], ref_model(b["video"], b["audio"]), probs=b["probs"])
+            if worst is None:
+                worst = chk
+            else:
+                for k in ("logits_max_abs_diff", "softmax_max_abs_diff"):
+                    worst[k] = max(worst[k], chk[k])
+                worst["logits_bar"] = min(worst["logits_bar"], chk["logits_bar"])
+                for k in ("argmax_off_on_decided", "decided_frames", "frames"):
+                    worst[k] += chk[k]
+                worst["ok"] = worst["ok"] and chk["ok"]
+            rescaled = tmetrics.minmax_rescale(b["probs"])
+            twin_in.append((rescaled.float().cpu().numpy().astype(np.float64),
+                            b["labels_hm"].cpu().numpy().astype(np.float64),
+                            b["labels"].cpu().numpy().astype(np.float64)))
+        ref_model.cpu()
+        wrong = CSTS(dataclasses.replace(spec, dtype="float32"))
+        init_params(wrong, torch.Generator().manual_seed(SEED + 2))
+        wrong = wrong.cuda().eval()
+        b = batches[0]
+        planted = heatmap_check(b["logits"], wrong(b["video"], b["audio"]), probs=b["probs"])
+        del wrong
+    twin = stream_twin(twin_in, cfg.TEST.DATASET)
+    out.update(reference=worst, planted_fault=planted, twin=twin)
+    log(f"phase eval reference: {check_line(worst)}, against the fp32 plain twins over all "
+        f"{len(batches)} batches (worst batch; bar the smallest)")
+    log(f"phase eval planted fault (the first batch against weights from another seed): "
+        f"{check_line(planted)}; rejected: {not planted['ok']}")
+    log("phase eval metrics: loop " + ", ".join(f"{k} {stats[k]:.8g}" for k in twin)
+        + "; float64 twin " + ", ".join(f"{k} {v:.8g}" for k, v in twin.items()))
+    assert worst["ok"], worst
+    assert not planted["ok"], planted
+    assert twin["threshold"] == stats["threshold"], (twin, stats)
+    for k in ("f1", "recall", "precision", "auc"):
+        assert abs(twin[k] - stats[k]) <= EVAL_TOL, (k, twin[k], stats[k])
+    del batches, seen
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -1211,7 +1460,7 @@ def main() -> int:
     with torch.inference_mode():
         logits16 = pred.model(v, a).float()
     ref_model = ref_model.cuda().eval()
-    with plain_kernels(), torch.inference_mode():
+    with plain_twins(), torch.inference_mode():
         logits32 = ref_model(v, a)
     ref_model.cpu()
     dlogit = float((logits16 - logits32).abs().max())
@@ -1253,6 +1502,11 @@ def main() -> int:
     blocks = blocks_phase()
     log(f"phase blocks: {time.perf_counter() - t0:.2f} s")
 
+    # --- phase 4d: the eval entry point (tester.test) on a synthetic split ----
+    t0 = time.perf_counter()
+    evals = eval_phase(rng)
+    log(f"phase eval total: {time.perf_counter() - t0:.2f} s")
+
     # --- phase 5: the training path ------------------------------------------
     t0 = time.perf_counter()
     train = train_path(rng)
@@ -1287,6 +1541,7 @@ def main() -> int:
             "library_device_ms": None if k["library"] is None else per("library_device_ms"),
             # ms and the bound per forward (serve) or per training step (train)
             "path": path, "launches_train": train["launches"][name],
+            "launches_eval": evals["launches"].get(name, 0),
             # the whole blocks, phase 1 included, through this kernel and
             # through the K1+K2 route (whole-block kernels only)
             "block_ms": per("block_ms") if name in WHOLE_BLOCKS else None,
@@ -1309,6 +1564,7 @@ def main() -> int:
             # ms and the bound per run of the path: one batch-8 forward with
             # hw2_skip on (ab_flags), or one run of ab_block's 3-8-head stacks
             "path": k["path"], "launches_train": train["launches"][name],
+            "launches_eval": evals["launches"].get(name, 0),
             # the stacks through this kernel and through the K1+K2 route:
             # CUDA events, and the device's busy time (torch.profiler)
             "block_ms": res.get("block_ms"), "composite_ms": res.get("composite_ms"),
@@ -1359,7 +1615,8 @@ def main() -> int:
                    "softmax_max_abs_diff": dsm, "profile": breakdown,
                    "hw2": hw2, "blocks": blocks, "yardsticks": yardsticks,
                    "train": train, "train_per_shape": train_report,
-                   "train_fp32_step": whole_step, "widths": widths}, f, indent=1, default=str)
+                   "train_fp32_step": whole_step, "widths": widths, "eval": evals}, f, indent=1,
+                  default=str)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -20,6 +20,7 @@ from csts_torch import resolve_device
 from csts_torch.config import Config
 from csts_torch.models.csts import CSTS, build_spec
 from csts_torch.train.losses import frame_softmax
+from csts_torch.utils.checkpoint import load_state_dict_file
 
 
 class GazePredictor:
@@ -47,9 +48,7 @@ class GazePredictor:
         """Load a state dict saved under the port's (the reference's) names:
         a ``torch.save``d state dict or a reference ``.pyth`` (its
         ``model_state``)."""
-        blob = torch.load(path, map_location="cpu", weights_only=True)
-        state = blob["model_state"] if "model_state" in blob else blob
-        return cls(cfg, state, **kwargs)
+        return cls(cfg, load_state_dict_file(path), **kwargs)
 
     def _bucket(self, n: int) -> int:
         for b in self.batch_sizes:

@@ -11,7 +11,10 @@ the whole-block kernel at 3, 4 and 8 heads (B9b/B9c) at L 1000 and Lk 200;
 for the training kernels B7 (forward and its hand-written backward)
 and B8, ragged rows and keys, a zero stochastic-depth factor, strided output
 gradients, and the three autograd Functions against autograd of their plain
-versions.
+versions; ``small_cfg``'s eval loop
+(``csts_torch.eval.tester.test``: loader, prefetcher, metrics) through the
+kernels against the same loop through the plain twins, and the AUC's
+tie order on the card against the CPU's.
 
 They skip without a card. On one, run them without the JAX suite's conftest:
 
@@ -20,6 +23,9 @@ They skip without a card. On one, run them without the JAX suite's conftest:
 or under ``compute-sanitizer --tool memcheck python -m pytest ...`` to check
 every kernel's memory accesses.
 """
+
+import contextlib
+import os
 
 import pytest
 import torch
@@ -464,8 +470,9 @@ def test_small_cfg_forward_bf16_through_kernels(gen):
     frame's argmax within one pixel; the counters show every kernel ran."""
     import dataclasses
 
-    from chip_smoke import WRAPPERS, plain_kernels, reset_launches
+    from chip_smoke import WRAPPERS, reset_launches
     from csts_torch.models.csts import CSTS
+    from csts_torch.tools import plain_twins
     from csts_torch.train.losses import frame_softmax
 
     cfg, spec, ref, video, audio = _small_model(2)
@@ -479,7 +486,7 @@ def test_small_cfg_forward_bf16_through_kernels(gen):
         torch.cuda.synchronize()
         ran = {n: WRAPPERS[n].launches for n in ("attention", "mlp_tail", "block", "pool_block",
                                                  "decoder_block", "t2_upsample")}
-        with plain_kernels():
+        with plain_twins():
             logits32 = ref(video, audio)
     assert all(ran.values()), ran
     sm16, sm32 = frame_softmax(logits16), frame_softmax(logits32)
@@ -915,3 +922,91 @@ def test_t2_upsample_window(gen, b, thw, c):
                 assert torch.equal(got, want)
             else:
                 assert float((got - want).abs().max()) <= 1e-6
+
+
+def _eval_cfg(root, mixed: bool):
+    from csts_torch.data.synthetic import write_dataset
+    from csts_torch.presets import small_cfg
+
+    prefix, splits = write_dataset(root, "ego4d", num_clips=5, res=(32, 48), seed=3)
+    cfg = small_cfg(4)
+    cfg.TRAIN.MIXED_PRECISION = mixed
+    cfg.TRAIN.ENABLE = False
+    cfg.DATA.PATH_PREFIX, cfg.DATA.PATH_TO_DATA_DIR = prefix, splits
+    cfg.DATA.DECODING_BACKEND = "npy"
+    cfg.DATA.GAUSSIAN_KERNEL = 5
+    cfg.TEST.DATASET = "ego4d_av_gaze_forecast"
+    cfg.TEST.BATCH_SIZE = 2
+    cfg.TEST.NUM_ENSEMBLE_VIEWS = cfg.TEST.NUM_SPATIAL_CROPS = 1
+    cfg.DATA_LOADER.NUM_WORKERS = 2
+    cfg.OUTPUT_DIR = os.path.join(root, "out")
+    return cfg
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+def test_small_eval_loop_kernels_vs_plain(gen, tmp_path, monkeypatch, mixed):
+    """``small_cfg``'s eval loop (spawned workers, pinned batches, the
+    side-stream prefetcher) through the kernels against the same loop through
+    the plain twins: the heatmaps of every batch in fp32 within 1e-5 and in
+    bf16 within ``heatmap_check`` (the logits within 0.05 of the largest
+    |logit|, the softmax bar 0.02, at least one decided frame and its argmax
+    within 1 px), the same rows, and the whole-set metrics: fp32 with the
+    same threshold and f1, recall, precision and AUC within 1e-4."""
+    from csts_torch.eval import tester
+    from csts_torch.tools import heatmap_check, plain_twins
+    from csts_torch.train import step as step_lib
+
+    cfg = _eval_cfg(str(tmp_path), mixed)
+    make = step_lib.make_eval_step
+    runs = []
+
+    def recording(cfg_, spec_):
+        step = make(cfg_, spec_)
+
+        def run(model, batch):
+            logits = []
+            hook = model.register_forward_hook(lambda m, i, o: logits.append(o.float()))
+            try:
+                out = step(model, batch)
+            finally:
+                hook.remove()
+            runs[-1].append((batch["index"].clone(), out.float(), logits[0]))
+            return out
+        return run
+
+    monkeypatch.setattr(step_lib, "make_eval_step", recording)
+    stats = []
+    for ctx in (contextlib.nullcontext, plain_twins):
+        runs.append([])
+        with ctx():
+            stats.append(tester.test(cfg))
+    assert len(runs[0]) == len(runs[1]) == 3
+    for (ia, a, la), (ib, b, lb) in zip(*runs):
+        assert torch.equal(ia, ib)
+        if mixed:
+            res = heatmap_check(la, lb, probs=a)
+            assert res["ok"], res
+        else:
+            assert float((a - b).abs().max()) <= 1e-5
+    if not mixed:
+        assert stats[0]["threshold"] == stats[1]["threshold"]
+        for k in ("f1", "recall", "precision", "auc"):
+            assert abs(stats[0][k] - stats[1][k]) <= 1e-4, (k, stats)
+
+
+@pytest.mark.parametrize("size", [16, 64])
+def test_auc_ties_on_the_card(gen, size):
+    """bf16 heatmaps quantised to seven levels (every frame full of ties) and
+    rescaled ones: the AUC on the card equals the CPU's (the stable argsort
+    ranks ties in pixel order on both)."""
+    from csts_torch.eval import metrics
+
+    raw = torch.rand(4, 8, size, size, generator=gen, device="cuda")
+    hm = torch.zeros_like(raw)
+    hm[:, :, 3:9, 4:10] = torch.rand(4, 8, 6, 6, generator=gen, device="cuda") + 0.01
+    for p in ((raw * 6).round() / 6, metrics.minmax_rescale(raw.to(torch.bfloat16))):
+        p = p.to(torch.bfloat16)
+        auc, valid = metrics.auc_per_frame(p, hm)
+        cpu_auc, cpu_valid = metrics.auc_per_frame(p.cpu(), hm.cpu())
+        assert torch.equal(valid.cpu(), cpu_valid)
+        assert float((auc.cpu() - cpu_auc).abs().max()) <= 1e-6
