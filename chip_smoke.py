@@ -76,7 +76,26 @@ Phases (any failure exits non-zero; nothing is caught):
      one fp32 step at batch 2 (TF32 off) through the kernels and through the
      plain twins from the same weights, masks and batch (loss and every
      parameter's gradient compared); one bf16 batch-8 step with the plain
-     attention twin in place of K1+B8, timed beside the kernels' step.
+     attention twin in place of K1+B8, timed beside the kernels' step;
+  7. the training entry point: ``csts_torch.tools.run_net.main`` with
+     ``--cfg configs/Ego4D/CSTS_Ego4D_Gaze_Forecast.yaml`` (read by the
+     port's own YAML reader) at full width, bf16 over fp32 masters, batch 8,
+     2 epochs of 6 iterations on a synthetic split in a temporary directory
+     (12 clips; 48 train rows, 16 val/test rows), initialised by the yaml's
+     recipe from seeded ``.pyth`` files (a video MViT at crop 224, whose
+     position embedding is resampled, and an audio MViT merged into the
+     audio branch; CHECKPOINT_EPOCH_RESET), validating each epoch, then
+     testing the npz it wrote: launch counters set to 0 before and read
+     after (K1, B8, B7 and K3 at their launches per step, every step; K2
+     and B3-B5 in validation and test), each iteration's time, the loader's
+     wait share, checkpoint save and load seconds and GB, peak memory; the
+     npz's JAX layout (3P+4 leaves shaped as ``param_leaf_names``); a second
+     uninterrupted run, then the preemption drill (SIGTERM injected after 3
+     iterations, an iter-tagged save, auto-resume to the end) held to the
+     two runs' spread, bit-equal where they are; beside it the raw step
+     with ACT_CHECKPOINT on and off at batch 8 and with accum_steps 2 of 8
+     against one pass of 16 (ms, peak memory), and both in fp32 at batch 16
+     at the whole-step bars.
 It prints the ``kernels`` JSON line, the card line and, last, the result line.
 Per-shape details go to ``chiprun_out/chip_smoke.json``.
 """
@@ -1366,6 +1385,433 @@ def eval_phase(rng: np.random.Generator) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------------------
+# the trainer phase: run_net's train mode from the shipped yaml on a synthetic
+# split written to a temporary directory; the yaml's fine-tune recipe from
+# seeded .pyth files; a preemption drill; the npz's JAX layout; beside it the
+# raw step with ACT_CHECKPOINT on and off and with accum_steps 2 and 1
+# ----------------------------------------------------------------------------------
+
+YAML = os.path.join(ROOT, "configs", "Ego4D", "CSTS_Ego4D_Gaze_Forecast.yaml")
+TRAINER_CLIPS = 12
+TRAINER_TRAIN_ROWS = 48  # the 12 clips listed 4 times: 6 iterations of 8 an epoch
+TRAINER_VAL_ROWS = 16    # val and test: 2 batches of 8
+TRAINER_EPOCHS = 2
+PREEMPT_AFTER = 3        # the drill's SIGTERM after 3 of the first epoch's 6 iterations
+PYTH_CROP = 224          # the video .pyth's crop: its spatial position embedding is resampled
+# 8 loader workers (the yaml's) for the run whose loop is measured; 2 for the
+# drill's runs, whose loop is not: each worker start costs the fork server's
+# imports, and the drill runs train() three more times
+DRILL_WORKERS = 2
+ACCUM_BATCH = 16         # accum_steps 2 of 8 against one pass of 16
+
+
+def _trainer_split(root: str, seed: int):
+    """The split: TRAINER_CLIPS clips (150 frames, 256x320); the train list
+    holds them TRAINER_TRAIN_ROWS // TRAINER_CLIPS times, the test list
+    (which val reads too) TRAINER_VAL_ROWS rows."""
+    from csts_torch.data.synthetic import write_dataset
+
+    prefix, splits = write_dataset(root, "ego4d", num_clips=TRAINER_CLIPS, frames=150,
+                                   res=EVAL_RES, fps=30, seed=seed)
+    with open(os.path.join(splits, "train_ego4d_gaze.csv")) as f:
+        clips = f.read().splitlines()
+    rows = {"train_ego4d_gaze.csv": clips * (TRAINER_TRAIN_ROWS // TRAINER_CLIPS),
+            "test_ego4d_gaze.csv": (clips * 2)[:TRAINER_VAL_ROWS]}
+    for name, lines in rows.items():
+        with open(os.path.join(splits, name), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return prefix, splits
+
+
+def _trainer_pyths(root: str):
+    """The yaml's init recipe as two seeded reference checkpoints: a
+    video-only MViT at crop PYTH_CROP (its spatial position embedding has
+    another token count, so the load interpolates it) and an audio-pretrained
+    MViT under plain ``blocks.*`` / ``patch_embed.*`` / ``pos_embed_*``
+    names (the load remaps them to the audio branch)."""
+    cfg = flagship_cfg()
+    cfg.DATA.TRAIN_CROP_SIZE = cfg.DATA.TEST_CROP_SIZE = PYTH_CROP
+    model = CSTS(build_spec(cfg))
+    init_params(model, torch.Generator().manual_seed(SEED + 3))
+    sd = model.state_dict()
+    video = {k: v for k, v in sd.items() if not k.endswith("_audio")
+             and k.startswith(("patch_embed.", "pos_embed_", "blocks."))}
+    audio = {}
+    for k, v in sd.items():
+        if k.startswith("blocks_audio."):
+            audio["blocks." + k[len("blocks_audio."):]] = v
+        elif k.startswith("patch_embed_audio."):
+            audio["patch_embed." + k[len("patch_embed_audio."):]] = v
+        elif k in ("pos_embed_spatial_audio", "pos_embed_temporal_audio"):
+            audio[k[:-len("_audio")]] = v
+    paths = os.path.join(root, "k400_video_224.pyth"), os.path.join(root, "audio_mvit.pyth")
+    for path, part in zip(paths, (video, audio)):
+        torch.save({"model_state": part, "epoch": 0}, path)
+    return paths, tuple(sd["pos_embed_spatial"].shape)
+
+
+def _run_net_args(split, pyths, out: str, workers: int, test: bool) -> list:
+    """run_net's arguments: the yaml and what this phase sets over it. The
+    run that tests saves its final epoch; the drill's runs save only the
+    preemption's npz (their final states are compared in memory)."""
+    prefix, splits = split
+    return ["--cfg", YAML, "DATA.PATH_PREFIX", prefix, "DATA.PATH_TO_DATA_DIR", splits,
+            "DATA.DECODING_BACKEND", "npy", "TRAIN.MIXED_PRECISION", "True",
+            "SOLVER.MAX_EPOCH", str(TRAINER_EPOCHS), "TRAIN.CHECKPOINT_PERIOD",
+            str(TRAINER_EPOCHS if test else TRAINER_EPOCHS + 1),
+            "TRAIN.CHECKPOINT_FILE_PATH", pyths[0],
+            "TRAIN.AUDIO_CHECKPOINT_FILE_PATH", pyths[1], "TEST.ENABLE", str(test),
+            "TEST.BATCH_SIZE", "8", "DATA_LOADER.NUM_WORKERS", str(workers),
+            "LOG_PERIOD", "1", "OUTPUT_DIR", out]
+
+
+def _groups(leaves: list, p: int) -> dict:
+    """A TrainState's leaves (3P+4, no EMA) as its params, moments and scalars."""
+    return {"params": leaves[:p], "mu": leaves[p + 3:2 * p + 3],
+            "nu": leaves[2 * p + 3:3 * p + 3],
+            "scalars": [leaves[p], leaves[p + 1], leaves[p + 2], leaves[3 * p + 3]]}
+
+
+def _diff(a: dict, b: dict) -> dict:
+    """Largest |Δ| and the root mean square of Δ of each group of two
+    TrainStates."""
+    out = {}
+    for g in a:
+        d = [np.asarray(x, np.float64) - y for x, y in zip(a[g], b[g])]
+        n = sum(x.size for x in d)
+        out[g] = {"max": max(float(np.abs(x).max()) for x in d),
+                  "rms": float(np.sqrt(sum(float(np.square(x).sum()) for x in d) / n))}
+    return out
+
+
+def _npz_shapes(path: str) -> list:
+    """The leaves' shapes of an npz, from the members' headers (nothing else read)."""
+    import zipfile
+
+    shapes = []
+    with zipfile.ZipFile(path) as z:
+        for name in sorted(z.namelist()):
+            with z.open(name) as f:
+                fmt = np.lib.format
+                read = (fmt.read_array_header_1_0 if fmt.read_magic(f) == (1, 0)
+                        else fmt.read_array_header_2_0)
+                shapes.append(tuple(read(f)[0]))
+    return shapes
+
+
+def trainer_phase(rng: np.random.Generator) -> dict:
+    """Phase 7: ``python -m csts_torch.tools.run_net --cfg <the Ego4D forecast
+    yaml>`` on the card through ``run_net.main``: the flagship at full width,
+    bf16 over fp32 masters, batch 8, 2 epochs of 6 iterations, validation
+    each epoch, the test of the npz it wrote; the preemption drill; the npz
+    layout."""
+    import tempfile
+
+    from csts_torch.convert import to_jax
+    from csts_torch.data import loader as loader_lib
+    from csts_torch.tools import run_net
+    from csts_torch.train import trainer as trainer_lib
+    from csts_torch.utils import checkpoint as cu
+
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        split = _trainer_split(os.path.join(root, "data"), int(rng.integers(1 << 30)))
+        pyths, pos_shape = _trainer_pyths(root)
+        out["setup_s"] = time.perf_counter() - t0
+
+        # what the run did: each step's entry time, CUDA events and launches,
+        # the consumer's waits inside training epochs, the saves and loads
+        seen = {"steps": [], "waits": [], "epochs": [], "saves": [], "loads": [], "in_train": False}
+        make_step, next_batch = train_lib.make_train_step, loader_lib.DevicePrefetcher.__next__
+        train_epoch, save, load = trainer_lib._train_epoch, cu.save_checkpoint, cu.load_checkpoint
+        load_params, train_fn = cu.load_params_npz, trainer_lib.train
+
+        def recording_step(*a, **k):
+            step = make_step(*a, **k)
+
+            def run(state, batch, gen, drop=None):
+                before = {n: WRAPPERS[n].launches for n in COUNTED}
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                t = time.perf_counter()
+                start.record()
+                res = step(state, batch, gen, drop)
+                end.record()
+                seen["steps"].append((t, start, end, {n: WRAPPERS[n].launches - before[n]
+                                                      for n in COUNTED}))
+                return res
+            return run
+
+        def timed_next(self):
+            t = time.perf_counter()
+            try:
+                return next_batch(self)
+            finally:
+                if seen["in_train"]:
+                    seen["waits"][-1].append(time.perf_counter() - t)
+
+        def timed_epoch(*a, **k):
+            seen["in_train"] = True
+            seen["waits"].append([])
+            t = time.perf_counter()
+            try:
+                return train_epoch(*a, **k)
+            finally:
+                seen["in_train"] = False
+                seen["epochs"].append(time.perf_counter() - t)
+
+        def timed(fn, key):
+            def run(path, *a, **k):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                res = fn(path, *a, **k)
+                torch.cuda.synchronize()
+                seen[key].append((time.perf_counter() - t, path))
+                return res
+            return run
+
+        def timed_save(*a, **k):
+            t = time.perf_counter()
+            path = save(*a, **k)
+            seen["saves"].append((time.perf_counter() - t, path))
+            return path
+
+        def measured_train(cfg, device=None):
+            torch.cuda.reset_peak_memory_stats()
+            state = train_fn(cfg, device)
+            seen["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            seen["final"] = cu.state_leaves(state)  # the JAX layout, on the host
+            return state
+
+        runs = {}
+        try:
+            train_lib.make_train_step = recording_step
+            loader_lib.DevicePrefetcher.__next__ = timed_next
+            trainer_lib._train_epoch = timed_epoch
+            cu.save_checkpoint, cu.load_checkpoint = timed_save, timed(load, "loads")
+            cu.load_params_npz = timed(load_params, "loads")
+            trainer_lib.train = measured_train
+            # the run: train, then test the npz it wrote (the yaml's 8 workers)
+            a_out = os.path.join(root, "run_a")
+            reset_launches()
+            t = time.perf_counter()
+            stats = run_net.main(_run_net_args(split, pyths, a_out, 8, True))
+            out["run_s"] = time.perf_counter() - t
+            launches = {name: WRAPPERS[name].launches for name in COUNTED}
+            runs["a"] = {k: list(v) if isinstance(v, list) else v for k, v in seen.items()}
+            for key in ("steps", "waits", "epochs"):
+                seen[key] = []
+            # a second uninterrupted run: the spread between two runs
+            b_out = os.path.join(root, "run_b")
+            run_net.main(_run_net_args(split, pyths, b_out, DRILL_WORKERS, False))
+            runs["b"] = seen.pop("final")
+            # the drill: SIGTERM injected mid-epoch, then auto-resume to the end
+            c_out = os.path.join(root, "run_c")
+            trainer_lib._PREEMPT_AFTER_ITERS = PREEMPT_AFTER
+            try:
+                run_net.main(_run_net_args(split, pyths, c_out, DRILL_WORKERS, False))
+            finally:
+                trainer_lib._PREEMPT_AFTER_ITERS = None
+            mid = cu.get_last_checkpoint(c_out)
+            mid_meta = cu.checkpoint_meta(mid)
+            run_net.main(_run_net_args(split, pyths, c_out, DRILL_WORKERS, False))
+            runs["c"] = seen.pop("final")
+            assert cu.get_last_checkpoint(c_out) == mid  # the drill's runs save nothing else
+        finally:
+            train_lib.make_train_step, loader_lib.DevicePrefetcher.__next__ = make_step, next_batch
+            trainer_lib._train_epoch, trainer_lib.train = train_epoch, train_fn
+            cu.save_checkpoint, cu.load_checkpoint, cu.load_params_npz = save, load, load_params
+
+        # the run's loop: step times, the loader's wait share, launches
+        ra = runs["a"]
+        per_epoch = TRAINER_TRAIN_ROWS // 8
+        steps = ra["steps"]
+        assert len(steps) == TRAINER_EPOCHS * per_epoch, len(steps)
+        for _, _, _, per_step in steps:
+            for name in ("attention", "attention_bwd", "mlp_tail_train", "t2_upsample"):
+                assert per_step[name] == PER_STEP[name], (name, per_step)
+        intervals = [steps[i + 1][0] - steps[i][0] for i in range(len(steps) - 1)
+                     if (i + 1) % per_epoch]  # within an epoch
+        step_ms = float(np.median(intervals[1:])) * 1e3  # after the first (warm-up) interval
+        device_ms = [s.elapsed_time(e) for _, s, e, _ in steps]
+        waits = [w for ep in ra["waits"] for w in ep[1:]]  # after each epoch's first batch
+        first_waits = [ep[0] for ep in ra["waits"]]
+        loop_s = sum(ra["epochs"]) - sum(first_waits)
+        save_s, save_path = ra["saves"][-1]
+        gb = os.path.getsize(save_path) / 1e9
+        test_load_s = ra["loads"][-1][0]
+        out.update(step_ms=step_ms, clips_per_s=8e3 / step_ms, intervals_ms=[x * 1e3 for x in
+                                                                               intervals],
+                   step_events_ms=device_ms, step_events_median_ms=float(np.median(device_ms[1:])),
+                   loader_wait_s=sum(waits), loader_wait_share=sum(waits) / loop_s,
+                   first_waits_s=first_waits, epochs_s=ra["epochs"], save_s=save_s, save_gb=gb,
+                   test_load_s=test_load_s, peak_gib=ra["peak_gib"], launches=launches,
+                   test_stats=stats)
+        log(f"phase trainer: run_net train+test {out['run_s']:.1f} s (setup {out['setup_s']:.1f} s); "
+            f"{len(steps)} steps at batch 8: {step_ms:.2f} ms/step = {8e3 / step_ms:.2f} train "
+            f"clips/s (median iteration after warm-up, host clock, loader and metrics included; "
+            f"each step's span by events, median {out['step_events_median_ms']:.2f} ms); loader "
+            f"wait share {out['loader_wait_share']:.3f} after each epoch's first batch (first "
+            f"waits {', '.join(f'{w:.2f}' for w in first_waits)} s); peak memory "
+            f"{ra['peak_gib']:.2f} GiB ({CARD})")
+        log("phase trainer launches per step (each step): K1 attention "
+            f"{steps[-1][3]['attention']}, B8 attention_bwd {steps[-1][3]['attention_bwd']}, "
+            f"B7 mlp_tail_train {steps[-1][3]['mlp_tail_train']}, K3 t2_upsample "
+            f"{steps[-1][3]['t2_upsample']}; the whole run (train, val, test) {launches}")
+        log(f"phase trainer checkpoint: save {save_s:.2f} s for {gb:.3f} GB (the final "
+            f"epoch's npz), load for the test {test_load_s:.2f} s ({CARD})")
+        for name in ("attention", "attention_bwd", "mlp_tail_train", "t2_upsample", "mlp_tail",
+                     "block", "pool_block", "decoder_block"):
+            assert launches[name] > 0, f"trainer run: {name} never launched"
+        for k in ("f1", "recall", "precision", "auc"):
+            assert np.isfinite(stats[k]) and 0.0 <= stats[k] <= 1.0, stats
+
+        # the npz's JAX layout: 3P+4 leaves, params, mu, nu against param_leaf_names
+        cfg = flagship_cfg()
+        names = to_jax.param_leaf_names(cfg)
+        p = len(names)
+        a_path = cu.get_last_checkpoint(a_out)
+        shapes = _npz_shapes(a_path)
+        assert len(shapes) == 3 * p + 4, (len(shapes), p)
+        for off in (0, p + 3, 2 * p + 3):
+            for i, (name, shape) in enumerate(names):
+                assert shapes[off + i] == shape, (off + i, name, shape)
+        final_a = ra["final"]
+        assert [leaf.shape for leaf in final_a] == shapes
+        with np.load(a_path) as blob:
+            for i in (p, p + 2, 3 * p + 3):  # the counts and the step
+                assert int(blob[f"leaf_{i:05d}"]) == TRAINER_EPOCHS * per_epoch
+            # the file holds the trained state (its first and last parameter)
+            for i in (0, p - 1):
+                assert np.array_equal(blob[f"leaf_{i:05d}"], final_a[i]), i
+        log(f"phase trainer layout: {len(shapes)} leaves = 3·{p} + 4, params, mu and nu shaped "
+            f"as param_leaf_names, counts {TRAINER_EPOCHS * per_epoch}; the .pyth's "
+            f"pos_embed_spatial {pos_shape} resampled to the model's")
+
+        # the drill against the run, held to the spread of two uninterrupted runs
+        ga = _groups(final_a, p)
+        spread = _diff(ga, _groups(runs.pop("b"), p))
+        drill = _diff(ga, _groups(runs.pop("c"), p))
+        out.update(spread=spread, drill=drill, preempt_meta={k: v for k, v in mid_meta.items()
+                                                             if k != "cfg"},
+                   resume_load_s=[t for t, path in seen["loads"] if path == mid])
+        def line(d):
+            return ", ".join(f"{g} {v['max']:.3g} (rms {v['rms']:.3g})" for g, v in d.items())
+
+        log(f"phase trainer drill: SIGTERM injected after {PREEMPT_AFTER} iterations, saved "
+            f"{os.path.basename(mid)} (iter {mid_meta.get('iter')}), resumed to the end; max|Δ| "
+            f"against the run: {line(drill)}; two uninterrupted runs: {line(spread)}; resume "
+            f"load {', '.join(f'{t:.2f}' for t in out['resume_load_s'])} s, the drill's save "
+            f"{seen['saves'][-1][0]:.2f} s ({CARD})")
+        assert mid.endswith(f"checkpoint_epoch_00000_iter_{PREEMPT_AFTER:07d}.npz"), mid
+        assert drill["scalars"]["max"] == 0.0, drill
+        for g, v in drill.items():
+            # bit equality where two runs agree bit for bit; else the drill's
+            # rms within twice the two runs' (the largest |Δ| saturates at
+            # Adam's bound of about Σlr as soon as the runs differ at all, so
+            # it cannot tell a faulty resume from the card's own spread; the
+            # rms over millions of values can, and varies little run to run)
+            if spread[g]["max"] == 0.0:
+                assert v["max"] == 0.0, (g, v)
+            else:
+                assert v["rms"] <= 2 * spread[g]["rms"], (g, v, spread[g])
+        del ga, final_a, runs
+    torch.cuda.empty_cache()
+    out.update(trainer_extras(rng))
+    return out
+
+
+def trainer_extras(rng: np.random.Generator) -> dict:
+    """Beside the trainer, the raw step of one state: ACT_CHECKPOINT on
+    against off at batch 8 (bf16), accum_steps 2 of 8 against one pass of 16
+    (bf16), in turns, ms by CUDA events and peak memory; then both at batch
+    16 in fp32 (TF32 off) from the same weights and masks: the loss and
+    every gradient at the whole-step bars."""
+    cfg = flagship_train_cfg()
+    spec = build_spec(cfg)
+    state = train_lib.create_train_state(cfg, spec, torch.Generator().manual_seed(SEED + 4),
+                                         device="cuda")
+    model = state.model
+    batch = make_train_batch(rng, ACCUM_BATCH, spec)
+    half = {k: v[:8] for k, v in batch.items()}
+    gen = torch.Generator().manual_seed(SEED + 5)
+
+    def measure(remat: bool, accum: int, data: dict) -> tuple:
+        model.spec = dataclasses.replace(spec, remat=remat)
+        step = train_lib.make_train_step(cfg, model.spec, STEPS_PER_EPOCH, accum_steps=accum)
+        step(state, data, gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = [m for m, _ in timed_steps(step, state, data, gen, 3)]
+        return ms, torch.cuda.max_memory_allocated() / 2 ** 30
+
+    res = {}
+    for turn in range(2):
+        for tag, remat, accum, data in (("act_off", False, 1, half), ("act_on", True, 1, half),
+                                        ("b16_accum1", False, 1, batch),
+                                        ("b16_accum2", False, 2, batch)):
+            ms, peak = measure(remat, accum, data)
+            r = res.setdefault(tag, {"ms": [], "peak_gib": 0.0})
+            r["ms"] += ms
+            r["peak_gib"] = max(r["peak_gib"], peak)
+    for r in res.values():
+        r["median_ms"] = float(np.median(r["ms"]))
+
+    # fp32 gradients at batch 16: one pass against two micro-batches
+    model.spec = dataclasses.replace(spec, dtype="float32", remat=False)
+    gen2 = torch.Generator().manual_seed(SEED + 6)
+    micro = [sample_drop_masks(spec, ACCUM_BATCH // 2, gen2, "cuda") for _ in range(2)]
+    whole = [None if m[0] is None else tuple(torch.cat([x[j] for x in m]) for j in range(2))
+             for m in zip(*micro)]
+    snapshot = {n: p.detach().clone() for n, p in model.named_parameters()}
+
+    def grads_of(accum, drop):
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(snapshot[n])
+        seen = {}
+        update = state.optimizer.step
+
+        def record(lr):
+            seen.update({n: p.grad.detach().clone() for n, p in model.named_parameters()})
+            return update(lr)
+
+        state.optimizer.step = record
+        try:
+            stats, _ = train_lib.make_train_step(cfg, model.spec, STEPS_PER_EPOCH,
+                                                 accum_steps=accum)(state, batch, None, drop=drop)
+        finally:
+            del state.optimizer.step
+        return float(stats["loss"]), seen
+
+    loss1, g1 = grads_of(1, whole)
+    loss2, g2 = grads_of(2, micro)
+    norm = lambda t: float(torch.linalg.vector_norm(t.float()))  # noqa: E731
+    total = float(np.sqrt(sum(norm(g) ** 2 for g in g1.values())))
+    share = {n: norm(g2[n] - g1[n]) / (STEP_GRAD_RTOL * norm(g1[n]) + STEP_GRAD_FLOOR * total)
+             for n in g1}
+    worst = sorted(share.items(), key=lambda kv: -kv[1])[:3]
+    dloss = abs(loss2 - loss1) / abs(loss1)
+    res["fp32_check"] = {"loss_accum1": loss1, "loss_accum2": loss2, "loss_rel_err": dloss,
+                         "bar_share_worst": worst}
+    log(f"phase trainer ACT_CHECKPOINT at batch 8: off {res['act_off']['median_ms']:.2f} ms/step, "
+        f"peak {res['act_off']['peak_gib']:.2f} GiB; on {res['act_on']['median_ms']:.2f} ms/step, "
+        f"peak {res['act_on']['peak_gib']:.2f} GiB (steps in turns, CUDA events; {CARD})")
+    log(f"phase trainer accumulation at effective batch {ACCUM_BATCH}: one pass "
+        f"{res['b16_accum1']['median_ms']:.2f} ms/step, peak {res['b16_accum1']['peak_gib']:.2f} "
+        f"GiB; accum_steps 2 {res['b16_accum2']['median_ms']:.2f} ms/step, peak "
+        f"{res['b16_accum2']['peak_gib']:.2f} GiB ({CARD}); fp32 loss {loss2:.8g} vs {loss1:.8g} "
+        f"(relative {dloss:.3g}), worst shares of the gradient bar "
+        + ", ".join(f"{n} {e:.3g}" for n, e in worst))
+    assert dloss <= STEP_LOSS_RTOL, (loss1, loss2)
+    assert worst[0][1] <= 1.0, worst
+    model.spec = spec
+    del state, model, batch, half, snapshot, g1, g2
+    torch.cuda.empty_cache()
+    return {"extras": res}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -1518,6 +1964,11 @@ def main() -> int:
     whole_step = whole_step_check(rng)
     log(f"phase train checks: {time.perf_counter() - t0:.2f} s")
 
+    # --- phase 7: the training entry point (run_net's train mode) -------------
+    t0 = time.perf_counter()
+    trainer = trainer_phase(rng)
+    log(f"phase trainer total: {time.perf_counter() - t0:.2f} s")
+
     kernels = []
     for name, k in ALL_KERNELS.items():
         if name in KERNELS:
@@ -1542,6 +1993,8 @@ def main() -> int:
             # ms and the bound per forward (serve) or per training step (train)
             "path": path, "launches_train": train["launches"][name],
             "launches_eval": evals["launches"].get(name, 0),
+            # launches in the trainer phase's run: 12 steps, 2 validations, a test
+            "launches_trainer": trainer["launches"].get(name, 0),
             # the whole blocks, phase 1 included, through this kernel and
             # through the K1+K2 route (whole-block kernels only)
             "block_ms": per("block_ms") if name in WHOLE_BLOCKS else None,
@@ -1565,6 +2018,7 @@ def main() -> int:
             # hw2_skip on (ab_flags), or one run of ab_block's 3-8-head stacks
             "path": k["path"], "launches_train": train["launches"][name],
             "launches_eval": evals["launches"].get(name, 0),
+            "launches_trainer": trainer["launches"].get(name, 0),
             # the stacks through this kernel and through the K1+K2 route:
             # CUDA events, and the device's busy time (torch.profiler)
             "block_ms": res.get("block_ms"), "composite_ms": res.get("composite_ms"),
@@ -1615,7 +2069,8 @@ def main() -> int:
                    "softmax_max_abs_diff": dsm, "profile": breakdown,
                    "hw2": hw2, "blocks": blocks, "yardsticks": yardsticks,
                    "train": train, "train_per_shape": train_report,
-                   "train_fp32_step": whole_step, "widths": widths, "eval": evals}, f, indent=1,
+                   "train_fp32_step": whole_step, "widths": widths, "eval": evals,
+                   "trainer": trainer}, f, indent=1,
                   default=str)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

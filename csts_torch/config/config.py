@@ -1,7 +1,8 @@
 """Typed configuration system, the PyTorch port's own copy of
 ``csts_tpu/config/config.py`` (same keys, defaults and merge rules; the port
-imports nothing of the JAX package). PyYAML is imported only inside
-:func:`load_config`, so the port runs where it is not installed.
+imports nothing of the JAX package). YAML files are read by the port's own
+reader of the configs' subset (``config/yaml_subset.py``), never PyYAML, so
+the CPU and the card, which has no PyYAML, read a config by the same path.
 
 Capability parity with the reference fvcore-CfgNode config
 (``slowfast/config/defaults.py:12-977`` + ``custom_config.py:8-25``), redesigned as
@@ -27,6 +28,8 @@ import dataclasses
 import os
 from dataclasses import dataclass, field
 from typing import Any, List, Optional, Tuple
+
+from csts_torch.config import yaml_subset
 
 
 def _f(default):
@@ -469,11 +472,7 @@ def load_config(
     """Build a config: defaults <- YAML <- CLI overrides (``load_config`` parser.py:67-94)."""
     cfg = get_cfg()
     if cfg_file:
-        import yaml
-
-        with open(cfg_file, "r") as f:
-            loaded = yaml.safe_load(f) or {}
-        merge_from_dict(cfg, loaded)
+        merge_from_dict(cfg, yaml_subset.load_file(cfg_file) or {})
     if opts:
         merge_from_list(cfg, opts)
     if output_dir:

@@ -14,6 +14,10 @@ device prefetcher (``csts_tpu/data/loader.py``; reference
   in every worker. Each worker receives the dataset's arguments and builds
   its index itself (``AVGazeDataset.__getstate__``). Batches come back as
   tensors, pinned when DATA_LOADER.PIN_MEMORY holds and the device is CUDA.
+  The workers outlive an epoch (``persistent_workers``), so a trainer's
+  epochs and validations start none, and they ignore SIGTERM: a
+  preemption signal sent to the whole process group leaves them serving
+  the main process until it has saved its checkpoint.
 * The final batch of val/test stays short (the JAX loader wrap-pads it to
   keep jit shapes static); the meters drop repeated dataset indices either
   way. Train drops the incomplete final batch.
@@ -24,6 +28,7 @@ device prefetcher (``csts_tpu/data/loader.py``; reference
 from __future__ import annotations
 
 import queue
+import signal
 import threading
 from typing import Dict, Iterator, List, Optional, Tuple
 
@@ -45,6 +50,10 @@ def collate(samples) -> Dict[str, torch.Tensor]:
     batch = {key: torch.from_numpy(np.stack([s[key] for s in samples])) for key in BATCH_KEYS}
     batch["index"] = torch.as_tensor([int(s["index"]) for s in samples], dtype=torch.int64)
     return batch
+
+
+def _ignore_sigterm(worker_id: int) -> None:
+    signal.signal(signal.SIGTERM, signal.SIG_IGN)
 
 
 class SeededItems(Dataset):
@@ -126,6 +135,8 @@ def construct_loader(cfg: Config, split: str, device: Optional[torch.device] = N
         collate_fn=collate,
         num_workers=workers,
         multiprocessing_context="forkserver" if workers > 0 else None,
+        persistent_workers=workers > 0,
+        worker_init_fn=_ignore_sigterm if workers > 0 else None,
         pin_memory=bool(cfg.DATA_LOADER.PIN_MEMORY and device is not None
                         and device.type == "cuda"),
     )

@@ -1,7 +1,8 @@
 """Evaluation entry point: ``test(cfg)`` (``csts_tpu/eval/tester.py``; reference
 ``tools/test_avgaze_net.py:21-141``).
 
-Loads the checkpoint (a reference ``.pyth`` or a ``torch.save``d state dict),
+Loads the checkpoint (an npz TrainState, its EMA weights with TEST.USE_EMA,
+a reference ``.pyth`` or a ``torch.save``d state dict),
 streams the test split through the eval step (the model's eval forward and
 the per-frame softmax; on CUDA the hand-written kernels, by ``block_route``),
 accumulates the whole-test-set adaptive F1 and AUC, and emits the
@@ -94,8 +95,8 @@ def test(cfg: Config, device=None) -> dict:
     with loader_lib.DevicePrefetcher(iter(test_loader), device,
                                      depth=cfg.DATA_LOADER.PREFETCH_DEPTH) as prefetch:
         model = CSTS(spec)
-        if cu.load_test_checkpoint(cfg, model) is None:
-            init_params(model, torch.Generator().manual_seed(cfg.RNG_SEED))
+        cu.load_test_checkpoint(
+            cfg, model, init=lambda: init_params(model, torch.Generator().manual_seed(cfg.RNG_SEED)))
         if cfg.TRAIN.MIXED_PRECISION:
             model = model.to(torch.bfloat16)  # cast the weights once, not per op
         model = model.to(device).eval()

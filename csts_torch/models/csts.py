@@ -24,6 +24,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from csts_torch import ops
 from csts_torch.config import Config
@@ -388,6 +389,17 @@ class CSTS(nn.Module):
             return spatial.repeat(1, t, 1) + temporal.repeat_interleave(h * w, dim=1)
         return self.pos_embed_audio if audio else self.pos_embed
 
+    def _encoder_block(self, block: MultiScaleBlock, x: torch.Tensor, thw: THW, drop=None):
+        """One encoder block; in training with MODEL.ACT_CHECKPOINT
+        (``spec.remat``) its activations are recomputed in the backward, as
+        the JAX package's ``jax.checkpoint`` around ``_encoder_block``. The
+        block draws no randomness (its masks are passed in) and its kernels
+        give the same result when run again, so the RNG state is not kept."""
+        if self.spec.remat and self.training:
+            return checkpoint(block, x, thw, drop=drop, use_reentrant=False,
+                              preserve_rng_state=False)
+        return block(x, thw, drop=drop)
+
     def forward(self, video: torch.Tensor, audio: torch.Tensor, return_embed: bool = False,
                 drop=None):
         """video: (B, T, H, W, 3) frames (float, or raw uint8 normalised here);
@@ -418,11 +430,11 @@ class CSTS(nn.Module):
         groups = list(zip(spec.video_groups, spec.audio_groups))
         for gi, ((vs, ve), (as_, ae)) in enumerate(groups):
             for i in range(vs, ve):
-                x, thw = self.blocks[i](x, thw, drop=drop[i])
+                x, thw = self._encoder_block(self.blocks[i], x, thw, drop[i])
             if gi < len(groups) - 1:
                 inter_feat.append((x, thw))
             for i in range(as_, ae):
-                y, thw_audio = self.blocks_audio[i](y, thw_audio)
+                y, thw_audio = self._encoder_block(self.blocks_audio[i], y, thw_audio)
 
         # spatial-temporal fusion (custom_multimodal_builder.py:413-462)
         b = x.shape[0]

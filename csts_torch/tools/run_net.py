@@ -3,13 +3,15 @@
 ``utils/parser.py:13-94``):
 
     python -m csts_torch.tools.run_net --cfg configs/Ego4D/CSTS_Ego4D_Gaze_Forecast.yaml \\
-        TRAIN.ENABLE False TEST.CHECKPOINT_FILE_PATH weights.pyth [KEY VALUE ...]
+        DATA.PATH_PREFIX /data/Ego4D/clips.gaze OUTPUT_DIR runs/forecast [KEY VALUE ...]
 
-The same flags and the same config loading (a YAML needs PyYAML); TEST.ENABLE
-runs ``csts_torch.eval.tester.test``. It runs on CUDA unless ``--device``
-names another device, and raises with no CUDA. Training (TRAIN.ENABLE, the
-reference's default) is not ported yet (ROADMAP A.6) and raises, as do
-several shards (ROADMAP A.8).
+The same flags and the same config loading (the port's own YAML reader, no
+PyYAML). TRAIN.ENABLE runs ``csts_torch.train.trainer.train`` (auto-resume
+from OUTPUT_DIR, fine-tune init from TRAIN.CHECKPOINT_FILE_PATH), then
+TEST.ENABLE runs ``csts_torch.eval.tester.test``, which scores the newest
+checkpoint the trainer wrote unless TEST.CHECKPOINT_FILE_PATH names
+another. It runs on CUDA unless ``--device`` names another device, and
+raises with no CUDA. Several shards (ROADMAP A.8) raise.
 """
 
 from __future__ import annotations
@@ -39,8 +41,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
-    """Runs what the config enables; returns the test stats (empty if
-    TEST.ENABLE is off)."""
+    """Trains, then tests, as the config enables; returns the test stats
+    (empty if TEST.ENABLE is off)."""
     from csts_torch.config import load_config
 
     args = parse_args(argv)
@@ -51,8 +53,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     if args.num_shards > 1:
         raise NotImplementedError("several shards are not ported yet (ROADMAP A.8)")
     if cfg.TRAIN.ENABLE:
-        raise NotImplementedError(
-            "training is not ported yet (ROADMAP A.6); pass TRAIN.ENABLE False to test")
+        from csts_torch.train.trainer import train
+
+        train(cfg, device)
     if cfg.TEST.ENABLE:
         from csts_torch.eval.tester import test
 

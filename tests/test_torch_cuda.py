@@ -1010,3 +1010,69 @@ def test_auc_ties_on_the_card(gen, size):
         cpu_auc, cpu_valid = metrics.auc_per_frame(p.cpu(), hm.cpu())
         assert torch.equal(valid.cpu(), cpu_valid)
         assert float((auc.cpu() - cpu_auc).abs().max()) <= 1e-6
+
+
+def test_small_trainer_kernels_vs_plain(gen, tmp_path, monkeypatch):
+    """``small_cfg``'s trainer on the card (fp32, TF32 off, drop-path 0.2,
+    EMA, 2 epochs of 2 iterations, 2 loader workers, validation each
+    epoch) through the kernels against the same run through the plain twins
+    (training and eval routes): the first step's loss within 1e-5 relative
+    and every later one within 1e-4 (test_torch_train.py's step bars), each
+    iteration's lr equal, and the final weights within 2·Σlr of each other;
+    then the npz round trip: the last checkpoint loaded into a fresh state
+    gives back the run's weights, moments, counts and EMA bit for bit."""
+    import numpy as np
+
+    from chip_smoke import WRAPPERS, reset_launches, train_twins
+    from csts_torch.models.csts import build_spec
+    from csts_torch.tools import plain_twins
+    from csts_torch.train import meters, trainer
+    from csts_torch.train import step as step_lib
+    from csts_torch.utils import checkpoint as cu
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _eval_cfg(str(tmp_path), mixed=False)
+    cfg.TRAIN.ENABLE = True
+    cfg.TRAIN.BATCH_SIZE = 2
+    cfg.MVIT.DROPPATH_RATE = 0.2
+    cfg.SOLVER.EMA_DECAY = 0.9
+    cfg.SOLVER.MAX_EPOCH = 2
+    cfg.TRAIN.EVAL_PERIOD = cfg.TRAIN.CHECKPOINT_PERIOD = 1
+    seen = []
+    update = meters.TrainGazeMeter.update_stats
+
+    def record(self, f1, r, p, th, loss, lr, mb_size):
+        seen[-1].append((loss, lr))
+        return update(self, f1, r, p, th, loss, lr, mb_size)
+
+    monkeypatch.setattr(meters.TrainGazeMeter, "update_stats", record)
+    states = []
+    for tag in ("kernels", "plain"):
+        seen.append([])
+        cfg.OUTPUT_DIR = str(tmp_path / tag)
+        ctx = (contextlib.nullcontext() if tag == "kernels"
+               else contextlib.ExitStack())
+        with ctx as stack:
+            if tag == "plain":
+                stack.enter_context(train_twins())
+                stack.enter_context(plain_twins())
+            reset_launches()
+            states.append(trainer.train(cfg))
+            if tag == "kernels":
+                ran = {n: WRAPPERS[n].launches for n in ("attention", "attention_bwd",
+                                                         "mlp_tail_train", "t2_upsample")}
+                assert all(ran.values()), ran
+    (lk, rk), (lp, rp) = seen[0][0], seen[1][0]
+    assert abs(lk - lp) <= 1e-5 * abs(lp)
+    for (lk, rk), (lp, rp) in zip(seen[0], seen[1]):
+        assert abs(lk - lp) <= 1e-4 * abs(lp) and rk == rp
+    lrs = sum(lr for _, lr in seen[1])
+    plain = dict(states[1].model.named_parameters())
+    for n, p in states[0].model.named_parameters():
+        assert float((p.detach() - plain[n].detach()).abs().max()) <= 2 * lrs, n
+    path = cu.get_last_checkpoint(str(tmp_path / "kernels"))
+    fresh = step_lib.create_train_state(cfg, build_spec(cfg), torch.Generator().manual_seed(5),
+                                        device="cuda")
+    cu.load_checkpoint(path, fresh)
+    for a, b in zip(cu.state_leaves(fresh), cu.state_leaves(states[0])):
+        assert np.array_equal(a, b)

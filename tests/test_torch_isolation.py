@@ -67,10 +67,11 @@ def _imports(path):
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: os.path.relpath(p, REPO))
 def test_no_forbidden_imports(path):
-    for name, top_level in _imports(path):
+    for name, _ in _imports(path):
         root = name.split(".")[0]
         assert root not in FORBIDDEN, f"{path} imports {name}"
-        assert not (root == "yaml" and top_level), f"{path} imports yaml at module level"
+        # the port reads YAML with its own reader (the card's machine has no PyYAML)
+        assert root != "yaml", f"{path} imports yaml"
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):

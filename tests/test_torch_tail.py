@@ -165,16 +165,22 @@ def test_head_dim_padding_is_exact(hd, lq, lk):
 
 
 def test_act_checkpoint_raises():
-    """``MODEL.ACT_CHECKPOINT`` is not ported: the training entry points raise
-    instead of training without it."""
+    """``MODEL.ACT_CHECKPOINT`` no longer makes the training entry points
+    raise: the state and the step build with it, and the model recomputes
+    its encoder blocks (``spec.remat``; the gradients against the plain step
+    in tests/test_torch_trainer.py). What still raises is a step whose batch
+    does not split into its micro-batches."""
     cfg = small_cfg(2)
     cfg.MODEL.ACT_CHECKPOINT = True
     spec = build_spec(cfg)
     assert spec.remat
-    with pytest.raises(NotImplementedError, match="ACT_CHECKPOINT"):
-        train_lib.create_train_state(cfg, spec, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="ACT_CHECKPOINT"):
-        train_lib.make_train_step(cfg, spec, steps_per_epoch=10)
+    state = train_lib.create_train_state(cfg, spec, torch.Generator().manual_seed(0),
+                                         device="cpu")
+    step = train_lib.make_train_step(cfg, spec, steps_per_epoch=10, accum_steps=3)
+    batch = {"video": torch.zeros(2, 8, 32, 32, 3), "audio": torch.zeros(2, 8, 32, 32, 1),
+             "labels_hm": torch.full((2, 8, 8, 8), 1.0 / 64)}
+    with pytest.raises(ValueError, match="micro-batches"):
+        step(state, batch, torch.Generator().manual_seed(0))
     cfg.MODEL.ACT_CHECKPOINT = False
     train_lib.make_train_step(cfg, build_spec(cfg), steps_per_epoch=10)
 

@@ -204,13 +204,18 @@ def test_optimizer_update_matches_optax(small, method):
 
 
 def test_unported_solver_options_raise(small):
+    """ZeRO-1 and FSDP (several processes, ROADMAP A.8) raise; BF16_MOMENTS
+    and gradient accumulation are ported (tests/test_torch_trainer.py)."""
     _, tcfg, _, params, _ = small
     model = _port_model(tcfg, params)
+    for option in ("ZERO1", "FSDP"):
+        setattr(tcfg.SOLVER, option, True)
+        with pytest.raises(NotImplementedError):
+            construct_optimizer(model, tcfg)
+        setattr(tcfg.SOLVER, option, False)
     tcfg.SOLVER.BF16_MOMENTS = True
-    with pytest.raises(NotImplementedError):
-        construct_optimizer(model, tcfg)
-    with pytest.raises(NotImplementedError):
-        tstep.make_train_step(tcfg, build_spec(tcfg), steps_per_epoch=10, accum_steps=2)
+    construct_optimizer(model, tcfg)
+    tstep.make_train_step(tcfg, build_spec(tcfg), steps_per_epoch=10, accum_steps=2)
 
 
 # ----------------------------------------------------------------------------------
