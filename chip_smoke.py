@@ -26,12 +26,30 @@ Phases (any failure exits non-zero; nothing is caught):
      the library call's device time (``device_ms``: summed durations from
      ``torch.profiler``), and for the whole-block kernels the same block
      through the K1+K2 route (CUDA events and device time);
-  4. the serving path: three requests (1, 5 and 8 clips) once to warm up,
-     then launch counters set to 0, the same requests timed, counters read
-     (each must equal its launches per forward times 3); outputs checked
-     (shapes, finite, each frame's heatmap sums to 1) and held against the
-     same weights through the plain versions in fp32 on the card; the
-     batch-8 forward timed and profiled (device time by kernel family);
+  4. the serving path (a bucket's first request ran eagerly in phase 2, its
+     second captures a CUDA graph over its static buffers, later ones
+     replay): launch counters set to 0, requests of 1, 5 and 8 clips (the
+     captures of buckets 1 and 8, then a replay), counters read (each its
+     launches per forward times the 2 captures); outputs checked (shapes,
+     finite, each frame's heatmap sums to 1) and held against the same
+     weights through the plain versions in fp32 on the card; at buckets 1
+     and 8 the replay bit-equal to the eager ``forward`` on the same
+     inputs, and one replay's device kernels counted by name
+     (``torch.profiler``) equal to the eager forward's, each kernel at its
+     launches per forward; requests of 1, 5 and 8 clips from host memory,
+     20 of each after 3 warm-ups, median and p90 ms beside the replay's
+     device time and the host's share; ``export_compiled`` on the card for
+     buckets (1, 8) into a temporary directory and ``from_exported`` (size,
+     seconds), its predictor through the kernels (launches counted) against
+     the live one (bit-equal, else the golden bar); a loopback
+     ``GazeHTTPServer``: 8 client threads posting 8 one-clip requests each
+     (two of them raw uint8 frames at 256x320), clips/s, p50/p99,
+     occupancy, every answer within the golden bar of a direct predict;
+     ``hw2_skip`` flipped after the capture (the next request launches B9a,
+     no stale replay); the batch-8 forward timed and profiled (device time
+     by kernel family), and at batches 8 and 1 timed through the kernels'
+     custom ops and through their launches directly, in turns (the
+     dispatcher's cost);
      then, under the same predictor, the hw2 path (``ab_flags``'s
      ``hw2_skip``): launch counters set to 0, one batch-8 forward with the
      switch on and one with it off, counters read (B9a ``hw2_upsample`` 2
@@ -90,13 +108,18 @@ Phases (any failure exits non-zero; nothing is caught):
      and B3-B5 in validation and test), each iteration's time, the loader's
      wait share, checkpoint save and load seconds and GB, peak memory; the
      npz's JAX layout (3P+4 leaves shaped as ``param_leaf_names``); a second
-     uninterrupted run, then the preemption drill (SIGTERM injected after 3
-     iterations, an iter-tagged save, auto-resume to the end) held to the
-     two runs' spread, bit-equal where they are; beside it the raw step
+     uninterrupted run, bit-equal to the first, then the preemption drill
+     (SIGTERM injected after 3 iterations, an iter-tagged save, auto-resume
+     to the end), bit-equal to the run; the max-pool backward in its fixed
+     order against CUDA's own (atomics) at the trainer's shapes, in turns;
+     beside it the raw step
      with ACT_CHECKPOINT on and off at batch 8 and with accum_steps 2 of 8
      against one pass of 16 (ms, peak memory), and both in fp32 at batch 16
      at the whole-step bars.
 It prints the ``kernels`` JSON line, the card line and, last, the result line.
+``python3 chip_smoke.py --determinism`` is a one-off beside it: the build and
+phase 7 alone under ``torch.use_deterministic_algorithms(True, warn_only=True)``,
+printing the ops it names (``determinism_probe``).
 Per-shape details go to ``chiprun_out/chip_smoke.json``.
 """
 
@@ -107,7 +130,10 @@ import dataclasses
 import json
 import os
 import sys
+import tempfile
+import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -122,12 +148,17 @@ from csts_torch.kernels import block as kb  # noqa: E402
 from csts_torch.kernels import upsample as kup  # noqa: E402
 from csts_torch.models import mvit as tmvit  # noqa: E402
 from csts_torch.models.csts import CSTS, build_spec, init_params  # noqa: E402
+from csts_torch import ops as tops  # noqa: E402
+from csts_torch.ops import conv as oc  # noqa: E402
 from csts_torch.ops import sample_drop_masks  # noqa: E402
 from csts_torch.presets import flagship_cfg, flagship_train_cfg  # noqa: E402
 from csts_torch.serving import GazePredictor  # noqa: E402
-from csts_torch.tools import ab_block, ab_flags, card_line, plain_twins  # noqa: E402
+from csts_torch.serving_server import GazeHTTPServer  # noqa: E402
+from csts_torch.tools import (ab_block, ab_flags, card_line, direct_launches,  # noqa: E402
+                              plain_twins, softmax_check)
 from csts_torch.tools.ab_kernels import b4_inputs, tail_inputs  # noqa: E402
-from csts_torch.tools.profile_forward import device_ms, device_trace, profile_forward  # noqa: E402
+from csts_torch.tools.profile_forward import (FAMILIES, device_ms, device_trace,  # noqa: E402
+                                              family, kernel_counts, profile_forward)
 from csts_torch.train import step as train_lib  # noqa: E402
 from csts_torch.train.losses import frame_softmax  # noqa: E402
 
@@ -147,6 +178,22 @@ REQUESTS = (1, 5, 8)
 PER_FORWARD = {"attention": 16, "mlp_tail": 16, "t2_upsample": 2,
                "block": 3, "pool_block": 4, "decoder_block": 3, "hw2_upsample": 0}
 HW2_PER_FORWARD = 2
+# the device kernel each wrapper launches exactly once a call (its other
+# kernels, such as K1's key-split merge or K2's LN2 and fc1, vary with the
+# shape or are shared): what a graph replay is counted by
+PRIMARY_KERNEL = {"attention": ("attn_wg_kernel", "attn_streamed_kernel"),
+                  "mlp_tail": ("tail_fc2_kernel", "mlp_tail_f32_kernel"),
+                  "t2_upsample": ("t2_upsample_kernel",), "block": ("block_attn_kernel",),
+                  "pool_block": ("pool_attn_kernel",), "decoder_block": ("decoder_attn_kernel",),
+                  "hw2_upsample": ("hw2_upsample_kernel",)}
+LATENCY_REQUESTS = 20  # timed requests of each size, after LATENCY_WARMUP
+LATENCY_WARMUP = 3
+SERVICE_CLIENTS = 8    # client threads, each posting SERVICE_POSTS one-clip requests
+SERVICE_POSTS = 8
+SERVICE_CLIPS = 8      # distinct clips the requests cycle through
+SERVICE_RAW = (256, 320)  # two requests carry raw uint8 frames of this size
+DISPATCH_TURNS = 3  # turns of the eager forward through the ops and direct launches
+KERNEL_FAMILIES = {f for f, _ in FAMILIES[:10]}  # the port's kernels' families
 BLOCK_BATCH = 8  # ab_block's stacks in the blocks phase
 
 # Tolerances of kernel vs plain version on the same inputs.
@@ -1036,6 +1083,249 @@ def whole_step_check(rng: np.random.Generator) -> dict:
             "grad_norm": total, "grad_rel_err_max": worst_rel, "bar_share_worst": worst}
 
 
+def _primary_counts(counts: dict) -> dict:
+    """{wrapper: its primary kernel's launches} from by-name device counts."""
+    return {name: sum(c for k, c in counts.items() if any(p in k.lower() for p in keys))
+            for name, keys in PRIMARY_KERNEL.items()}
+
+
+def _ours(counts: dict) -> dict:
+    """The by-name counts of the port's kernels (the families of the seven
+    eval kernels), without library kernels and copies."""
+    return {k: c for k, c in counts.items()
+            if any(p in k.lower() for keys in PRIMARY_KERNEL.values() for p in keys)
+            or family(k) in KERNEL_FAMILIES}
+
+
+def _golden(got: np.ndarray, want: np.ndarray) -> dict:
+    """tests/test_golden_256.py's bar on two heatmap stacks (B, T, h, w)."""
+    res = softmax_check(torch.from_numpy(got), torch.from_numpy(want))
+    res["ok"] = res["softmax_max_abs_diff"] < 0.02 and res["argmax_off_on_decided"] == 0
+    return res
+
+
+def latency_phase(pred, spec, rng) -> dict:
+    """Requests of 1, 5 and 8 clips from host memory through ``predict`` (a
+    graph replay each), LATENCY_REQUESTS of each after LATENCY_WARMUP: the
+    median and p90 request ms, the replay's device time and the host's share
+    (request wall - replay device time)."""
+    rows = {}
+    replay_dev = {b: device_ms(lambda b=b: pred._slots[b].graph.replay(), calls=20)
+                  for b in pred.batch_sizes}
+    for n in REQUESTS:
+        video, audio = make_inputs(rng, n, spec)
+        for _ in range(LATENCY_WARMUP):
+            pred.predict(video, audio)
+        ms = []
+        for _ in range(LATENCY_REQUESTS):
+            t0 = time.perf_counter()
+            pred.predict(video, audio)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        ms.sort()
+        b = pred._bucket(n)
+        med = ms[len(ms) // 2]
+        rows[n] = {"bucket": b, "requests": len(ms), "median_ms": med,
+                   "p90_ms": ms[min(len(ms) - 1, int(len(ms) * 0.9))],
+                   "replay_device_ms": replay_dev[b], "host_ms": med - replay_dev[b],
+                   "host_share": 1 - replay_dev[b] / med}
+        log(f"  latency {n} clips (bucket {b}): median {med:.2f} ms, p90 {rows[n]['p90_ms']:.2f} "
+            f"ms over {len(ms)} requests; replay device {replay_dev[b]:.2f} ms, host "
+            f"{rows[n]['host_ms']:.2f} ms = share {rows[n]['host_share']:.3f} ({CARD})")
+    return rows
+
+
+def export_phase(pred, requests, outs) -> dict:
+    """``export_compiled`` on the card for buckets (1, 8) into a temporary
+    directory, ``from_exported``, and the artifact's predictor through the
+    kernels (launch counts of its first, eager, request), its capture and a
+    replay, each held against the live predictor's answer: bit-equal, or
+    else within the golden bar."""
+    res = {}
+    with tempfile.TemporaryDirectory() as art:
+        t0 = time.perf_counter()
+        pred.export_compiled(art, batch_sizes=(1, 8))
+        res["export_s"] = time.perf_counter() - t0
+        res["files_mb"] = {f: os.path.getsize(os.path.join(art, f)) / 1e6
+                           for f in sorted(os.listdir(art))}
+        t0 = time.perf_counter()
+        exp = GazePredictor.from_exported(art)
+        res["load_s"] = time.perf_counter() - t0
+    video, audio = requests[-1]
+    res["runs"] = []
+    for run in ("eager", "capture", "replay"):
+        reset_launches()
+        got = exp.predict(video, audio)
+        count = {name: WRAPPERS[name].launches for name in PER_FORWARD}
+        if run != "replay":
+            for name, per in PER_FORWARD.items():
+                assert count[name] == per, (run, name, count[name], per)
+        equal = bool(np.array_equal(got["heatmaps"], outs[-1]["heatmaps"]))
+        check = _golden(got["heatmaps"], outs[-1]["heatmaps"])
+        assert equal or check["ok"], (run, check)
+        assert np.array_equal(got["gaze_xy"], outs[-1]["gaze_xy"]) or check["ok"]
+        res["runs"].append({"run": run, "launches": count, "bit_equal": equal,
+                            "max_abs_diff": float(np.abs(got["heatmaps"]
+                                                         - outs[-1]["heatmaps"]).max())})
+    del exp
+    torch.cuda.empty_cache()
+    log(f"  export: buckets (1, 8) in {res['export_s']:.2f} s, files "
+        + ", ".join(f"{f} {mb:.1f} MB" for f, mb in res["files_mb"].items())
+        + f"; from_exported {res['load_s']:.2f} s; "
+        + "; ".join(f"{r['run']}: launches {sum(r['launches'].values())}, bit-equal "
+                    f"{r['bit_equal']} (max|Δ| {r['max_abs_diff']:.3g})" for r in res["runs"]))
+    return res
+
+
+def service_phase(pred, spec, rng) -> dict:
+    """A loopback GazeHTTPServer over the live predictor: SERVICE_CLIENTS
+    threads post SERVICE_POSTS one-clip requests each (two of them raw
+    uint8 frames at SERVICE_RAW); clips/s, client-side p50/p99, the
+    batcher's occupancy; every answer within the golden bar of a direct
+    predict of the same clip."""
+    import io
+
+    t, s = spec.num_frames, spec.crop_size
+    clips = [tuple(x[0] for x in make_inputs(rng, 1, spec)) for _ in range(SERVICE_CLIPS)]
+    raw = rng.integers(0, 256, (t, *SERVICE_RAW, 3), dtype=np.uint8)
+    bodies = []
+    for i in range(SERVICE_CLIENTS * SERVICE_POSTS):
+        buf = io.BytesIO()
+        video, audio = clips[i % SERVICE_CLIPS]
+        np.savez(buf, video=raw if i in (5, 37) else video, audio=audio)
+        bodies.append(buf.getvalue())
+    answers, lat = [None] * len(bodies), [0.0] * len(bodies)
+    server = GazeHTTPServer(pred, port=0, max_wait_ms=5.0).start()
+    try:
+        base = f"http://127.0.0.1:{server.port}"
+        assert urllib.request.urlopen(f"{base}/healthz", timeout=30).read() == b"ok"
+
+        def client(c):
+            for i in range(c * SERVICE_POSTS, (c + 1) * SERVICE_POSTS):
+                req = urllib.request.Request(f"{base}/predict", data=bodies[i], method="POST")
+                t0 = time.perf_counter()
+                blob = urllib.request.urlopen(req, timeout=300).read()
+                lat[i] = (time.perf_counter() - t0) * 1e3
+                answers[i] = np.load(io.BytesIO(blob))["heatmaps"]
+
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(SERVICE_CLIENTS)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        wall = time.perf_counter() - t0
+        stats = json.loads(urllib.request.urlopen(f"{base}/stats", timeout=30).read())
+    finally:
+        server.close()
+    assert all(a is not None for a in answers) and stats["errors"] == 0, stats
+    direct = [pred.predict(v[None], a[None])["heatmaps"][0] for v, a in clips]
+    direct_raw = pred.predict(pred.preprocess_frames(raw)[None], clips[5 % SERVICE_CLIPS][1][None])
+    worst = {"softmax_max_abs_diff": 0.0, "argmax_off_on_decided": 0, "decided_frames": 0}
+    for i, got in enumerate(answers):
+        want = direct_raw["heatmaps"][0] if i in (5, 37) else direct[i % SERVICE_CLIPS]
+        check = _golden(got[None], want[None])
+        assert check["ok"], (i, check)
+        worst["softmax_max_abs_diff"] = max(worst["softmax_max_abs_diff"],
+                                            check["softmax_max_abs_diff"])
+        worst["argmax_off_on_decided"] += check["argmax_off_on_decided"]
+        worst["decided_frames"] += check["decided_frames"]
+    lat.sort()
+    res = {"requests": len(bodies), "wall_s": wall, "clips_per_s": len(bodies) / wall,
+           "p50_ms": lat[len(lat) // 2], "p99_ms": lat[min(len(lat) - 1, int(len(lat) * 0.99))],
+           "occupancy": stats["mean_batch_occupancy"], "batches": stats["batches"],
+           "server_p50_ms": stats.get("latency_p50_ms"),
+           "server_p99_ms": stats.get("latency_p99_ms"), "vs_direct": worst}
+    log(f"  service: {len(bodies)} requests from {SERVICE_CLIENTS} clients in {wall:.2f} s = "
+        f"{res['clips_per_s']:.2f} clips/s, client p50 {res['p50_ms']:.1f} ms p99 "
+        f"{res['p99_ms']:.1f} ms, {stats['batches']} batches, mean occupancy "
+        f"{res['occupancy']:.2f}; vs direct predict: softmax max|Δ| "
+        f"{worst['softmax_max_abs_diff']:.3g}, argmax off on {worst['argmax_off_on_decided']} "
+        f"of {worst['decided_frames']} decided frames ({CARD})")
+    return res
+
+
+def stale_graph_phase(pred, requests) -> dict:
+    """``hw2_skip`` flipped after bucket 8's capture: the next request must
+    not replay the stale graph (B9a launches 2 there), the one after it
+    captures (2 again), the third replays, with B9a's kernel in the
+    replay's device kernels."""
+    video, audio = requests[-1]
+    assert pred._slots[8].graph is not None
+    res = {}
+    with ab_flags.flags("hw2_skip"):
+        for run in ("next", "capture"):
+            reset_launches()
+            pred.predict(video, audio)
+            res[run] = WRAPPERS["hw2_upsample"].launches
+        slot = pred._slots[8]
+        counts = kernel_counts(lambda: slot.graph.replay())
+        res["replay_hw2_kernels"] = _primary_counts(counts)["hw2_upsample"]
+    assert res["next"] == HW2_PER_FORWARD and res["capture"] == HW2_PER_FORWARD, res
+    assert res["replay_hw2_kernels"] == HW2_PER_FORWARD, res
+    pred.predict(video, audio)  # off again: the bucket warms up anew
+    log(f"  stale graph: hw2_skip flipped after the capture: B9a launches "
+        f"{res['next']} on the next request (a stale replay would give 0), {res['capture']} "
+        f"at the re-capture, {res['replay_hw2_kernels']} B9a kernels in its replay")
+    return res
+
+
+def serve_phase(pred, spec, rng, requests, outs) -> dict:
+    """The graphs against the eager forward (bit-equal at each bucket, and
+    the same device kernels by name in a replay as in the eager forward),
+    the request latency, the artifact exported on the card, the HTTP service
+    and a switch flipped after a capture."""
+    res = {"graphs": {}}
+    for b in pred.batch_sizes:
+        video, audio = make_inputs(rng, b, spec)
+        v, a = torch.from_numpy(video).cuda(), torch.from_numpy(audio).cuda()
+        graph = pred.serve(v, a).clone()
+        slot = pred._slots[b]
+        assert slot.graph is not None
+        eager = pred.forward(v, a)
+        equal = bool(torch.equal(graph, eager))
+        eager_counts = _ours(kernel_counts(lambda: pred.forward(v, a)))
+        replay_counts = _ours(kernel_counts(lambda: slot.graph.replay()))
+        primary = _primary_counts(replay_counts)
+        res["graphs"][b] = {"bit_equal": equal,
+                            "max_abs_diff": float((graph - eager).abs().max()),
+                            "replay_primary": primary, "eager_primary": _primary_counts(eager_counts),
+                            "same_kernels": replay_counts == eager_counts}
+        log(f"  graph bucket {b}: replay vs eager forward bit-equal {equal}; kernels by name in "
+            f"one replay {primary} (eager {_primary_counts(eager_counts)}), the same "
+            f"{len(replay_counts)} names and counts as the eager forward: "
+            f"{replay_counts == eager_counts}")
+        assert equal, res["graphs"][b]
+        assert replay_counts == eager_counts, (replay_counts, eager_counts)
+        for name, per in PER_FORWARD.items():
+            assert primary[name] == per, (b, name, primary[name], per)
+        del v, a, graph, eager
+    res["latency"] = latency_phase(pred, spec, rng)
+    res["export"] = export_phase(pred, requests, outs)
+    res["service"] = service_phase(pred, spec, rng)
+    res["stale_graph"] = stale_graph_phase(pred, requests)
+    return res
+
+
+def dispatch_ab(pred, rng, spec) -> dict:
+    """The eager forward at batches 8 and 1 (where the host paces it) with
+    the kernels called through their custom ops (as shipped) and through
+    their launches directly (as before the ops), DISPATCH_TURNS turns each
+    in alternation, CUDA events."""
+    res = {}
+    for b in (8, 1):
+        v, a = (torch.from_numpy(x).cuda() for x in make_inputs(rng, b, spec))
+        runs = res[b] = {"ops": [], "direct": []}
+        with torch.inference_mode():
+            for _ in range(DISPATCH_TURNS):
+                runs["ops"].append(time_ms(lambda: pred.forward(v, a), target_s=0.5))
+                with direct_launches():
+                    runs["direct"].append(time_ms(lambda: pred.forward(v, a), target_s=0.5))
+        log(f"  dispatch: eager forward batch {b} through the ops "
+            + ", ".join(f"{t:.3f}" for t in runs["ops"]) + " ms; direct launches "
+            + ", ".join(f"{t:.3f}" for t in runs["direct"]) + f" ms ({CARD})")
+    return res
+
+
 def hw2_phase(pred, v, a) -> dict:
     """Phase 4b: B9a behind ab_flags' hw2_skip switch, under the serving
     predictor at batch 8: launches with the switch on and off, B9a against
@@ -1705,17 +1995,12 @@ def trainer_phase(rng: np.random.Generator) -> dict:
             f"load {', '.join(f'{t:.2f}' for t in out['resume_load_s'])} s, the drill's save "
             f"{seen['saves'][-1][0]:.2f} s ({CARD})")
         assert mid.endswith(f"checkpoint_epoch_00000_iter_{PREEMPT_AFTER:07d}.npz"), mid
-        assert drill["scalars"]["max"] == 0.0, drill
-        for g, v in drill.items():
-            # bit equality where two runs agree bit for bit; else the drill's
-            # rms within twice the two runs' (the largest |Δ| saturates at
-            # Adam's bound of about Σlr as soon as the runs differ at all, so
-            # it cannot tell a faulty resume from the card's own spread; the
-            # rms over millions of values can, and varies little run to run)
-            if spread[g]["max"] == 0.0:
-                assert v["max"] == 0.0, (g, v)
-            else:
-                assert v["rms"] <= 2 * spread[g]["rms"], (g, v, spread[g])
+        for g in drill:
+            # training is deterministic on the card (the max-pool backward in a
+            # fixed order, ops.max_pool3d): two runs agree bit for bit, and so
+            # must the drill, resumed from its mid-epoch npz
+            assert spread[g]["max"] == 0.0, ("two uninterrupted runs differ", g, spread[g])
+            assert drill[g]["max"] == 0.0, ("the drill differs from the run", g, drill[g])
         del ga, final_a, runs
     torch.cuda.empty_cache()
     out.update(trainer_extras(rng))
@@ -1746,17 +2031,27 @@ def trainer_extras(rng: np.random.Generator) -> dict:
         ms = [m for m, _ in timed_steps(step, state, data, gen, 3)]
         return ms, torch.cuda.max_memory_allocated() / 2 ** 30
 
+    pools = set()  # the skip pools' (shape, dtype, kernel, stride, padding) at batch 8
+    skip_pool = tops.max_pool3d
+
+    def recording_pool(x, *geom):
+        pools.add((tuple(x.shape), x.dtype, *(tuple(int(v) for v in a) for a in geom)))
+        return skip_pool(x, *geom)
+
     res = {}
     for turn in range(2):
         for tag, remat, accum, data in (("act_off", False, 1, half), ("act_on", True, 1, half),
                                         ("b16_accum1", False, 1, batch),
                                         ("b16_accum2", False, 2, batch)):
+            tops.max_pool3d = recording_pool if (turn, tag) == (0, "act_off") else skip_pool
             ms, peak = measure(remat, accum, data)
             r = res.setdefault(tag, {"ms": [], "peak_gib": 0.0})
             r["ms"] += ms
             r["peak_gib"] = max(r["peak_gib"], peak)
+    tops.max_pool3d = skip_pool
     for r in res.values():
         r["median_ms"] = float(np.median(r["ms"]))
+    res["pool_backward"] = pool_backward_timing(sorted(pools, key=str))
 
     # fp32 gradients at batch 16: one pass against two micro-batches
     model.spec = dataclasses.replace(spec, dtype="float32", remat=False)
@@ -1804,12 +2099,84 @@ def trainer_extras(rng: np.random.Generator) -> dict:
         f"{res['b16_accum2']['peak_gib']:.2f} GiB ({CARD}); fp32 loss {loss2:.8g} vs {loss1:.8g} "
         f"(relative {dloss:.3g}), worst shares of the gradient bar "
         + ", ".join(f"{n} {e:.3g}" for n, e in worst))
+    pb = res["pool_backward"]
+    log(f"phase trainer max-pool backward (the encoder skips of one batch-8 step, in turns, "
+        f"CUDA events; {CARD}): fixed order {sum(r['fixed_ms'] for r in pb):.3f} ms, CUDA's "
+        f"atomics {sum(r['atomic_ms'] for r in pb):.3f} ms; "
+        + "; ".join(f"{r['shape']} {r['fixed_ms']:.3f} vs {r['atomic_ms']:.3f} ms" for r in pb))
     assert dloss <= STEP_LOSS_RTOL, (loss1, loss2)
     assert worst[0][1] <= 1.0, worst
     model.spec = spec
     del state, model, batch, half, snapshot, g1, g2
     torch.cuda.empty_cache()
     return {"extras": res}
+
+
+def pool_backward_timing(pools: list) -> list:
+    """The max-pool backward training takes on the card (``ops.conv``'s fixed
+    order) against CUDA's own (``max_pool3d_with_indices_backward``, atomics)
+    at each recorded skip pool, from one set of indices, in turns (ABBA), by
+    CUDA events; the fixed order's two results bit-equal and within a bf16
+    rounding of CUDA's fp32 backward."""
+    out = []
+    for shape, dtype, kernel, stride, padding in pools:
+        b, t, h, w, c = shape
+        x = torch.randn((b, c, t, h, w), device="cuda").to(dtype)
+        y, idx = F.max_pool3d(x, kernel, stride, padding, return_indices=True)
+        g = torch.randn_like(y)
+        fns = {"fixed": lambda: oc.max_pool3d_backward(g, idx, x.shape, kernel, stride, padding),
+               "atomic": lambda: torch.ops.aten.max_pool3d_with_indices_backward(
+                   g, x, kernel, stride, padding, (1, 1, 1), False, idx)}
+        ms = {"fixed": [], "atomic": []}
+        for name in ("atomic", "fixed", "fixed", "atomic"):
+            ms[name].append(time_ms(fns[name]))
+        one, two = fns["fixed"](), fns["fixed"]()
+        assert torch.equal(one, two), shape
+        # against CUDA's backward in fp32 (the bf16 one rounds every atomic
+        # add): the fixed order's fp32 sums rounded once to bf16
+        ref = torch.ops.aten.max_pool3d_with_indices_backward(
+            g.float(), x.float(), kernel, stride, padding, (1, 1, 1), False, idx)
+        err = float(((one.float() - ref).abs() / (1 + ref.abs())).max())
+        assert err <= 2 ** -8, (shape, err)
+        out.append({"shape": [b, t, h, w, c], "kernel": kernel, "stride": stride,
+                    "fixed_ms": float(np.mean(ms["fixed"])),
+                    "atomic_ms": float(np.mean(ms["atomic"])), "rel_err": err})
+    return out
+
+
+def determinism_probe() -> int:
+    """``python3 chip_smoke.py --determinism``, a one-off beside the smoke:
+    the kernel build, then phase 7 (``trainer_phase``) alone under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)`` (cuBLAS
+    with ``CUBLAS_WORKSPACE_CONFIG=:4096:8``), printing every op the mode
+    names as having no deterministic implementation, and the phase's own
+    lines (its two uninterrupted runs' difference among them). It prints no
+    result line."""
+    import warnings
+
+    t0 = time.perf_counter()
+    _build.build_all()
+    log(f"phase build: {time.perf_counter() - t0:.2f} s")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    failure = None
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        try:
+            trainer_phase(np.random.default_rng(SEED))
+        except Exception as exc:  # noqa: BLE001 — the ops named so far still print
+            failure = repr(exc)
+    named = {}
+    for w in caught:
+        text = str(w.message)
+        if "deterministic" in text:
+            key = text.split(". ")[0]
+            named[key] = named.get(key, 0) + 1
+    log(f"determinism: {len(named)} ops named under use_deterministic_algorithms "
+        f"(warn_only) in phase 7 ({CARD}):")
+    for key, n in sorted(named.items()):
+        log(f"  {n:6d} x {key}")
+    log(f"determinism: phase 7 {'raised ' + failure if failure else 'ran to its end'}")
+    return 0
 
 
 def main() -> int:
@@ -1820,7 +2187,11 @@ def main() -> int:
     t_start = time.perf_counter()
     card = CARD = card_line()
     log(f"card: {card}")
+    if sys.argv[1:] == ["--determinism"]:
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")  # before cuBLAS starts
     log(f"torch {torch.__version__} cuda {torch.version.cuda} {torch.cuda.get_device_name(0)}")
+    if sys.argv[1:] == ["--determinism"]:
+        return determinism_probe()
 
     # --- phase 1: build ------------------------------------------------------
     t0 = time.perf_counter()
@@ -1872,21 +2243,19 @@ def main() -> int:
     log(f"phase kernels: {time.perf_counter() - t0:.2f} s")
 
     # --- phase 4: the serving path -------------------------------------------
+    # Each bucket ran its first request eagerly in phase 2: the requests of 1
+    # and 5 clips now capture the graphs of buckets 1 and 8 (the wrappers
+    # count their launches as they are captured), the request of 8 replays.
     requests = [make_inputs(rng, n, spec) for n in REQUESTS]
-    # once untimed: the checks above emptied the allocator's cache
-    for video, audio in requests:
-        pred.predict(video, audio)
     reset_launches()
-    outs, req_s = [], []
-    for video, audio in requests:
-        t0 = time.perf_counter()
-        outs.append(pred.predict(video, audio))
-        req_s.append(time.perf_counter() - t0)
+    outs = [pred.predict(video, audio) for video, audio in requests]
     launches = {name: WRAPPERS[name].launches for name in PER_FORWARD}
-    log(f"phase serve: requests {list(REQUESTS)} in "
-        + ", ".join(f"{s * 1e3:.1f} ms" for s in req_s) + f"; launches {launches}")
+    log(f"phase serve: requests {list(REQUESTS)} (graphs captured for buckets "
+        f"{sorted(b for b, slot in pred._slots.items() if slot.graph is not None)}); "
+        f"launches {launches}")
+    captures = 2
     for name, per in PER_FORWARD.items():
-        need = per * len(REQUESTS)
+        need = per * captures
         assert launches[name] == need, f"{name}: {launches[name]} launches, expected {need}"
 
     t_out = spec.num_frames
@@ -1926,6 +2295,10 @@ def main() -> int:
     assert bool(agree.all()), "argmax differs on a frame whose top-2 gap exceeds the error"
     del logits16, logits32, sm16, sm32, ref_model
 
+    t0 = time.perf_counter()
+    serving = serve_phase(pred, spec, rng, requests, outs)
+    log(f"phase serve total: {time.perf_counter() - t0:.2f} s")
+
     with torch.inference_mode():
         fwd_ms = time_ms(lambda: pred.forward(v, a), target_s=1.0)
     torch.cuda.reset_peak_memory_stats()
@@ -1935,6 +2308,7 @@ def main() -> int:
     breakdown = profile_forward(lambda: pred.forward(v, a), fwd_ms, log=log)
     log(f"phase timing: forward batch 8 bf16 {fwd_ms:.2f} ms = {8e3 / fwd_ms:.2f} clips/s, "
         f"peak memory {peak_gib:.2f} GiB ({card})")
+    dispatch = dispatch_ab(pred, rng, spec)
 
     # --- phase 4b: the hw2 path (ab_flags' hw2_skip) under the same predictor -
     t0 = time.perf_counter()
@@ -2064,7 +2438,7 @@ def main() -> int:
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": kernels, "per_shape": report,
                    "forward_ms_batch8": fwd_ms, "clips_per_s_batch8": 8e3 / fwd_ms,
-                   "request_s": dict(zip(map(str, REQUESTS), req_s)),
+                   "serving": serving, "dispatch": dispatch,
                    "peak_gib": peak_gib, "logits_max_abs_diff": dlogit,
                    "softmax_max_abs_diff": dsm, "profile": breakdown,
                    "hw2": hw2, "blocks": blocks, "yardsticks": yardsticks,

@@ -17,7 +17,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -142,6 +142,23 @@ def dtype_code(t: torch.Tensor) -> int:
     return _DTYPE_CODES[t.dtype]
 
 
+def plain_for_autograd(name: str, *tensors: Optional[torch.Tensor]) -> bool:
+    """A wrapper's check before its custom op, which has a CUDA and a CPU
+    implementation and no autograd formula. An input that wants a gradient
+    is refused on CUDA (see :func:`check_cuda_inputs`); on the CPU it sends
+    the wrapper to its plain twin directly, whose autograd is PyTorch's.
+    Returns True in that case."""
+    first = tensors[0]
+    if first.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {first.device}")
+    if not (torch.is_grad_enabled()
+            and any(t is not None and t.requires_grad for t in tensors)):
+        return False
+    if first.device.type == "cuda":
+        raise RuntimeError(_FORWARD_ONLY.format(name=name))
+    return True
+
+
 def check_cuda_inputs(name: str, *tensors: torch.Tensor) -> None:
     """Same CUDA device and dtype for all inputs, and no input that wants a
     gradient: a wrapper launches its kernel outside autograd, so such an
@@ -154,9 +171,11 @@ def check_cuda_inputs(name: str, *tensors: torch.Tensor) -> None:
         if t.device != first.device or t.dtype != first.dtype:
             raise ValueError(f"{name}: inputs must share one CUDA device and dtype")
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(
-            f"{name}: the CUDA kernel is forward-only outside its autograd Function; "
-            "train through the *_train entry of its module")
+        raise RuntimeError(_FORWARD_ONLY.format(name=name))
+
+
+_FORWARD_ONLY = ("{name}: the CUDA kernel is forward-only outside its autograd Function; "
+                 "train through the *_train entry of its module")
 
 
 def stream_ptr(t: torch.Tensor) -> int:

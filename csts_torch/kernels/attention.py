@@ -268,13 +268,33 @@ def fused_attention(
     takes: bf16 up to 384 the wgmma body at the next compiled head dim
     (zero-padded; the output columns split over blocks above 192), bf16
     above 384 and fp32 at any head dim the streamed body (see
-    :func:`kernel_head_dim`, :func:`streamed`).
+    :func:`kernel_head_dim`, :func:`streamed`). It calls the custom op
+    ``csts_torch::fused_attention`` (K1 on CUDA, the plain twin on the CPU),
+    which ``torch.export`` keeps whole in its graph.
     """
-    if q.device.type == "cpu":
+    if _build.plain_for_autograd("fused_attention", q, k, v, mask):
         return fused_attention_plain(q, k, v, scale, mask)
-    if q.device.type != "cuda":
-        raise ValueError(f"fused_attention: unsupported device {q.device}")
+    return torch.ops.csts_torch.fused_attention(q, k, v, float(scale), mask)
+
+
+@torch.library.custom_op("csts_torch::fused_attention", mutates_args=(), device_types="cpu")
+def _fused_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                        mask: Optional[torch.Tensor]) -> torch.Tensor:
+    return fused_attention_plain(q, k, v, scale, mask).contiguous()
+
+
+@_fused_attention_op.register_kernel("cuda")
+def fused_attention_cuda(q, k, v, scale, mask):
+    """K1's launch (the op's CUDA implementation)."""
     return _attention_fwd(q, k, v, scale, mask, with_lse=False)[0]
+
+
+@_fused_attention_op.register_fake
+def _(q, k, v, scale, mask):
+    b, n, lq, hd = q.shape
+    if q.device.type != "cuda":
+        return q.new_empty((b, n, lq, hd))
+    return q.new_empty((b, lq, n, kernel_head_dim(hd, q.dtype))).permute(0, 2, 1, 3)[..., :hd]
 
 
 fused_attention.launches = 0

@@ -25,15 +25,19 @@
   decoder block from the coarse pre-upsample Q, the trilinear skip and the
   pooled K/V; ``csrc/decoder_block.cu``.
 
-On a CUDA tensor each wrapper launches its kernel (or raises); on a CPU
-tensor it runs its ``*_plain`` twin, which computes the same function in
-plain PyTorch with the kernel's rounding points (those of the TPU kernels).
+Each eval wrapper calls its custom op (``csts_torch::fused_mlp_tail``,
+``::fused_block``, ``::fused_pool_block``, ``::fused_decoder_block``): on a
+CUDA tensor it launches its kernel (or raises), on a CPU tensor it runs its
+``*_plain`` twin, which computes the same function in plain PyTorch with
+the kernel's rounding points (those of the TPU kernels), and under
+``torch.export`` its fake gives the output's shape. B7 is not an op: it
+enters training graphs only through :class:`MlpTailTrain`.
 Weights are in ``nn.Linear`` / ``nn.Conv3d`` layout.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -201,11 +205,27 @@ def fused_mlp_tail(
     fc2_w: torch.Tensor, fc2_b: torch.Tensor,
     proj_w: Optional[torch.Tensor] = None, proj_b: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """x: (B, L, C) residual-complete attention output -> (B, L, dim_out)."""
-    if x.device.type == "cpu":
+    """x: (B, L, C) residual-complete attention output -> (B, L, dim_out).
+    Through the custom op ``csts_torch::fused_mlp_tail`` (K2 on CUDA)."""
+    if _build.plain_for_autograd("fused_mlp_tail", x, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b,
+                                 proj_w, proj_b):
         return fused_mlp_tail_plain(x, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, proj_w, proj_b)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_mlp_tail: unsupported device {x.device}")
+    return torch.ops.csts_torch.fused_mlp_tail(x, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b,
+                                               proj_w, proj_b)
+
+
+@torch.library.custom_op("csts_torch::fused_mlp_tail", mutates_args=(), device_types="cpu")
+def _fused_mlp_tail_op(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
+                       fc1_w: torch.Tensor, fc1_b: torch.Tensor, fc2_w: torch.Tensor,
+                       fc2_b: torch.Tensor, proj_w: Optional[torch.Tensor],
+                       proj_b: Optional[torch.Tensor]) -> torch.Tensor:
+    return fused_mlp_tail_plain(x, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, proj_w,
+                                proj_b).contiguous()
+
+
+@_fused_mlp_tail_op.register_kernel("cuda")
+def fused_mlp_tail_cuda(x, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, proj_w, proj_b):
+    """K2's launch (the op's CUDA implementation)."""
     x2, params, (hidden, cout, c) = _tail_launch_args("fused_mlp_tail", x, ln_w, ln_b, fc1_w,
                                                       fc1_b, fc2_w, fc2_b, proj_w, proj_b)
     m, cp = x2.shape
@@ -223,6 +243,21 @@ def fused_mlp_tail(
     _build.check_launch("fused_mlp_tail", err)
     fused_mlp_tail.launches += 1
     return out[:, :fc2_w.shape[0]].reshape(*x.shape[:-1], fc2_w.shape[0])
+
+
+@_fused_mlp_tail_op.register_fake
+def _(x, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, proj_w, proj_b):
+    c, hidden, cout = x.shape[-1], fc1_w.shape[0], fc2_w.shape[0]
+    rows = x.shape[:-1]
+    if x.device.type != "cuda":
+        return x.new_empty((*rows, cout))
+    # the bf16 body's zero-padded widths (_tail_launch_args): the output is
+    # a column slice of a (M, dim_out padded to 16) buffer
+    padded = x.dtype == torch.bfloat16 and (c % 16 or hidden % 16 or cout % 16)
+    m = 1
+    for r in rows:
+        m *= r
+    return x.new_empty((m, _up16(cout) if padded else cout))[:, :cout].reshape(*rows, cout)
 
 
 fused_mlp_tail.launches = 0
@@ -637,6 +672,14 @@ def _rows_view(q: torch.Tensor) -> torch.Tensor:
     return _aligned(q)
 
 
+def _tail8(tail) -> list:
+    """The whole blocks' weights after the attention with the dim-change proj
+    given as None where absent: (ln2_w, ln2_b, fc1_w, fc1_b, fc2_w, fc2_b,
+    proj_w, proj_b)."""
+    tail = list(tail)
+    return tail + [None] * (8 - len(tail))
+
+
 def fused_block(x, k, v, scale, ln1_w, ln1_b, wq, bq, wproj, bproj, ln2_w, ln2_b, fc1_w,
                 fc1_b, fc2_w, fc2_b, proj_w=None, proj_b=None, xn=None):
     """B3: a whole identity-skip block. x: (B, L, C); k, v: (B, N, Lk, hd)
@@ -646,12 +689,34 @@ def fused_block(x, k, v, scale, ln1_w, ln1_b, wq, bq, wproj, bproj, ln2_w, ln2_b
     (``MultiScaleBlock.forward_block`` passes them), required in bf16: the
     split body (:func:`split_instance`) takes its Q product from them. The
     first design and the fp32 body compute LN1 from x themselves and do not
-    read xn. Returns (B, L, dim_out)."""
+    read xn. Returns (B, L, dim_out). Through the custom op
+    ``csts_torch::fused_block`` (B3 on CUDA)."""
+    if _build.plain_for_autograd("fused_block", x, k, v, ln1_w, ln1_b, wq, bq, wproj, bproj,
+                                 ln2_w, ln2_b, fc1_w, fc1_b, fc2_w, fc2_b, proj_w, proj_b):
+        return fused_block_plain(x, k, v, scale, ln1_w, ln1_b, wq, bq, wproj, bproj, ln2_w,
+                                 ln2_b, fc1_w, fc1_b, fc2_w, fc2_b, proj_w, proj_b)
+    return torch.ops.csts_torch.fused_block(x, k, v, float(scale), ln1_w, ln1_b, wq, bq, wproj,
+                                            bproj, ln2_w, ln2_b, fc1_w, fc1_b, fc2_w, fc2_b,
+                                            proj_w, proj_b, xn)
+
+
+@torch.library.custom_op("csts_torch::fused_block", mutates_args=(), device_types="cpu")
+def _fused_block_op(x: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                    ln1_w: torch.Tensor, ln1_b: torch.Tensor, wq: torch.Tensor,
+                    bq: torch.Tensor, wproj: torch.Tensor, bproj: torch.Tensor,
+                    ln2_w: torch.Tensor, ln2_b: torch.Tensor, fc1_w: torch.Tensor,
+                    fc1_b: torch.Tensor, fc2_w: torch.Tensor, fc2_b: torch.Tensor,
+                    proj_w: Optional[torch.Tensor], proj_b: Optional[torch.Tensor],
+                    xn: Optional[torch.Tensor]) -> torch.Tensor:
+    return fused_block_plain(x, k, v, scale, ln1_w, ln1_b, wq, bq, wproj, bproj, ln2_w, ln2_b,
+                             fc1_w, fc1_b, fc2_w, fc2_b, proj_w, proj_b).contiguous()
+
+
+@_fused_block_op.register_kernel("cuda")
+def fused_block_cuda(x, k, v, scale, ln1_w, ln1_b, wq, bq, wproj, bproj, ln2_w, ln2_b, fc1_w,
+                     fc1_b, fc2_w, fc2_b, proj_w, proj_b, xn):
+    """B3's launch (the op's CUDA implementation)."""
     tail = (ln2_w, ln2_b, fc1_w, fc1_b, fc2_w, fc2_b, proj_w, proj_b)
-    if x.device.type == "cpu":
-        return fused_block_plain(x, k, v, scale, ln1_w, ln1_b, wq, bq, wproj, bproj, *tail)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_block: unsupported device {x.device}")
     if x.shape[0] != k.shape[0] or x.shape[2] != wproj.shape[0]:
         raise ValueError(f"fused_block: x {tuple(x.shape)} does not fit k {tuple(k.shape)}")
     if x.dtype == torch.bfloat16:
@@ -668,17 +733,50 @@ def fused_block(x, k, v, scale, ln1_w, ln1_b, wq, bq, wproj, bproj, ln2_w, ln2_b
     return out
 
 
+@_fused_block_op.register_fake
+def _(x, k, v, scale, ln1_w, ln1_b, wq, bq, wproj, bproj, ln2_w, ln2_b, fc1_w, fc1_b, fc2_w,
+      fc2_b, proj_w, proj_b, xn):
+    return x.new_empty((x.shape[0], x.shape[1], fc2_w.shape[0]))
+
+
+def _pool_out_grid(thw) -> tuple:
+    t, h, w = (int(s) for s in thw)
+    return t, (h - 1) // 2 + 1, (w - 1) // 2 + 1
+
+
 def fused_pool_block(q, thw, skip, k, v, scale, wconv, nq_w, nq_b, wproj, bproj, *tail):
     """B4: a whole Q-pool block (stride (1,2,2)). q: (B, T·H·W, C) fine
     post-Wq Q on grid ``thw``; skip: the max-pooled x on the coarse grid;
-    k, v: pooled; wconv: pool_q (hd, 1, 3, 3, 3). Returns (B, L_coarse, dim_out)."""
-    if q.device.type == "cpu":
-        return fused_pool_block_plain(q, thw, skip, k, v, scale, wconv, nq_w, nq_b,
-                                      wproj, bproj, *tail)
-    if q.device.type != "cuda":
-        raise ValueError(f"fused_pool_block: unsupported device {q.device}")
+    k, v: pooled; wconv: pool_q (hd, 1, 3, 3, 3). Returns (B, L_coarse,
+    dim_out). Through the custom op ``csts_torch::fused_pool_block`` (B4 on
+    CUDA)."""
+    if _build.plain_for_autograd("fused_pool_block", q, skip, k, v, wconv, nq_w, nq_b, wproj,
+                                 bproj, *tail):
+        return fused_pool_block_plain(q, thw, skip, k, v, scale, wconv, nq_w, nq_b, wproj,
+                                      bproj, *tail)
+    return torch.ops.csts_torch.fused_pool_block(q, [int(s) for s in thw], skip, k, v,
+                                                 float(scale), wconv, nq_w, nq_b, wproj, bproj,
+                                                 *_tail8(tail))
+
+
+@torch.library.custom_op("csts_torch::fused_pool_block", mutates_args=(), device_types="cpu")
+def _fused_pool_block_op(q: torch.Tensor, thw: List[int], skip: torch.Tensor, k: torch.Tensor,
+                         v: torch.Tensor, scale: float, wconv: torch.Tensor,
+                         nq_w: torch.Tensor, nq_b: torch.Tensor, wproj: torch.Tensor,
+                         bproj: torch.Tensor, ln2_w: torch.Tensor, ln2_b: torch.Tensor,
+                         fc1_w: torch.Tensor, fc1_b: torch.Tensor, fc2_w: torch.Tensor,
+                         fc2_b: torch.Tensor, proj_w: Optional[torch.Tensor],
+                         proj_b: Optional[torch.Tensor]) -> torch.Tensor:
+    return fused_pool_block_plain(q, thw, skip, k, v, scale, wconv, nq_w, nq_b, wproj, bproj,
+                                  ln2_w, ln2_b, fc1_w, fc1_b, fc2_w, fc2_b, proj_w,
+                                  proj_b).contiguous()
+
+
+@_fused_pool_block_op.register_kernel("cuda")
+def fused_pool_block_cuda(q, thw, skip, k, v, scale, wconv, nq_w, nq_b, wproj, bproj, *tail):
+    """B4's launch (the op's CUDA implementation)."""
     t, h, w = (int(s) for s in thw)
-    out_grid = (t, (h - 1) // 2 + 1, (w - 1) // 2 + 1)
+    out_grid = _pool_out_grid(thw)
     l_out = out_grid[0] * out_grid[1] * out_grid[2]
     if q.shape[1] != t * h * w or skip.shape[:2] != (q.shape[0], l_out):
         raise ValueError(f"fused_pool_block: q {tuple(q.shape)} / skip {tuple(skip.shape)} "
@@ -693,22 +791,57 @@ def fused_pool_block(q, thw, skip, k, v, scale, wconv, nq_w, nq_b, wproj, bproj,
     return out
 
 
+@_fused_pool_block_op.register_fake
+def _(q, thw, skip, k, v, scale, wconv, nq_w, nq_b, wproj, bproj, *tail):
+    t, h, w = _pool_out_grid(thw)
+    return q.new_empty((q.shape[0], t * h * w, tail[4].shape[0]))
+
+
+def _decoder_out_grid(thw, stride) -> tuple:
+    stride = tuple(int(s) for s in stride)
+    if len(stride) != 3 or any(s not in (1, 2) for s in stride):
+        raise ValueError(f"fused_decoder_block: strides {stride} must be 1 or 2")
+    return tuple(int(n) * s for n, s in zip(thw, stride))
+
+
 def fused_decoder_block(q, thw, stride, skip, k, v, scale, wconv, nq_w, nq_b, wproj, bproj,
                         *tail):
     """B5: a whole upsample-Q decoder block. q: (B, T·H·W, C) coarse post-Wq
     Q on grid ``thw``; stride: (1,2,2) or (2,1,1); skip: the trilinear skip on
     the fine grid; k, v: pooled; wconv: upsample_q (hd, 1, 3, 3, 3).
-    Returns (B, L_fine, dim_out)."""
-    if q.device.type == "cpu":
+    Returns (B, L_fine, dim_out). Through the custom op
+    ``csts_torch::fused_decoder_block`` (B5 on CUDA)."""
+    if _build.plain_for_autograd("fused_decoder_block", q, skip, k, v, wconv, nq_w, nq_b,
+                                 wproj, bproj, *tail):
         return fused_decoder_block_plain(q, thw, stride, skip, k, v, scale, wconv, nq_w, nq_b,
                                          wproj, bproj, *tail)
-    if q.device.type != "cuda":
-        raise ValueError(f"fused_decoder_block: unsupported device {q.device}")
+    return torch.ops.csts_torch.fused_decoder_block(
+        q, [int(s) for s in thw], [int(s) for s in stride], skip, k, v, float(scale), wconv,
+        nq_w, nq_b, wproj, bproj, *_tail8(tail))
+
+
+@torch.library.custom_op("csts_torch::fused_decoder_block", mutates_args=(),
+                         device_types="cpu")
+def _fused_decoder_block_op(q: torch.Tensor, thw: List[int], stride: List[int],
+                            skip: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                            wconv: torch.Tensor, nq_w: torch.Tensor, nq_b: torch.Tensor,
+                            wproj: torch.Tensor, bproj: torch.Tensor, ln2_w: torch.Tensor,
+                            ln2_b: torch.Tensor, fc1_w: torch.Tensor, fc1_b: torch.Tensor,
+                            fc2_w: torch.Tensor, fc2_b: torch.Tensor,
+                            proj_w: Optional[torch.Tensor],
+                            proj_b: Optional[torch.Tensor]) -> torch.Tensor:
+    return fused_decoder_block_plain(q, thw, stride, skip, k, v, scale, wconv, nq_w, nq_b,
+                                     wproj, bproj, ln2_w, ln2_b, fc1_w, fc1_b, fc2_w, fc2_b,
+                                     proj_w, proj_b).contiguous()
+
+
+@_fused_decoder_block_op.register_kernel("cuda")
+def fused_decoder_block_cuda(q, thw, stride, skip, k, v, scale, wconv, nq_w, nq_b, wproj,
+                             bproj, *tail):
+    """B5's launch (the op's CUDA implementation)."""
     src = tuple(int(s) for s in thw)
     stride = tuple(int(s) for s in stride)
-    if len(stride) != 3 or any(s not in (1, 2) for s in stride):
-        raise ValueError(f"fused_decoder_block: strides {stride} must be 1 or 2")
-    out_grid = tuple(n * s for n, s in zip(src, stride))
+    out_grid = _decoder_out_grid(src, stride)
     l_out = out_grid[0] * out_grid[1] * out_grid[2]
     if q.shape[1] != src[0] * src[1] * src[2] or skip.shape[:2] != (q.shape[0], l_out):
         raise ValueError(f"fused_decoder_block: q {tuple(q.shape)} / skip "
@@ -721,6 +854,12 @@ def fused_decoder_block(q, thw, stride, skip, k, v, scale, wconv, nq_w, nq_b, wp
                         scratch=True)
     fused_decoder_block.launches += 1
     return out
+
+
+@_fused_decoder_block_op.register_fake
+def _(q, thw, stride, skip, k, v, scale, wconv, nq_w, nq_b, wproj, bproj, *tail):
+    t, h, w = _decoder_out_grid(thw, stride)
+    return q.new_empty((q.shape[0], t * h * w, tail[4].shape[0]))
 
 
 fused_block.launches = 0

@@ -10,8 +10,10 @@
   :data:`HW2_SKIP_KERNEL` is set (the JAX package's switch, with its name
   and default). Eval only, as in JAX: no backward.
 
-On a CUDA tensor each wrapper launches ``csrc/upsample.cu``; on a CPU
-tensor it runs its ``*_plain`` twin.
+Each wrapper calls its custom op (``csts_torch::t2_upsample``,
+``csts_torch::hw2_upsample``): on a CUDA tensor it launches
+``csrc/upsample.cu``, on a CPU tensor it runs its ``*_plain`` twin, and
+under ``torch.export`` its fake gives the output's shape.
 
 Training goes through :func:`t2_upsample_train` (the autograd Function
 :class:`T2Upsample`): K3 forward, and backward the adjoint of the
@@ -21,7 +23,7 @@ package has no backward kernel for it (its resize's gradient is XLA's).
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Sequence
 
 import torch
 
@@ -70,11 +72,21 @@ def t2_upsample_window_plain(x: torch.Tensor, thw: Sequence[int]) -> torch.Tenso
 
 
 def t2_upsample(x: torch.Tensor, thw: Sequence[int]) -> torch.Tensor:
-    """x: (B, T·H·W, C) tokens -> (B, 2T·H·W, C), see :func:`t2_upsample_plain`."""
-    if x.device.type == "cpu":
+    """x: (B, T·H·W, C) tokens -> (B, 2T·H·W, C), see :func:`t2_upsample_plain`.
+    Through the custom op ``csts_torch::t2_upsample`` (K3 on CUDA)."""
+    if _build.plain_for_autograd("t2_upsample", x):
         return t2_upsample_plain(x, thw)
-    if x.device.type != "cuda":
-        raise ValueError(f"t2_upsample: unsupported device {x.device}")
+    return torch.ops.csts_torch.t2_upsample(x, [int(s) for s in thw])
+
+
+@torch.library.custom_op("csts_torch::t2_upsample", mutates_args=(), device_types="cpu")
+def _t2_upsample_op(x: torch.Tensor, thw: List[int]) -> torch.Tensor:
+    return t2_upsample_plain(x, thw).contiguous()
+
+
+@_t2_upsample_op.register_kernel("cuda")
+def t2_upsample_cuda(x, thw):
+    """K3's launch (the op's CUDA implementation)."""
     _build.check_cuda_inputs("t2_upsample", x)
     b, l, c = x.shape
     t = int(thw[0])
@@ -88,6 +100,12 @@ def t2_upsample(x: torch.Tensor, thw: Sequence[int]) -> torch.Tensor:
     _build.check_launch("t2_upsample", err)
     t2_upsample.launches += 1
     return out
+
+
+@_t2_upsample_op.register_fake
+def _(x, thw):
+    b, l, c = x.shape
+    return x.new_empty((b, 2 * l, c))
 
 
 t2_upsample.launches = 0
@@ -108,11 +126,21 @@ def hw2_upsample_plain(x: torch.Tensor, thw: Sequence[int]) -> torch.Tensor:
 
 def hw2_upsample(x: torch.Tensor, thw: Sequence[int]) -> torch.Tensor:
     """B9a. x: (B, T·H·W, C) tokens -> (B, T·2H·2W, C), see
-    :func:`hw2_upsample_plain`. Any T, H, W and C."""
-    if x.device.type == "cpu":
+    :func:`hw2_upsample_plain`. Any T, H, W and C. Through the custom op
+    ``csts_torch::hw2_upsample`` (B9a on CUDA)."""
+    if _build.plain_for_autograd("hw2_upsample", x):
         return hw2_upsample_plain(x, thw)
-    if x.device.type != "cuda":
-        raise ValueError(f"hw2_upsample: unsupported device {x.device}")
+    return torch.ops.csts_torch.hw2_upsample(x, [int(s) for s in thw])
+
+
+@torch.library.custom_op("csts_torch::hw2_upsample", mutates_args=(), device_types="cpu")
+def _hw2_upsample_op(x: torch.Tensor, thw: List[int]) -> torch.Tensor:
+    return hw2_upsample_plain(x, thw).contiguous()
+
+
+@_hw2_upsample_op.register_kernel("cuda")
+def hw2_upsample_cuda(x, thw):
+    """B9a's launch (the op's CUDA implementation)."""
     _build.check_cuda_inputs("hw2_upsample", x)
     b, l, c = x.shape
     t, h, w = (int(s) for s in thw)
@@ -126,6 +154,12 @@ def hw2_upsample(x: torch.Tensor, thw: Sequence[int]) -> torch.Tensor:
     _build.check_launch("hw2_upsample", err)
     hw2_upsample.launches += 1
     return out
+
+
+@_hw2_upsample_op.register_fake
+def _(x, thw):
+    b, l, c = x.shape
+    return x.new_empty((b, 4 * l, c))
 
 
 hw2_upsample.launches = 0

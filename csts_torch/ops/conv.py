@@ -108,9 +108,65 @@ def depthwise_conv_transpose3d(
     return depthwise_conv3d(z.permute(0, 2, 3, 4, 1), weight.flip(2, 3, 4), (1, 1, 1), (0, 0, 0))
 
 
+def max_pool3d_backward(g: torch.Tensor, idx: torch.Tensor, shape: Sequence[int],
+                        kernel: Sequence[int], stride: Sequence[int],
+                        padding: Sequence[int]) -> torch.Tensor:
+    """The input gradient of ``F.max_pool3d`` from its ``return_indices``
+    indices, in a fixed order: each window's maximum as its offset in the
+    window (one code), then for each offset in turn, every window whose
+    maximum sits there adds its gradient through one strided slice of an
+    fp32 (fp64 for fp64) padded grid (distinct windows, distinct cells).
+    ``g``, ``idx``: (N, C, T', H', W'); ``shape``: the input's (N, C, T, H, W)."""
+    n, c, t, h, w = shape
+    out = g.shape[2:]
+    first = [torch.arange(o, device=g.device) * s - p for o, s, p in zip(out, stride, padding)]
+    code = (((idx // (h * w) - first[0][:, None, None]) * kernel[1]
+             + idx // w % h - first[1][None, :, None]) * kernel[2]
+            + idx % w - first[2][None, None, :]).to(torch.int32)
+    size = [s + 2 * p for s, p in zip((t, h, w), padding)]
+    grid = g.new_zeros((n, c, *size), dtype=torch.promote_types(g.dtype, torch.float32))
+    zero = g.new_zeros(())
+    for a in range(kernel[0]):
+        for b in range(kernel[1]):
+            for e in range(kernel[2]):
+                hit = code == (a * kernel[1] + b) * kernel[2] + e
+                grid[:, :, a:a + (out[0] - 1) * stride[0] + 1:stride[0],
+                     b:b + (out[1] - 1) * stride[1] + 1:stride[1],
+                     e:e + (out[2] - 1) * stride[2] + 1:stride[2]] += torch.where(hit, g, zero)
+    return grid[:, :, padding[0]:padding[0] + t, padding[1]:padding[1] + h,
+                padding[2]:padding[2] + w].to(g.dtype)
+
+
+class MaxPool3dFixedOrder(torch.autograd.Function):
+    """``F.max_pool3d`` (NCDHW) whose backward is ``max_pool3d_backward``.
+    CUDA's own backward adds overlapping windows' gradients with atomics, in
+    an order, and so with a rounding, that changes from run to run; this one
+    gives the same bits every run. Ties go where ``F.max_pool3d``'s indices
+    put them."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, stride, padding):
+        out, idx = F.max_pool3d(x, kernel, stride, padding, return_indices=True)
+        ctx.save_for_backward(idx)
+        ctx.geom = (tuple(x.shape), kernel, stride, padding)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        return max_pool3d_backward(g, idx, *ctx.geom), None, None, None
+
+
 def max_pool3d(
     x: torch.Tensor, kernel: Sequence[int], stride: Sequence[int], padding: Sequence[int]
 ) -> torch.Tensor:
-    """MaxPool3d with implicit -inf padding (padding never wins the max)."""
-    out = F.max_pool3d(_to_ncdhw(x), _ints(kernel), _ints(stride), _ints(padding))
+    """MaxPool3d with implicit -inf padding (padding never wins the max). On
+    CUDA, where a gradient is wanted, the backward is the fixed-order one, so
+    two training runs from one state agree bit for bit (the CPU's own
+    backward already does)."""
+    args = (_ints(kernel), _ints(stride), _ints(padding))
+    if x.is_cuda and x.requires_grad and torch.is_grad_enabled():
+        out = MaxPool3dFixedOrder.apply(_to_ncdhw(x), *args)
+    else:
+        out = F.max_pool3d(_to_ncdhw(x), *args)
     return _to_ndhwc(out)

@@ -59,17 +59,17 @@ def family(name: str) -> str:
     return next((f for f, keys in FAMILIES if any(k in low for k in keys)), "elementwise/other")
 
 
-def device_trace(fn: Callable[[], object]) -> tuple:
-    """One call of ``fn`` (after one untraced call) under torch.profiler.
-    Returns (wall ms of the traced call, device busy ms as the union of the
-    device activities' intervals, {kernel name: summed ms}, activity count);
-    the device terms are 0 without a card."""
+def _device_spans(fn: Callable[[], object], warm: bool = True) -> tuple:
+    """(wall ms, {(name, start, end)}): one call of ``fn`` under
+    torch.profiler (after one untraced call unless ``warm`` is off) and its
+    device activities, one entry each (the event list may repeat one)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     cuda = torch.cuda.is_available()
     sync = torch.cuda.synchronize if cuda else (lambda: None)
-    fn()
+    if warm:
+        fn()
     sync()
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     with profile(activities=activities) as prof:
@@ -77,10 +77,28 @@ def device_trace(fn: Callable[[], object]) -> tuple:
         fn()
         sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # one entry per device activity (the event list may repeat one)
     spans = {(e.name, e.time_range.start, e.time_range.end)
              for e in prof.events() if e.device_type == DeviceType.CUDA
              and not getattr(e, "is_user_annotation", False)}
+    return wall_ms, spans
+
+
+def kernel_counts(fn: Callable[[], object]) -> dict:
+    """{device activity name: how many times one call of ``fn`` ran it}
+    (torch.profiler; no untraced call first). A CUDA graph's replay runs no
+    Python, so this is how its kernels are counted. Empty without a card."""
+    counts: dict = {}
+    for name, _, _ in _device_spans(fn, warm=False)[1]:
+        counts[name] = counts.get(name, 0) + 1
+    return counts
+
+
+def device_trace(fn: Callable[[], object]) -> tuple:
+    """One call of ``fn`` (after one untraced call) under torch.profiler.
+    Returns (wall ms of the traced call, device busy ms as the union of the
+    device activities' intervals, {kernel name: summed ms}, activity count);
+    the device terms are 0 without a card."""
+    wall_ms, spans = _device_spans(fn)
     by_name: dict = {}
     for name, start, end in spans:
         by_name[name] = by_name.get(name, 0.0) + (end - start) / 1e3

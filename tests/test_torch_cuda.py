@@ -1076,3 +1076,157 @@ def test_small_trainer_kernels_vs_plain(gen, tmp_path, monkeypatch):
     cu.load_checkpoint(path, fresh)
     for a, b in zip(cu.state_leaves(fresh), cu.state_leaves(states[0])):
         assert np.array_equal(a, b)
+
+
+# ----------------------------------------------------------------------------------
+# serving: the graph per bucket, a stale graph, the artifact exported on the card
+# ----------------------------------------------------------------------------------
+
+
+def _small_predictor(buckets):
+    """small_cfg's predictor in bf16 on the card, from seeded weights."""
+    from csts_torch.serving import GazePredictor
+
+    cfg, _, ref, _, _ = _small_model(1)
+    cfg.TRAIN.MIXED_PRECISION = True
+    return GazePredictor(cfg, ref.state_dict(), batch_sizes=buckets)
+
+
+def _small_requests(pred, n, seed):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    cfg = pred.cfg
+    t, s = cfg.DATA.NUM_FRAMES, cfg.DATA.TEST_CROP_SIZE
+    return (rng.standard_normal((n, t, s, s, 3), dtype=np.float32),
+            rng.standard_normal((n, t, cfg.DATA.AUDIO_FREQ_BINS, cfg.DATA.AUDIO_WINDOW, 1),
+                                dtype=np.float32))
+
+
+def test_graph_replay_bit_equal_to_eager(gen):
+    """At buckets 1 and 4: the first request runs eagerly (the wrappers
+    count), the second captures (they count again), the third replays (no
+    Python launch); the replay's heatmaps equal the eager forward's bit for
+    bit, padding included."""
+    import numpy as np
+
+    from chip_smoke import WRAPPERS, reset_launches
+
+    pred = _small_predictor((1, 4))
+    for bucket, n in ((1, 1), (4, 3)):
+        video, audio = _small_requests(pred, n, bucket)
+        counts = []
+        for _ in range(3):
+            reset_launches()
+            out = pred.predict(video, audio)
+            torch.cuda.synchronize()
+            counts.append(WRAPPERS["attention"].launches)
+        assert counts[0] > 0 and counts[1] == counts[0] and counts[2] == 0, counts
+        assert pred._slots[bucket].graph is not None
+        pad = bucket - n
+        v = torch.from_numpy(np.concatenate([video, np.repeat(video[-1:], pad, 0)])).cuda()
+        a = torch.from_numpy(np.concatenate([audio, np.repeat(audio[-1:], pad, 0)])).cuda()
+        eager = pred.forward(v, a)[:n, ..., 0].float().cpu().numpy()
+        np.testing.assert_array_equal(out["heatmaps"], eager)
+
+
+def test_host_requests_staged_in_pinned_buffers(gen):
+    """A request from host memory goes through the bucket's pinned staging
+    buffers; its heatmaps equal those of the same clips sent from device
+    memory, bit for bit, and a second host request reuses the buffers."""
+    import numpy as np
+
+    pred = _small_predictor((4,))
+    video, audio = _small_requests(pred, 3, 5)
+    for _ in range(3):
+        host = pred.predict(video, audio)
+    slot = pred._slots[4]
+    assert all(st.is_pinned() for st in slot.stage)
+    stage = [st.data_ptr() for st in slot.stage]
+    device = pred.serve(torch.from_numpy(video).cuda(), torch.from_numpy(audio).cuda())
+    np.testing.assert_array_equal(device[..., 0].float().cpu().numpy(), host["heatmaps"])
+    again = pred.predict(video, audio)
+    assert [st.data_ptr() for st in slot.stage] == stage
+    np.testing.assert_array_equal(again["heatmaps"], host["heatmaps"])
+
+
+def test_stale_graph_recaptures_after_a_switch(gen):
+    """hw2_skip flipped after a capture: the next request runs B9a (a stale
+    replay would run none), the one after captures with it, and flipping
+    back starts the bucket over again."""
+    from chip_smoke import WRAPPERS, reset_launches
+    from csts_torch.tools import ab_flags
+
+    pred = _small_predictor((2,))
+    video, audio = _small_requests(pred, 2, 0)
+    for _ in range(3):
+        base = pred.predict(video, audio)
+    with ab_flags.flags("hw2_skip"):
+        hw2 = []
+        for _ in range(3):
+            reset_launches()
+            on = pred.predict(video, audio)
+            hw2.append(WRAPPERS["hw2_upsample"].launches)
+    assert hw2[0] > 0 and hw2[1] == hw2[0] and hw2[2] == 0, hw2
+    reset_launches()
+    off = pred.predict(video, audio)
+    assert WRAPPERS["hw2_upsample"].launches == 0 and WRAPPERS["attention"].launches > 0
+    assert (off["heatmaps"] == base["heatmaps"]).all()
+    assert abs(on["heatmaps"] - base["heatmaps"]).max() < 0.02
+
+
+def test_cuda_export_roundtrip(gen, tmp_path):
+    """export_compiled on the card, from_exported: its predict launches the
+    kernels (the counters move), eagerly and at the capture, and answers as
+    the live predictor does (bit-equal, or else within the golden bar)."""
+    import json
+
+    import numpy as np
+
+    from chip_smoke import PER_FORWARD, WRAPPERS, reset_launches
+    from csts_torch.serving import GazePredictor
+    from csts_torch.tools import softmax_check
+
+    pred = _small_predictor((2,))
+    video, audio = _small_requests(pred, 2, 1)
+    live = pred.predict(video, audio)
+    pred.export_compiled(str(tmp_path))
+    assert json.load(open(tmp_path / "meta.json"))["platforms"] == ["cuda"]
+    exp = GazePredictor.from_exported(str(tmp_path))
+    for run in range(3):  # eager, capture, replay
+        reset_launches()
+        out = exp.predict(video, audio)
+        ran = {n: WRAPPERS[n].launches for n in PER_FORWARD}
+        if run < 2:
+            assert all(ran[n] > 0 for n in ("attention", "mlp_tail", "t2_upsample", "block",
+                                            "pool_block", "decoder_block")), ran
+        if not np.array_equal(out["heatmaps"], live["heatmaps"]):
+            res = softmax_check(torch.from_numpy(out["heatmaps"]),
+                                torch.from_numpy(live["heatmaps"]))
+            assert res["softmax_max_abs_diff"] < 0.02 and res["argmax_off_on_decided"] == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_max_pool_backward_fixed_order_on_the_card(gen, dtype):
+    """The encoder skip's max pool at a flagship-like grid with ties: the
+    training route's backward (``ops.max_pool3d`` on a tensor that wants a
+    gradient) gives the same bits twice, and agrees with F.max_pool3d's
+    backward in fp64 on the CPU (fp32 1e-6; bf16 within one rounding of
+    the bf16 cotangent's sums)."""
+    from csts_torch import ops
+
+    x = (_randn(gen, 2, 4, 32, 32, 48) * 2).round().to(dtype)  # ties in most windows
+    g = _randn(gen, 2, 4, 16, 16, 48).to(dtype)
+    grads = []
+    for _ in range(2):
+        xt = x.clone().requires_grad_()
+        ops.max_pool3d(xt, (1, 3, 3), (1, 2, 2), (0, 1, 1)).backward(g)
+        grads.append(xt.grad)
+    assert torch.equal(grads[0], grads[1])
+    ref = x.double().cpu().permute(0, 4, 1, 2, 3).requires_grad_()
+    torch.nn.functional.max_pool3d(ref, (1, 3, 3), (1, 2, 2), (0, 1, 1)).backward(
+        g.double().cpu().permute(0, 4, 1, 2, 3))
+    want = ref.grad.permute(0, 2, 3, 4, 1)
+    err = (grads[0].double().cpu() - want).abs()
+    bar = 1e-6 if dtype == torch.float32 else 2 ** -8
+    assert float((err / (1 + want.abs())).max()) <= bar

@@ -92,6 +92,42 @@ def test_max_pool_skip_negative_inputs():
     _close(got, want)
 
 
+@pytest.mark.parametrize(
+    "shape,kernel,stride,padding",
+    [
+        ((2, 4, 9, 10, 6), (1, 3, 3), (1, 2, 2), (0, 1, 1)),  # the encoder's skip
+        ((1, 2, 2, 2, 3), (1, 3, 3), (1, 2, 2), (0, 1, 1)),  # a grid narrower than the window
+        ((1, 5, 7, 6, 4), (3, 3, 3), (2, 2, 2), (1, 1, 1)),
+        ((1, 4, 6, 5, 3), (2, 3, 2), (1, 1, 2), (1, 1, 0)),
+    ],
+)
+def test_max_pool_fixed_order_backward(shape, kernel, stride, padding):
+    """The fixed-order backward that training takes on CUDA, run here on the
+    CPU: against jax.vjp of the JAX package's max pool (fp32, 1e-5), and on
+    inputs full of ties against F.max_pool3d's own backward (fp64, 1e-12)."""
+    import jax
+
+    from csts_torch.ops.conv import MaxPool3dFixedOrder
+
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal(shape).astype(np.float32)
+    want, vjp = jax.vjp(lambda v: jops.max_pool3d(v, kernel, stride, padding), jnp.asarray(x))
+    g = rng.standard_normal(want.shape).astype(np.float32)
+    xt = _t(x).requires_grad_()
+    got = MaxPool3dFixedOrder.apply(xt.permute(0, 4, 1, 2, 3), kernel, stride, padding)
+    got.backward(_t(g).permute(0, 4, 1, 2, 3))
+    _close(got.permute(0, 2, 3, 4, 1), want)
+    _close(xt.grad, vjp(jnp.asarray(g))[0])
+
+    ties = _t(np.round(2 * x).astype(np.float64)).permute(0, 4, 1, 2, 3)
+    a, b = ties.clone().requires_grad_(), ties.clone().requires_grad_()
+    out = torch.nn.functional.max_pool3d(a, kernel, stride, padding)
+    gt = torch.randn(out.shape, dtype=torch.float64, generator=torch.Generator().manual_seed(5))
+    out.backward(gt)
+    MaxPool3dFixedOrder.apply(b, kernel, stride, padding).backward(gt)
+    np.testing.assert_allclose(b.grad.numpy(), a.grad.numpy(), atol=1e-12, rtol=0)
+
+
 @pytest.mark.parametrize("scale", [(2, 1, 1), (1, 2, 2), (1, 1.5, 1.5)])
 def test_trilinear_resize(scale):
     """x2 axes take the separable two-tap path; other sizes F.interpolate."""
