@@ -115,18 +115,45 @@ Phases (any failure exits non-zero; nothing is caught):
      beside it the raw step
      with ACT_CHECKPOINT on and off at batch 8 and with accum_steps 2 of 8
      against one pass of 16 (ms, peak memory), and both in fp32 at batch 16
-     at the whole-step bars.
+     at the whole-step bars;
+  8. several processes: two spawned ranks share the card over gloo (NCCL
+     refuses two ranks on one device: ``tests/test_torch_cuda.py``
+     ``test_two_ranks_on_one_card_need_gloo``), the kernels built once
+     before the spawn. 8a: the flagship
+     from ``flagship_train_cfg`` in fp32 (TF32 off), global batch 2 (1 a
+     rank), kldiv+egonce, drop-path 0.2, 2 steps through DDP and the
+     trainer's own step, against one process at batch 2 from the same
+     weights, batch and masks at phase 6's whole-step bars (the loss, every
+     gradient after step 1; the params after step 2 within 2·Σlr), each
+     rank's launches a step (K1 26, B8 25, B7 26, K3 2); then bf16 at global
+     batch 8 (4 a rank), 3 steps timed and one traced (device busy ms and its
+     copies: gloo stages the gradient all-reduce through the host), "two
+     ranks sharing one card", no scaling figure. 8b: ZeRO-1 the same way,
+     against one process and against DDP, each rank holding its share of
+     the moments; FSDP under NCCL at world size 1 (gloo cannot run DTensor's
+     functional collectives on CUDA tensors; FSDP across ranks is held on
+     the CPU), against one process; each mode's npz (3P+4 leaves, DDP's
+     layout, params within the bar). 8c: ``tester.test`` on two ranks at
+     flagship width, bf16, 20 synthetic clips at one and two views
+     (TEST.BATCH_SIZE 6: an empty stripe, clips straddling the stripes):
+     F1, recall, precision, threshold and AUC within 1e-6 of one process,
+     the results npz equal, every row scored once; then one
+     ``init_from_cfg`` group under NCCL at world size 1 (run_net's backend)
+     through two trainer iterations with the launches counted.
 It prints the ``kernels`` JSON line, the card line and, last, the result line.
 ``python3 chip_smoke.py --determinism`` is a one-off beside it: the build and
 phase 7 alone under ``torch.use_deterministic_algorithms(True, warn_only=True)``,
-printing the ops it names (``determinism_probe``).
+printing the ops it names (``determinism_probe``). ``python3 chip_smoke.py
+--parallel`` is the build and phase 8 alone.
 Per-shape details go to ``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
+import datetime
 import json
 import os
 import sys
@@ -151,6 +178,7 @@ from csts_torch.models.csts import CSTS, build_spec, init_params  # noqa: E402
 from csts_torch import ops as tops  # noqa: E402
 from csts_torch.ops import conv as oc  # noqa: E402
 from csts_torch.ops import sample_drop_masks  # noqa: E402
+from csts_torch.parallel import collectives, mesh  # noqa: E402
 from csts_torch.presets import flagship_cfg, flagship_train_cfg  # noqa: E402
 from csts_torch.serving import GazePredictor  # noqa: E402
 from csts_torch.serving_server import GazeHTTPServer  # noqa: E402
@@ -161,6 +189,7 @@ from csts_torch.tools.profile_forward import (FAMILIES, device_ms, device_trace,
                                               family, kernel_counts, profile_forward)
 from csts_torch.train import step as train_lib  # noqa: E402
 from csts_torch.train.losses import frame_softmax  # noqa: E402
+from csts_torch.utils import checkpoint as cu  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, bf16 tensor-core
 # FLOP/s and fp32 FLOP/s outside the tensor cores
@@ -1097,6 +1126,22 @@ def _ours(counts: dict) -> dict:
             or family(k) in KERNEL_FAMILIES}
 
 
+def window_counts(fn) -> tuple:
+    """(both windows' counts, the counts): one call of ``fn`` traced in each
+    of two profiler windows, by device activity name; the two must agree.
+    A call made as its window opened lost its first kernels now and then
+    (``python -m csts_torch.tools.profile_forward --windows N`` counts how
+    often), so ``kernel_counts`` makes each call
+    ``profile_forward.WINDOW_MARGIN_S`` into its window, and no difference
+    is let pass."""
+    windows = [kernel_counts(fn) for _ in range(2)]
+    diff = {k: windows[0].get(k, 0) - windows[1].get(k, 0)
+            for k in windows[0].keys() | windows[1].keys()}
+    assert windows[0] == windows[1], ("two windows of one call differ",
+                                      {k: d for k, d in diff.items() if d})
+    return windows, windows[0]
+
+
 def _golden(got: np.ndarray, want: np.ndarray) -> dict:
     """tests/test_golden_256.py's bar on two heatmap stacks (B, T, h, w)."""
     res = softmax_check(torch.from_numpy(got), torch.from_numpy(want))
@@ -1283,17 +1328,27 @@ def serve_phase(pred, spec, rng, requests, outs) -> dict:
         assert slot.graph is not None
         eager = pred.forward(v, a)
         equal = bool(torch.equal(graph, eager))
-        eager_counts = _ours(kernel_counts(lambda: pred.forward(v, a)))
-        replay_counts = _ours(kernel_counts(lambda: slot.graph.replay()))
+        reset_launches()
+        eager_windows, eager_counts = window_counts(lambda: pred.forward(v, a))
+        eager_launches = {n: WRAPPERS[n].launches for n in PER_FORWARD}
+        replay_windows, replay_counts = window_counts(lambda: slot.graph.replay())
+        eager_counts, replay_counts = _ours(eager_counts), _ours(replay_counts)
         primary = _primary_counts(replay_counts)
         res["graphs"][b] = {"bit_equal": equal,
                             "max_abs_diff": float((graph - eager).abs().max()),
                             "replay_primary": primary, "eager_primary": _primary_counts(eager_counts),
-                            "same_kernels": replay_counts == eager_counts}
+                            "same_kernels": replay_counts == eager_counts,
+                            "eager_windows": eager_windows, "replay_windows": replay_windows,
+                            "eager_launches_two_calls": eager_launches}
+        # the wrappers launched every kernel in both eager calls, whatever
+        # the profiler saw
+        assert eager_launches == {n: 2 * c for n, c in PER_FORWARD.items()}, eager_launches
         log(f"  graph bucket {b}: replay vs eager forward bit-equal {equal}; kernels by name in "
             f"one replay {primary} (eager {_primary_counts(eager_counts)}), the same "
             f"{len(replay_counts)} names and counts as the eager forward: "
-            f"{replay_counts == eager_counts}")
+            f"{replay_counts == eager_counts}; two windows agreed: eager "
+            f"{eager_windows[0] == eager_windows[1]}, replay "
+            f"{replay_windows[0] == replay_windows[1]}")
         assert equal, res["graphs"][b]
         assert replay_counts == eager_counts, (replay_counts, eager_counts)
         for name, per in PER_FORWARD.items():
@@ -1742,11 +1797,13 @@ def _trainer_pyths(root: str):
 
 
 def _run_net_args(split, pyths, out: str, workers: int, test: bool) -> list:
-    """run_net's arguments: the yaml and what this phase sets over it. The
-    run that tests saves its final epoch; the drill's runs save only the
-    preemption's npz (their final states are compared in memory)."""
+    """run_net's arguments: the yaml and what this phase sets over it (one
+    rank: the yaml's NUM_DEVICES is the reference's 4 GPUs). The run that
+    tests saves its final epoch; the drill's runs save only the preemption's
+    npz (their final states are compared in memory)."""
     prefix, splits = split
-    return ["--cfg", YAML, "DATA.PATH_PREFIX", prefix, "DATA.PATH_TO_DATA_DIR", splits,
+    return ["--cfg", YAML, "NUM_DEVICES", "1",
+            "DATA.PATH_PREFIX", prefix, "DATA.PATH_TO_DATA_DIR", splits,
             "DATA.DECODING_BACKEND", "npy", "TRAIN.MIXED_PRECISION", "True",
             "SOLVER.MAX_EPOCH", str(TRAINER_EPOCHS), "TRAIN.CHECKPOINT_PERIOD",
             str(TRAINER_EPOCHS if test else TRAINER_EPOCHS + 1),
@@ -2179,6 +2236,520 @@ def determinism_probe() -> int:
     return 0
 
 
+
+# --- phase 8: several processes ------------------------------------------------
+#
+# Two ranks share the one card over gloo (NCCL refuses two ranks on one
+# device: tests/test_torch_cuda.py test_two_ranks_on_one_card_need_gloo).
+# The kernels are built once, before any spawn; the ranks only load them.
+
+PAR_WORLD = 2
+PAR_BATCH = 2        # 8a/8b fp32 global batch: 1 a rank
+PAR_TIMED_BATCH = 8  # 8a bf16 global batch: 4 a rank
+PAR_TIMED_STEPS = 3
+PAR_EVAL_CLIPS = 20  # 8c: 20 rows at one view, 40 at two
+PAR_EVAL_BATCH = 6   # 3 a rank: at one view rank 1's stripe of the last batch is
+                     # empty; at two views clips 1, 7, 13 and 19 straddle the stripes
+PAR_TRAIN_KERNELS = ("attention", "attention_bwd", "mlp_tail_train", "t2_upsample")
+# gloo takes the collectives DDP and ZeRO-1 use on CUDA tensors; FSDP's
+# checkpoint gathers its shards with DTensor's full_tensor, a functional
+# collective, which gloo cannot run on CUDA tensors (it crashes), so FSDP
+# runs on the card under NCCL at world size 1 and its cross-rank parity is
+# held on the CPU (tests/test_torch_parallel.py)
+PAR_GLOO_MODES = ("ddp", "zero1")
+
+
+def _par_cfg(mode: str = "ddp"):
+    """8a/8b: the flagship from ``flagship_train_cfg`` in fp32 (TF32 off) at
+    global batch 2, kldiv+egonce, drop-path 0.2."""
+    cfg = flagship_train_cfg()
+    cfg.TRAIN.MIXED_PRECISION = False
+    cfg.TRAIN.BATCH_SIZE = PAR_BATCH
+    cfg.SOLVER.ZERO1 = mode == "zero1"
+    cfg.SOLVER.FSDP = mode == "fsdp"
+    return cfg
+
+
+def _par_batch(rng: np.random.Generator, n: int, spec) -> dict:
+    """make_train_batch's batch on the host (each rank moves its rows)."""
+    video, audio = make_inputs(rng, n, spec)
+    hw = spec.crop_size // 4
+    hm = rng.uniform(0.0, 1.0, (n, spec.num_frames, hw, hw)).astype(np.float32)
+    hm /= hm.sum(axis=(2, 3), keepdims=True)
+    return {k: torch.from_numpy(a) for k, a in (("video", video), ("audio", audio),
+                                                 ("labels_hm", hm))}
+
+
+def _two_steps(cfg, sd: dict, batch: dict, drops: list, device) -> tuple:
+    """Two steps of ``make_train_step`` from ``sd`` on ``batch`` (this
+    rank's rows) with the global batch's masks: (state, stats, every
+    gradient after step 1 and the params after step 2, whole, on the host,
+    launches a step of the training kernels)."""
+    spec = build_spec(cfg)
+    state = train_lib.create_train_state(cfg, spec, state_dict=sd, device=device)
+    step = train_lib.make_train_step(cfg, spec, STEPS_PER_EPOCH)
+    batch = {k: v.to(device) for k, v in batch.items()}
+    reset_launches()
+    stats = []
+    for i, drop in enumerate(drops):
+        drop = [None if m is None else tuple(x.to(device) for x in m) for m in drop]
+        st, _ = step(state, batch, None, drop=drop)
+        stats.append({k: float(v) for k, v in st.items()})
+        if i == 0:
+            grads = {n: collectives.whole(p.grad).detach().float().cpu()
+                     for n, p in state.model.named_parameters()}
+    launches = {n: WRAPPERS[n].launches / len(drops) for n in PAR_TRAIN_KERNELS}
+    params = {n: collectives.whole(p.detach()).float().cpu()
+              for n, p in state.model.named_parameters()}
+    return state, stats, grads, params, launches
+
+
+def _step_errors(stats, grads, params, ref: dict, lr_steps: float) -> dict:
+    """Against ``ref`` at phase 6's whole-step bars: each step's loss within
+    STEP_LOSS_RTOL relative; each gradient's share of its bar (relative norm
+    STEP_GRAD_RTOL plus STEP_GRAD_FLOOR of the whole gradient's norm; fails
+    above 1); the params within 2·Σlr elementwise (Adam's step is at most
+    about lr in size on either side, where a gradient near its eps takes
+    rounding noise to a whole step), with the largest difference and the
+    count above 1e-6 reported."""
+    norm = lambda t: float(torch.linalg.vector_norm(t))  # noqa: E731
+    loss_rel = max(abs(s["loss"] - r["loss"]) / abs(r["loss"]) for s, r in zip(stats, ref["stats"]))
+    total = float(np.sqrt(sum(norm(g) ** 2 for g in ref["grads"].values())))
+    share = max(norm(grads[n] - g) / (STEP_GRAD_RTOL * norm(g) + STEP_GRAD_FLOOR * total)
+                for n, g in ref["grads"].items())
+    dp = [(params[n] - p).abs() for n, p in ref["params"].items()]
+    return {"loss_rel_err": loss_rel, "grad_bar_share_worst": share,
+            "param_max_abs_err": max(float(d.max()) for d in dp),
+            "params_above_1e-6": int(sum(int((d > 1e-6).sum()) for d in dp)),
+            "param_bar": 2 * lr_steps}
+
+
+def _check_step_errors(tag: str, err: dict) -> None:
+    assert err["loss_rel_err"] <= STEP_LOSS_RTOL, (tag, err)
+    assert err["grad_bar_share_worst"] <= 1.0, (tag, err)
+    assert err["param_max_abs_err"] <= err["param_bar"], (tag, err)
+
+
+def _par_train(rank: int, inputs: str, ref_path: str, out: str, device: str) -> dict:
+    """8a/8b on one rank: DDP and ZeRO-1 from the same weights, batch and
+    masks (two fp32 steps on this rank's row), held against the one-process
+    run and ZeRO-1 against DDP; rank 0 writes each mode's npz."""
+    d, ref = torch.load(inputs), torch.load(ref_path)
+    lo, n = mesh.local_rows(PAR_BATCH)
+    rows = {k: v[lo:lo + n] for k, v in d["batch"].items()}
+    res, ddp_params = {}, None
+    for mode in PAR_GLOO_MODES:
+        print(f"phase parallel rank {rank}: {mode}", file=sys.stderr, flush=True)
+        cfg = _par_cfg(mode)
+        t0 = time.perf_counter()
+        state, stats, grads, params, launches = _two_steps(cfg, d["sd"], rows, d["drops"], device)
+        err = _step_errors(stats, grads, params, ref, sum(s["lr"] for s in stats))
+        if ddp_params is None:
+            ddp_params = params
+        err["param_max_abs_err_vs_ddp"] = max(float((params[k] - p).abs().max())
+                                              for k, p in ddp_params.items())
+        # how much of the moments and params this rank holds
+        total = sum(p.numel() for p in state.model.parameters())
+        share = sum(collectives.local(p).numel() for g in state.optimizer.local.param_groups
+                    for p in g["params"]) / total
+        held = sum(collectives.local(p).numel() for p in state.model.parameters()) / total
+        npz = cu.save_checkpoint(os.path.join(out, mode), state, 0, cfg)
+        res[mode] = {"stats": stats, "errors": err, "launches_per_step": launches,
+                     "moment_share": share, "param_share": held, "npz": npz,
+                     "s": time.perf_counter() - t0}
+        del state, grads, params
+        torch.cuda.empty_cache()
+    return res
+
+
+def _par_timed(rank: int, device: str) -> dict:
+    """8a's timing: the flagship in bf16 over fp32 masters at global batch
+    8 (4 a rank), one warm-up and PAR_TIMED_STEPS steps (host clock around
+    each synchronised step), then one step under torch.profiler: the
+    device's busy ms and its copies (the gloo all-reduce stages each
+    gradient bucket through the host: device to host, host to device)."""
+    cfg = flagship_train_cfg()
+    spec = build_spec(cfg)
+    state = train_lib.create_train_state(cfg, spec, torch.Generator().manual_seed(SEED),
+                                         device=device)
+    step = train_lib.make_train_step(cfg, spec, STEPS_PER_EPOCH)
+    lo, n = mesh.local_rows(PAR_TIMED_BATCH)
+    batch = {k: v[lo:lo + n].to(device)
+             for k, v in _par_batch(np.random.default_rng(SEED), PAR_TIMED_BATCH, spec).items()}
+    gen = torch.Generator().manual_seed(SEED)
+    step(state, batch, gen)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    ms = []
+    for _ in range(PAR_TIMED_STEPS):
+        sync()
+        t0 = time.perf_counter()
+        stats, _ = step(state, batch, gen)
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        assert np.isfinite(float(stats["loss"])), stats
+    wall, busy, by_name, _ = device_trace(lambda: step(state, batch, gen))
+    copies = sum(v for k, v in by_name.items() if "memcpy" in k.lower())
+    return {"ms_per_step": ms, "median_ms": float(np.median(ms)), "traced_wall_ms": wall,
+            "device_busy_ms": busy, "device_copies_ms": copies,
+            "copies_share_of_busy": copies / busy if busy else 0.0}
+
+
+def _par_eval(rank: int, cfgs: list, device: str) -> dict:
+    """8c on one rank: ``tester.test`` on each config, with the rows of each
+    forward it ran."""
+    from csts_torch.eval import tester
+
+    rows, make = [], train_lib.make_eval_step
+
+    def counting(*a, **k):
+        fn = make(*a, **k)
+
+        def run(model, batch):
+            rows.append(int(batch["video"].shape[0]))
+            return fn(model, batch)
+        return run
+
+    train_lib.make_eval_step = counting
+    out = []
+    try:
+        for cfg in cfgs:
+            rows.clear()
+            stats = tester.test(cfg, device)
+            out.append({"stats": {k: stats[k] for k in EVAL_METRICS}, "rows": list(rows)})
+    finally:
+        train_lib.make_eval_step = make
+    return out
+
+
+EVAL_METRICS = ("f1", "recall", "precision", "threshold", "auc")
+PAR_TASKS = {"train": _par_train, "timed": _par_timed, "eval": _par_eval}
+
+
+def _par_rank(rank: int, port: int, tasks: list, out: str, device: str) -> None:
+    """One spawned rank: joins the gloo group on the card, runs ``tasks``
+    ([(name, args)]) in order, saves {name: result} for the parent. A fatal
+    signal prints the rank's Python stack (``faulthandler``)."""
+    import faulthandler
+
+    faulthandler.enable()
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=PAR_WORLD, rank=rank,
+        timeout=datetime.timedelta(seconds=300))
+    try:
+        res = {}
+        for name, args in tasks:
+            t0 = time.perf_counter()
+            res[name] = PAR_TASKS[name](rank, *args, device)
+            print(f"phase parallel rank {rank}: {name} done in {time.perf_counter() - t0:.2f} s",
+                  file=sys.stderr, flush=True)
+    finally:
+        torch.distributed.destroy_process_group()
+    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+
+
+def spawn_ranks(tasks: list, out: str, device: str, timeout: float = 900.0) -> list:
+    """Runs ``tasks`` on PAR_WORLD spawned ranks; a rank that raises or a
+    group past ``timeout`` seconds fails the phase (the ranks are killed)."""
+    ctx = torch.multiprocessing.start_processes(
+        _par_rank, args=(mesh.free_port(), tasks, out, device), nprocs=PAR_WORLD, join=False,
+        start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=1):
+            assert time.monotonic() < deadline, f"the ranks ran past {timeout} s"
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(10)
+    return [torch.load(os.path.join(out, f"rank{r}.pt")) for r in range(PAR_WORLD)]
+
+
+def _par_eval_cfgs(root: str, rng: np.random.Generator) -> list:
+    """8c's split (PAR_EVAL_CLIPS synthetic 256x320 clips) and seeded bf16
+    weights; its configs at one and two views (TEST.BATCH_SIZE 6)."""
+    from csts_torch.data.synthetic import write_dataset
+
+    prefix, splits = write_dataset(root, "ego4d", num_clips=PAR_EVAL_CLIPS, frames=150,
+                                   res=EVAL_RES, fps=30, seed=int(rng.integers(1 << 30)))
+    cfg0 = flagship_cfg()
+    model = CSTS(build_spec(cfg0))
+    init_params(model, torch.Generator().manual_seed(SEED + 7))
+    weights = os.path.join(root, "par_weights.pyth")
+    torch.save({"model_state": model.state_dict()}, weights)
+    cfgs = []
+    for views in (1, 2):
+        cfg = flagship_cfg()
+        cfg.TRAIN.MIXED_PRECISION = True
+        cfg.DATA.PATH_PREFIX, cfg.DATA.PATH_TO_DATA_DIR = prefix, splits
+        cfg.DATA.DECODING_BACKEND = "npy"
+        cfg.TRAIN.ENABLE = False
+        cfg.TEST.DATASET = "ego4d_av_gaze_forecast" if views == 1 else "ego4d_av_gaze"
+        cfg.TEST.BATCH_SIZE = PAR_EVAL_BATCH
+        cfg.TEST.NUM_ENSEMBLE_VIEWS = views
+        cfg.TEST.NUM_SPATIAL_CROPS = 1
+        cfg.TEST.CHECKPOINT_FILE_PATH = weights
+        cfg.TEST.SAVE_RESULTS_PATH = "results.npz"
+        cfg.DATA_LOADER.NUM_WORKERS = 0
+        cfg.OUTPUT_DIR = os.path.join(root, f"ranks_v{views}")
+        cfg.LOG_PERIOD = 1000
+        cfgs.append(cfg)
+    return cfgs
+
+
+def _nccl_world1(root: str, rng: np.random.Generator, device: str, inputs: dict,
+                 ref: dict) -> dict:
+    """run_net's own backend on the card: one ``init_from_cfg`` group under
+    NCCL at world size 1. In it 8b's FSDP: two fp32 steps from ``inputs``
+    (the whole batch of 2), held against ``ref`` by the caller, and its npz;
+    then two trainer iterations (flagship, bf16, batch 8; the trainer wraps
+    its model in DDP there), the training kernels' launches counted."""
+    from csts_torch.data.synthetic import write_dataset
+    from csts_torch.train import trainer
+
+    prefix, splits = write_dataset(os.path.join(root, "nccl_split"), "ego4d", num_clips=4,
+                                   frames=150, res=EVAL_RES, fps=30,
+                                   seed=int(rng.integers(1 << 30)))
+    train_csv = os.path.join(splits, "train_ego4d_gaze.csv")
+    with open(train_csv) as f:
+        clips = f.read().splitlines()
+    with open(train_csv, "w") as f:
+        f.write("\n".join(clips * 4) + "\n")  # 16 rows: 2 iterations of 8
+    cfg = flagship_train_cfg()
+    cfg.DATA.PATH_PREFIX, cfg.DATA.PATH_TO_DATA_DIR = prefix, splits
+    cfg.DATA.DECODING_BACKEND = "npy"
+    cfg.SOLVER.MAX_EPOCH = 1
+    cfg.TRAIN.EVAL_PERIOD = cfg.TRAIN.CHECKPOINT_PERIOD = 10  # neither runs
+    cfg.TEST.ENABLE = False
+    cfg.DATA_LOADER.NUM_WORKERS = 2
+    cfg.OUTPUT_DIR = os.path.join(root, "nccl_run")
+    cfg.LOG_PERIOD = 1
+    got = mesh.init_from_cfg(cfg, device)
+    try:
+        backend = torch.distributed.get_backend()
+        fsdp_cfg = _par_cfg("fsdp")
+        t0 = time.perf_counter()
+        state, stats, grads, params, launches = _two_steps(fsdp_cfg, inputs["sd"], inputs["batch"],
+                                                           inputs["drops"], got)
+        assert isinstance(next(state.model.parameters()), collectives.DTensor)
+        fsdp = {"stats": stats, "launches_per_step": launches,
+                "errors": _step_errors(stats, grads, params, ref, sum(s["lr"] for s in stats)),
+                "npz": cu.save_checkpoint(os.path.join(root, "fsdp"), state, 0, fsdp_cfg)}
+        fsdp["s"] = time.perf_counter() - t0
+        del state, grads, params
+        torch.cuda.empty_cache()
+        reset_launches()
+        t0 = time.perf_counter()
+        state = trainer.train(cfg, got)
+        res = {"backend": backend, "steps": state.step, "s": time.perf_counter() - t0, "fsdp": fsdp,
+               "ddp": isinstance(state.net, torch.nn.parallel.DistributedDataParallel),
+               "launches": {n: WRAPPERS[n].launches for n in PAR_TRAIN_KERNELS}}
+        del state
+    finally:
+        torch.distributed.destroy_process_group()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _npz_headers(path: str) -> dict:
+    """{leaf: (shape, dtype)} of an npz from its arrays' headers, no data read."""
+    import zipfile
+
+    out = {}
+    with zipfile.ZipFile(path) as z:
+        for info in z.infolist():
+            with z.open(info) as f:
+                major, _ = np.lib.format.read_magic(f)
+                read = (np.lib.format.read_array_header_1_0 if major == 1
+                        else np.lib.format.read_array_header_2_0)
+                shape, _, dtype = read(f)
+            out[info.filename[:-len(".npy")]] = (shape, dtype)
+    return out
+
+
+def _npz_layouts_agree(paths: dict, p: int, bar: float) -> dict:
+    """Each mode's npz against DDP's: the same leaves, shapes and dtypes
+    (3P+4), the params within ``bar``."""
+    out = {}
+    want = _npz_headers(paths["ddp"])
+    assert len(want) == 3 * p + 4, (len(want), p)
+    keys = sorted(want)[:p]
+    with np.load(paths["ddp"]) as ref:
+        for mode, path in paths.items():
+            assert _npz_headers(path) == want, mode
+            with np.load(path) as blob:
+                worst = max(float(np.abs(blob[k] - ref[k]).max()) for k in keys)
+            assert worst <= bar, (mode, worst, bar)
+            out[mode] = {"leaves": len(want), "param_max_abs_err_vs_ddp": worst,
+                         "gb": os.path.getsize(path) / 1e9}
+    return out
+
+
+def parallel_phase(rng: np.random.Generator, device: str = "cuda") -> dict:
+    """Phase 8: two ranks sharing the card over gloo (8a: DDP against one
+    process, each rank's launches, then bf16 timing; 8b: ZeRO-1 against
+    DDP; 8c: the tester on two ranks against one process at one and two
+    views), then run_net's NCCL group at world size 1: 8b's FSDP against
+    one process, the npz of each mode, and two trainer iterations."""
+    import tempfile
+
+    from csts_torch.eval import tester
+
+    t_phase = time.perf_counter()
+    cfg = _par_cfg()
+    spec = build_spec(cfg)
+    model = CSTS(spec)
+    init_params(model, torch.Generator().manual_seed(SEED + 5))
+    inputs = {"sd": {k: v.detach().clone() for k, v in model.state_dict().items()},
+              "batch": _par_batch(rng, PAR_BATCH, spec),
+              "drops": [sample_drop_masks(spec, PAR_BATCH, torch.Generator().manual_seed(SEED + s),
+                                          "cpu") for s in (11, 12)]}
+    del model
+    with tempfile.TemporaryDirectory() as root:
+        inputs_path, ref_path = os.path.join(root, "inputs.pt"), os.path.join(root, "ref.pt")
+        torch.save(inputs, inputs_path)
+        t0 = time.perf_counter()
+        state, stats, grads, params, launches = _two_steps(
+            cfg, inputs["sd"], inputs["batch"], inputs["drops"], device)
+        n_params = len(params)
+        del state
+        torch.cuda.empty_cache()
+        ref = {"stats": stats, "grads": grads, "params": params}
+        torch.save(ref, ref_path)
+        ref_s = time.perf_counter() - t0
+        eval_cfgs = _par_eval_cfgs(root, rng)
+
+        t0 = time.perf_counter()
+        ranks = spawn_ranks([("train", (inputs_path, ref_path, root)), ("timed", ()),
+                             ("eval", (eval_cfgs,))], root, device)
+        ranks_s = time.perf_counter() - t0
+        res = {"reference": {"stats": stats, "launches_per_step": launches, "s": ref_s},
+               "ranks_s": ranks_s}
+
+        # 8a/8b: every gloo mode on each rank within the bars, launches per step
+        for mode in PAR_GLOO_MODES:
+            for r, rk in enumerate(ranks):
+                got = rk["train"][mode]
+                _check_step_errors(f"{mode} rank {r}", got["errors"])
+                if device == "cuda":
+                    for name in PAR_TRAIN_KERNELS:
+                        assert got["launches_per_step"][name] == PER_STEP[name], (mode, r, got)
+            log(f"phase parallel {mode}: two ranks sharing one card over gloo, fp32 batch "
+                f"{PAR_BATCH} (1 a rank), 2 steps vs one process: loss rel err "
+                + ", ".join(f"{rk['train'][mode]['errors']['loss_rel_err']:.3g}" for rk in ranks)
+                + "; worst gradient bar share "
+                + ", ".join(f"{rk['train'][mode]['errors']['grad_bar_share_worst']:.3g}"
+                            for rk in ranks)
+                + "; params max|Δ| "
+                + ", ".join(f"{rk['train'][mode]['errors']['param_max_abs_err']:.3g}"
+                            for rk in ranks)
+                + f" (bar {ranks[0]['train'][mode]['errors']['param_bar']:.3g}), vs DDP "
+                + ", ".join(f"{rk['train'][mode]['errors']['param_max_abs_err_vs_ddp']:.3g}"
+                            for rk in ranks)
+                + f"; launches a step per rank {[rk['train'][mode]['launches_per_step'] for rk in ranks]}"
+                + f"; moments held {[round(rk['train'][mode]['moment_share'], 3) for rk in ranks]}"
+                + f", params held {[round(rk['train'][mode]['param_share'], 3) for rk in ranks]}"
+                + f"; {ranks[0]['train'][mode]['s']:.2f} s with the npz")
+        for rk in ranks:
+            z = rk["train"]["zero1"]
+            assert 0.25 < z["moment_share"] < 0.75 and z["param_share"] == 1.0, z
+        res["gloo"] = [rk["train"] for rk in ranks]
+        timed = [rk["timed"] for rk in ranks]
+        res["timed"] = timed
+        log("phase parallel timing (two ranks sharing one card, not a scaling figure): bf16 "
+            f"global batch {PAR_TIMED_BATCH} (4 a rank), median ms/step "
+            + ", ".join(f"{t['median_ms']:.2f}" for t in timed)
+            + f" (rank 0, 1); one traced step: device busy "
+            + ", ".join(f"{t['device_busy_ms']:.2f}" for t in timed)
+            + " ms, of which device copies (gloo's all-reduce staged through the host) "
+            + ", ".join(f"{t['device_copies_ms']:.2f} ({t['copies_share_of_busy']:.3f})"
+                        for t in timed) + f" ({CARD})")
+
+        # 8c: the tester on two ranks against one process. The kernels' bf16
+        # outputs depend on the batch's size (tile and key-split choices) and
+        # the AUC ranks bf16 ties, so one process runs the ranks' forward
+        # batch (3): its batches are then the ranks' stripes, row for row.
+        for views, cfg_v, got in zip((1, 2), eval_cfgs, zip(*(rk["eval"] for rk in ranks))):
+            one = copy.deepcopy(cfg_v)
+            one.OUTPUT_DIR = os.path.join(root, f"one_v{views}")
+            one.TEST.BATCH_SIZE = PAR_EVAL_BATCH // PAR_WORLD
+            want = tester.test(one, device)
+            for r, g in enumerate(got):
+                assert g["stats"]["threshold"] == want["threshold"], (views, r)
+                for k in EVAL_METRICS:
+                    assert abs(g["stats"][k] - want[k]) <= EVAL_TOL, (views, r, k, g, want)
+            a = np.load(os.path.join(cfg_v.OUTPUT_DIR, "results.npz"))
+            b = np.load(os.path.join(one.OUTPUT_DIR, "results.npz"))
+            np.testing.assert_array_equal(a["index"], np.arange(PAR_EVAL_CLIPS * views))
+            for k in b.files:
+                np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+            rows = [g["rows"] for g in got]
+            assert sum(sum(r) for r in rows) == PAR_EVAL_CLIPS * views, rows
+            res[f"eval_views{views}"] = {"ranks": got, "one_process": {
+                k: want[k] for k in EVAL_METRICS}}
+            log(f"phase parallel eval: {views} view(s), {PAR_EVAL_CLIPS * views} rows on two ranks "
+                f"(rows a forward {rows}): f1 {got[0]['stats']['f1']:.6f} vs one process "
+                f"{want['f1']:.6f}, max |Δ| over f1/recall/precision/auc "
+                f"{max(abs(g['stats'][k] - want[k]) for g in got for k in EVAL_METRICS):.3g}; "
+                "every row scored once")
+        assert res["eval_views1"]["ranks"][1]["rows"] == [3, 3, 3], res["eval_views1"]
+
+        # 8b's FSDP and 8c's trainer under run_net's NCCL group at world size 1
+        nccl = _nccl_world1(root, rng, device, inputs, ref)
+        fsdp = res["fsdp_nccl_world1"] = nccl.pop("fsdp")
+        _check_step_errors("fsdp", fsdp["errors"])
+        if device == "cuda":
+            for name in PAR_TRAIN_KERNELS:
+                assert fsdp["launches_per_step"][name] == PER_STEP[name], fsdp
+        log(f"phase parallel fsdp: NCCL at world size 1 (FSDP2 over a one-card mesh), fp32 "
+            f"batch {PAR_BATCH}, 2 steps vs one process: loss rel err "
+            f"{fsdp['errors']['loss_rel_err']:.3g}; worst gradient bar share "
+            f"{fsdp['errors']['grad_bar_share_worst']:.3g}; params max|Δ| "
+            f"{fsdp['errors']['param_max_abs_err']:.3g} (bar {fsdp['errors']['param_bar']:.3g}); "
+            f"launches a step {fsdp['launches_per_step']}; {fsdp['s']:.2f} s with the npz")
+
+        npz = {m: ranks[0]["train"][m]["npz"] for m in PAR_GLOO_MODES}
+        npz["fsdp"] = fsdp["npz"]
+        res["npz"] = _npz_layouts_agree(npz, n_params, ranks[0]["train"]["ddp"]["errors"]["param_bar"])
+        log("phase parallel npz: " + ", ".join(
+            f"{m} {v['leaves']} leaves {v['gb']:.3f} GB, params max|Δ| vs DDP "
+            f"{v['param_max_abs_err_vs_ddp']:.3g}" for m, v in res["npz"].items()))
+
+        assert nccl["ddp"] and nccl["steps"] == 2, nccl
+        if device == "cuda":
+            for name in PAR_TRAIN_KERNELS:
+                assert nccl["launches"][name] == 2 * PER_STEP[name], nccl
+        res["nccl_world1"] = nccl
+        log(f"phase parallel nccl: init_from_cfg's group ({nccl['backend']}, world 1): the "
+            f"trainer {nccl['steps']} iterations through DDP in {nccl['s']:.2f} s, launches "
+            f"{nccl['launches']}")
+    res["s"] = time.perf_counter() - t_phase
+    log(f"phase parallel: {res['s']:.2f} s")
+    return res
+
+
+def parallel_only(t_start: float) -> int:
+    """``--parallel``: the build, then phase 8 alone (its JSON to
+    ``chiprun_out/chip_smoke_parallel.json``), then the card and result
+    lines."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"phase build: {time.perf_counter() - t_start:.2f} s")
+    res = parallel_phase(np.random.default_rng(SEED))
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_parallel.json"), "w") as f:
+        json.dump({"card": CARD, "parallel": res}, f, indent=1, default=str)
+    print(CARD)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -2196,6 +2767,8 @@ def main() -> int:
     # --- phase 1: build ------------------------------------------------------
     t0 = time.perf_counter()
     logs = _build.build_all()
+    if sys.argv[1:] == ["--parallel"]:
+        return parallel_only(t0)
     log(f"phase build: {time.perf_counter() - t0:.2f} s for {sorted(logs)}")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -2343,6 +2916,9 @@ def main() -> int:
     trainer = trainer_phase(rng)
     log(f"phase trainer total: {time.perf_counter() - t0:.2f} s")
 
+    # --- phase 8: several processes (two ranks sharing the card) --------------
+    parallel = parallel_phase(rng)
+
     kernels = []
     for name, k in ALL_KERNELS.items():
         if name in KERNELS:
@@ -2444,7 +3020,7 @@ def main() -> int:
                    "hw2": hw2, "blocks": blocks, "yardsticks": yardsticks,
                    "train": train, "train_per_shape": train_report,
                    "train_fp32_step": whole_step, "widths": widths, "eval": evals,
-                   "trainer": trainer}, f, indent=1,
+                   "trainer": trainer, "parallel": parallel}, f, indent=1,
                   default=str)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from csts_torch.parallel.collectives import shard_like
 from csts_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -47,7 +48,7 @@ def interpolate_pos_embed(pos_embed: np.ndarray, target_len: int) -> np.ndarray:
 
 def merge_partial(model: nn.Module, sd: Mapping[str, torch.Tensor]) -> Tuple[int, int]:
     """Copies what ``sd`` holds into ``model``'s parameters, in place (the
-    optimizer's references stay valid): matching shapes, and position
+    optimizer's references stay valid; a DTensor takes its shard): matching shapes, and position
     embeddings interpolated over the token axis. Returns (loaded, kept):
     the parameters taken from ``sd`` and those that kept their values."""
     loaded = kept = 0
@@ -58,12 +59,12 @@ def merge_partial(model: nn.Module, sd: Mapping[str, torch.Tensor]) -> Tuple[int
                 continue
             src = sd[name].detach().cpu()
             if tuple(src.shape) == tuple(p.shape):
-                p.copy_(src.to(p.dtype))
+                p.copy_(shard_like(p, src.to(p.dtype)))
                 loaded += 1
             elif ("pos_embed" in name and src.dim() == 3 and src.shape[0] == 1
                   and p.dim() == 3 and src.shape[2] == p.shape[2]):
                 interp = interpolate_pos_embed(src.float().numpy(), p.shape[1])
-                p.copy_(torch.from_numpy(interp).to(p.dtype))
+                p.copy_(shard_like(p, torch.from_numpy(interp).to(p.dtype)))
                 logger.info("Interpolated %s from %s to %s", name, tuple(src.shape),
                             tuple(p.shape))
                 loaded += 1

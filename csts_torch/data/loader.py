@@ -21,8 +21,13 @@ device prefetcher (``csts_tpu/data/loader.py``; reference
 * The final batch of val/test stays short (the JAX loader wrap-pads it to
   keep jit shapes static); the meters drop repeated dataset indices either
   way. Train drops the incomplete final batch.
-* One process reads the whole split (rank 0 of 1); per-rank striping comes
-  with multi-GPU runs (ROADMAP A.8).
+* With several processes rank r of W reads rows ``[r·lb, (r+1)·lb)`` of each
+  global batch, ``lb = BATCH_SIZE / W``: the JAX loader's host stripes
+  (``csts_tpu/data/loader.py:95-107``), not ``DistributedSampler``'s
+  strides, so W ranks see what one process sees at the global batch. The
+  sample seeds stay keyed by global position, whatever the rank. A stripe
+  of the short final batch may be empty: that rank's epoch has one batch
+  fewer (``EpochBatches.num_batches`` counts the global batches).
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from torch.utils.data import DataLoader, Dataset, Sampler
 
 from csts_torch.config import Config
 from csts_torch.data.datasets import AVGazeDataset, build_dataset
+from csts_torch.parallel import collectives
 
 BATCH_KEYS = ("video", "audio", "labels", "labels_hm")
 HOST_KEYS = ("index",)  # what the prefetcher leaves on the host
@@ -74,21 +80,36 @@ class SeededItems(Dataset):
 
 
 class EpochBatches(Sampler):
-    """Batches of (index, epoch, position) keys in the (seed, epoch) order."""
+    """Rank ``rank``'s stripes of the global batches (``batch_size`` rows
+    each) as (index, epoch, position) keys, in the (seed, epoch) order."""
 
-    def __init__(self, n: int, batch_size: int, shuffle: bool, seed: int, drop_last: bool):
+    def __init__(self, n: int, batch_size: int, shuffle: bool, seed: int, drop_last: bool,
+                 rank: int = 0, world: int = 1):
+        if batch_size % world:
+            raise ValueError(f"batch {batch_size} does not divide over {world} ranks")
         self.n = n
         self.batch_size = batch_size
+        self.local_batch_size = batch_size // world
+        self.rank = rank
         self.shuffle = shuffle
         self.seed = seed
         self.drop_last = drop_last
         self.epoch = 0
         self.start_iter = 0
 
-    def __len__(self) -> int:
+    def num_batches(self) -> int:
+        """The global batches of an epoch."""
         if self.drop_last:
             return self.n // self.batch_size
         return (self.n + self.batch_size - 1) // self.batch_size
+
+    def __len__(self) -> int:
+        """This rank's batches: the global ones, less the last where this
+        rank's stripe of it is empty."""
+        total = self.num_batches()
+        if total and (total - 1) * self.batch_size + self.rank * self.local_batch_size >= self.n:
+            return total - 1
+        return total
 
     def order(self) -> np.ndarray:
         order = np.arange(self.n)
@@ -99,9 +120,9 @@ class EpochBatches(Sampler):
     def __iter__(self) -> Iterator[List[Tuple[int, int, int]]]:
         order = self.order()
         for b in range(self.start_iter, len(self)):
-            lo = b * self.batch_size
-            yield [(int(order[p]), self.epoch, p)
-                   for p in range(lo, min(lo + self.batch_size, self.n))]
+            lo = b * self.batch_size + self.rank * self.local_batch_size
+            hi = min(lo + self.local_batch_size, self.n)
+            yield [(int(order[p]), self.epoch, p) for p in range(lo, hi)]
 
 
 class GazeLoader(DataLoader):
@@ -117,8 +138,9 @@ class GazeLoader(DataLoader):
 
 def construct_loader(cfg: Config, split: str, device: Optional[torch.device] = None,
                      seed_offset: int = 0) -> GazeLoader:
-    """(reference construct_loader, loader.py:44-109). ``device`` is where the
-    batches go: CUDA pins them when DATA_LOADER.PIN_MEMORY holds."""
+    """(reference construct_loader, loader.py:44-109): this rank's stripes.
+    ``device`` is where the batches go: CUDA pins them when
+    DATA_LOADER.PIN_MEMORY holds."""
     if split not in ("train", "val", "test"):
         raise ValueError(f"unknown split {split!r}")
     if split == "test":
@@ -131,7 +153,8 @@ def construct_loader(cfg: Config, split: str, device: Optional[torch.device] = N
     workers = cfg.DATA_LOADER.NUM_WORKERS
     return GazeLoader(
         SeededItems(dataset, seed),
-        batch_sampler=EpochBatches(len(dataset), batch_size, train, seed, drop_last=train),
+        batch_sampler=EpochBatches(len(dataset), batch_size, train, seed, drop_last=train,
+                                   rank=collectives.rank(), world=collectives.world_size()),
         collate_fn=collate,
         num_workers=workers,
         multiprocessing_context="forkserver" if workers > 0 else None,

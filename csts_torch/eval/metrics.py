@@ -93,20 +93,36 @@ def _ratio_sums(preds, labels_hm, labels, thresholds, fix_idx):
     return r_sum, p_sum, mask.sum(), mask
 
 
+def f1_sums(preds: torch.Tensor, labels_hm: torch.Tensor, labels: torch.Tensor,
+            dataset: str) -> torch.Tensor:
+    """One batch's partial sums of :func:`adaptive_f1` as one float32 tensor
+    on the device: the per-threshold recall and precision sums over the
+    fixation frames, then their count. Sums of several batches (or ranks)
+    add."""
+    r_sum, p_sum, cnt, _ = _ratio_sums(preds, labels_hm, labels, thresholds_for(dataset),
+                                       fixation_index(dataset))
+    return torch.cat([r_sum, p_sum, cnt[None]])
+
+
+def best_f1(sums: torch.Tensor, dataset: str) -> Tuple[float, float, float, float]:
+    """The best-threshold (f1, recall, precision, threshold) of
+    :func:`f1_sums`' sums."""
+    thresholds = thresholds_for(dataset)
+    k = len(thresholds)
+    denom = sums[2 * k] + 1e-12
+    recall, precision = sums[:k] / denom, sums[k:2 * k] / denom
+    f1 = (2 * recall * precision) / (recall + precision + 1e-6)
+    i = int(torch.argmax(f1))
+    return float(f1[i]), float(recall[i]), float(precision[i]), float(thresholds[i])
+
+
 def adaptive_f1(
     preds: torch.Tensor, labels_hm: torch.Tensor, labels: torch.Tensor, dataset: str,
 ) -> Tuple[float, float, float, float]:
     """Best-threshold (f1, recall, precision, threshold) over the fixation
     frames of one batch (metrics.py:9-74). ``preds`` (B, T, H, W) min-max
     rescaled; ``labels_hm`` (B, T, H, W); ``labels`` (B, T, 3) [x, y, type]."""
-    thresholds = thresholds_for(dataset)
-    r_sum, p_sum, cnt, _ = _ratio_sums(preds, labels_hm, labels, thresholds,
-                                       fixation_index(dataset))
-    denom = cnt + 1e-12
-    recall, precision = r_sum / denom, p_sum / denom
-    f1 = (2 * recall * precision) / (recall + precision + 1e-6)
-    i = int(torch.argmax(f1))
-    return float(f1[i]), float(recall[i]), float(precision[i]), float(thresholds[i])
+    return best_f1(f1_sums(preds, labels_hm, labels, dataset), dataset)
 
 
 def auc_per_frame(preds: torch.Tensor, labels_hm: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

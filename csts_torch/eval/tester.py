@@ -8,6 +8,14 @@ the per-frame softmax; on CUDA the hand-written kernels, by ``block_route``),
 accumulates the whole-test-set adaptive F1 and AUC, and emits the
 ``test_final`` JSON record. It runs on CUDA unless ``device`` names another
 device, and raises with no CUDA and no device given.
+
+With a process group each rank scores its stripes of the test batches (a
+rank whose stripe of the short final batch is empty runs nothing for it),
+then the ranks exchange their meters once: the views of a clip that
+straddle two stripes are combined first, so such a clip is scored once on
+all its views, as in one process (``TestGazeMeter.merge_ranks``); every rank
+returns the whole split's record. Rank 0 writes the results npz, merged
+over the ranks.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ from csts_torch.config import Config
 from csts_torch.data import loader as loader_lib
 from csts_torch.eval import metrics
 from csts_torch.models.csts import CSTS, build_spec, init_params
+from csts_torch.parallel import collectives
 from csts_torch.train import step as step_lib
 from csts_torch.train.meters import TestGazeMeter
 from csts_torch.utils import checkpoint as cu
@@ -55,6 +64,20 @@ def _collect_results(results: dict, preds: torch.Tensor, labels: torch.Tensor, i
     results["pred_xy"].extend(pred_xy)
     results["label_xy"].extend(labels[:, :, :2].astype(np.float32))
     results["gaze_type"].extend(labels[:, :, 2].astype(np.int32))
+
+
+def _merge_results(per_rank: list) -> dict:
+    """The ranks' results (in rank order) as one, a dataset index kept once."""
+    merged = {k: [] for k in per_rank[0]}
+    seen = set()
+    for res in per_rank:
+        for row, i in enumerate(res["index"]):
+            if int(i) in seen:
+                continue
+            seen.add(int(i))
+            for k, v in res.items():
+                merged[k].append(v[row])
+    return merged
 
 
 def _results_path(cfg: Config) -> Optional[str]:
@@ -115,9 +138,14 @@ def test(cfg: Config, device=None) -> dict:
             meter.iter_tic()
 
     if results is not None:
-        order = np.argsort(np.asarray(results["index"]))
-        np.savez(results_path, **{k: np.asarray(v)[order] for k, v in results.items()})
-        logger.info("Saved %d test results to %s", len(order), results_path)
+        results = _merge_results(collectives.gather_objects(results))
+        if collectives.is_master_proc():
+            order = np.argsort(np.asarray(results["index"]))
+            np.savez(results_path, **{k: np.asarray(v)[order] for k, v in results.items()})
+            logger.info("Saved %d test results to %s", len(order), results_path)
+    if collectives.world_size() > 1:
+        meter.merge_ranks(collectives.gather_objects(meter.pending),
+                          collectives.gather_objects(meter.stream.state()))
     stats = meter.finalize_metrics()
     logger.info("Testing finished: %s", stats)
     return stats

@@ -59,28 +59,59 @@ def family(name: str) -> str:
     return next((f for f, keys in FAMILIES if any(k in low for k in keys)), "elementwise/other")
 
 
-def _device_spans(fn: Callable[[], object], warm: bool = True) -> tuple:
+# torch.profiler keeps no device activity that starts before its trace
+# window, and the window opens a little after ``profile``'s entry returns: a
+# call made at once loses a prefix of its kernels now and then (``--windows``
+# counts how often). So the call waits this long inside the window, after a
+# sync, and the window stays open as long after it.
+WINDOW_MARGIN_S = 0.02
+
+
+def _device_spans(fn: Callable[[], object], warm: bool = True,
+                  margin_s: float = WINDOW_MARGIN_S) -> tuple:
     """(wall ms, {(name, start, end)}): one call of ``fn`` under
-    torch.profiler (after one untraced call unless ``warm`` is off) and its
-    device activities, one entry each (the event list may repeat one)."""
+    torch.profiler (after one untraced call unless ``warm`` is off), made
+    ``margin_s`` into the window, and its device activities, one entry each
+    (the event list may repeat one)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     cuda = torch.cuda.is_available()
     sync = torch.cuda.synchronize if cuda else (lambda: None)
+    margin = margin_s if cuda else 0.0
     if warm:
         fn()
     sync()
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     with profile(activities=activities) as prof:
+        sync()
+        time.sleep(margin)
         t0 = time.perf_counter()
         fn()
         sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(margin)
     spans = {(e.name, e.time_range.start, e.time_range.end)
              for e in prof.events() if e.device_type == DeviceType.CUDA
              and not getattr(e, "is_user_annotation", False)}
     return wall_ms, spans
+
+
+def kernel_sequence(fn: Callable[[], object], margin_s: float = WINDOW_MARGIN_S) -> tuple:
+    """The device activities' names of one call of ``fn`` (no untraced call
+    first), made ``margin_s`` into its window, in the order they started."""
+    spans = _device_spans(fn, warm=False, margin_s=margin_s)[1]
+    return tuple(name for name, _, _ in sorted(spans, key=lambda s: s[1]))
+
+
+def window_losses(seqs: list) -> dict:
+    """Of one call's kernel sequences from several windows: how many differ
+    from the most common one, and for each that does, how many of that
+    sequence's first kernels it lacks where it lacks only a prefix (else -1)."""
+    ref = max(set(seqs), key=seqs.count)
+    lost = [len(ref) - len(s) if len(s) < len(ref) and s == ref[len(ref) - len(s):] else -1
+            for s in seqs if s != ref]
+    return {"windows": len(seqs), "kernels": len(ref), "differ": len(lost), "prefix_lost": lost}
 
 
 def kernel_counts(fn: Callable[[], object]) -> dict:
@@ -167,6 +198,10 @@ def main(argv=None) -> int:
     ap.add_argument("--train", action="store_true", help="one training step, not the forward")
     ap.add_argument("--small", action="store_true", help="the reduced model (small_cfg)")
     ap.add_argument("--device", default=None, help="default: cuda (raises without a card)")
+    ap.add_argument("--windows", type=int, default=0,
+                    help="also trace the call alone in this many windows with no margin and "
+                         "as many with WINDOW_MARGIN_S, in turns, and count the windows whose "
+                         "kernels differ")
     ap.add_argument("--out", default=os.path.join("chiprun_out", "profile_forward.json"))
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
@@ -211,6 +246,17 @@ def main(argv=None) -> int:
     print(f"{'small_cfg' if args.small else 'flagship'} {what} on {name}: {ms:.3f} ms ({clock})")
     out = profile_forward(fn, ms)
     out.update(what=what, small=args.small, device=name, ms=ms)
+    if args.windows:
+        turns = {0.0: [], WINDOW_MARGIN_S: []}
+        for _ in range(args.windows):
+            for margin, seqs in turns.items():
+                seqs.append(kernel_sequence(fn, margin))
+        out["windows"] = [{"margin_ms": margin * 1e3, **window_losses(seqs)}
+                          for margin, seqs in turns.items()]
+        for row in out["windows"]:
+            print(f"windows, the call {row['margin_ms']:g} ms into each: {row['differ']} of "
+                  f"{row['windows']} differ from the {row['kernels']}-kernel sequence; "
+                  f"first kernels lost {row['prefix_lost']} (-1: not a prefix)")
     if device.type == "cuda":
         out["card"] = card_line()
         print(out["card"])

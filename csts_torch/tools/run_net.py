@@ -11,13 +11,26 @@ from OUTPUT_DIR, fine-tune init from TRAIN.CHECKPOINT_FILE_PATH), then
 TEST.ENABLE runs ``csts_torch.eval.tester.test``, which scores the newest
 checkpoint the trainer wrote unless TEST.CHECKPOINT_FILE_PATH names
 another. It runs on CUDA unless ``--device`` names another device, and
-raises with no CUDA. Several shards (ROADMAP A.8) raise.
+raises with no CUDA.
+
+Several processes: ``NUM_DEVICES`` ranks a shard (one a card, spawned
+here; the CPU with ``--device cpu``, over gloo) times ``--num-shards``
+shards, each started with its ``--shard-id`` and the same ``--init-method
+tcp://host:port``:
+
+    python -m csts_torch.tools.run_net --cfg X.yaml --num-shards 2 --shard-id 0 \\
+        --init-method tcp://10.0.0.1:29500 NUM_DEVICES 8 ...
+
+SOLVER.BASE_LR_SCALE_NUM_SHARDS scales the LRs by ``--num-shards``
+(``config.finalize``). A rank that fails ends the run non-zero.
 """
 
 from __future__ import annotations
 
 import argparse
 from typing import Optional, Sequence
+
+import torch
 
 from csts_torch import resolve_device
 
@@ -27,7 +40,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     parser.add_argument("--cfg", dest="cfg_file", type=str, required=True)
     parser.add_argument(
         "--init-method", "--init_method", dest="init_method", type=str, default=None,
-        help="coordinator address host:port (several shards only)",
+        help="the group's rendezvous, tcp://host:port (required with several shards)",
     )
     parser.add_argument("--shard-id", "--shard_id", dest="shard_id", type=int, default=0)
     parser.add_argument("--num-shards", "--num_shards", dest="num_shards", type=int, default=1)
@@ -40,18 +53,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return parser.parse_args(argv)
 
 
-def main(argv: Optional[Sequence[str]] = None) -> dict:
-    """Trains, then tests, as the config enables; returns the test stats
-    (empty if TEST.ENABLE is off)."""
-    from csts_torch.config import load_config
-
-    args = parse_args(argv)
-    device = resolve_device(args.device)
-    cfg = load_config(args.cfg_file, args.opts or None)
-    cfg.NUM_SHARDS = args.num_shards
-    cfg.SHARD_ID = args.shard_id
-    if args.num_shards > 1:
-        raise NotImplementedError("several shards are not ported yet (ROADMAP A.8)")
+def _run(cfg, device) -> dict:
     if cfg.TRAIN.ENABLE:
         from csts_torch.train.trainer import train
 
@@ -60,6 +62,47 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         from csts_torch.eval.tester import test
 
         return test(cfg, device)
+    return {}
+
+
+def _rank_main(local_rank: int, cfg, device, init_method: Optional[str]) -> dict:
+    """One rank: joins the group, runs, leaves it."""
+    import torch.distributed as dist
+
+    from csts_torch.parallel import mesh
+
+    device = mesh.init_from_cfg(cfg, device, local_rank, init_method)
+    try:
+        return _run(cfg, device)
+    finally:
+        dist.destroy_process_group()
+
+
+def main(argv: Optional[Sequence[str]] = None) -> dict:
+    """Trains, then tests, as the config enables; returns the test stats
+    (empty if TEST.ENABLE is off, and in the parent of spawned ranks)."""
+    from csts_torch.config import load_config
+    from csts_torch.parallel import mesh
+
+    args = parse_args(argv)
+    device = resolve_device(args.device)
+    # the shard count goes in before finalize, which scales the LRs by it
+    opts = list(args.opts or []) + ["NUM_SHARDS", str(args.num_shards),
+                                    "SHARD_ID", str(args.shard_id)]
+    cfg = load_config(args.cfg_file, opts)
+    mesh.check_axes(cfg)
+    local = cfg.NUM_DEVICES
+    if cfg.NUM_SHARDS * local == 1:
+        return _run(cfg, device)
+    if device.type == "cuda" and local > torch.cuda.device_count():
+        raise RuntimeError(f"NUM_DEVICES {local} ranks a shard, {torch.cuda.device_count()} "
+                           "cards visible")
+    if local == 1:
+        return _rank_main(0, cfg, device, args.init_method)
+    init_method = args.init_method
+    if init_method is None and cfg.NUM_SHARDS == 1:
+        init_method = f"tcp://127.0.0.1:{mesh.free_port()}"
+    torch.multiprocessing.spawn(_rank_main, args=(cfg, device, init_method), nprocs=local)
     return {}
 
 

@@ -327,6 +327,30 @@ class TestGazeMeter(_Timed):
         self._done.add(cid)
         self.stream.update(pred[None].astype(np.float32), labels_hm[None], labels[None])
 
+    @property
+    def pending(self) -> Dict[int, Dict[int, tuple]]:
+        """The clips still missing views: {clip: {view: (pred, labels_hm, labels)}}."""
+        return self._pending
+
+    def merge_ranks(self, pendings: Iterable[dict], states: Iterable[dict]) -> None:
+        """Makes this meter every rank's (each rank calls it with the same
+        gathered arguments, in rank order): the ranks' :attr:`pending` views
+        combined, a clip whose views are all there now scored on them, and
+        the ranks' ``StreamingF1`` states summed. :meth:`finalize_metrics`
+        then flushes what is still missing views. The JAX tester averages a
+        straddling clip's views per host and merges before the flush
+        (``csts_tpu/eval/tester.py:208-212``, :258-266)."""
+        self.stream = StreamingF1(self.stream.dataset, self.device)
+        for state in states:
+            self.stream.merge_state(state)
+        self._pending = {}
+        for pending in pendings:
+            for cid, views in pending.items():
+                self._pending.setdefault(cid, {}).update(views)
+        for cid in sorted(self._pending):
+            if len(self._pending[cid]) == self.num_views:
+                self._flush(cid)
+
     def flush_pending(self) -> None:
         """Score the clips whose views did not all arrive, on the views they have."""
         for cid in sorted(self._pending):
@@ -342,13 +366,11 @@ class TestGazeMeter(_Timed):
             **mem_fields(self.device),
         })
 
-    def finalize_metrics(self, other_states: Iterable[dict] = ()) -> Dict:
-        """The "test_final" record. Pending clips are flushed first, then the
-        states of other accumulators (``StreamingF1.state``) merge in: the JAX
-        tester merges before it flushes (``csts_tpu/eval/tester.py:263``)."""
+    def finalize_metrics(self) -> Dict:
+        """The "test_final" record, after the clips still missing views are
+        scored on the views they have (with several ranks, after
+        :meth:`merge_ranks`)."""
         self.flush_pending()
-        for state in other_states:
-            self.stream.merge_state(state)
         result = self.stream.finalize()
         self.stats = {"_type": "test_final", **result, **mem_fields(self.device, with_ram=True)}
         log_json_stats(self.stats)

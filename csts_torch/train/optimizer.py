@@ -26,6 +26,16 @@ moments in the parameters' dtype); the second moment stays fp32.
 :class:`Optimizer` also reads and writes the moments and counts by parameter
 name (``moments``, ``load_moments``), which the npz checkpoints of
 ``utils/checkpoint.py`` hold in the JAX package's layout.
+
+With a process group (``parallel/mesh.py``): SOLVER.ZERO1 is
+``ZeroRedundancyOptimizer`` over the same torch optimizer and groups (each
+rank updates and keeps the moments of its share of the parameters, then
+broadcasts them; DDP has already averaged the whole gradients, so the norm
+and the clip are those of one process). Under SOLVER.FSDP the parameters,
+gradients and moments are FSDP2's DTensors, sharded over the ranks: the
+norm adds the ranks' sums of squares, and ``moments`` / ``load_moments``
+gather and scatter whole tensors. Without a group both are the one-process
+optimizer: one rank holds every shard.
 """
 
 from __future__ import annotations
@@ -34,8 +44,10 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.optim import ZeroRedundancyOptimizer
 
 from csts_torch.config import Config
+from csts_torch.parallel import collectives
 
 # the reference's no_weight_decay() names, and the audio branch's twins
 POS_EMBED_NAMES = {
@@ -59,8 +71,16 @@ def weight_decay_mask(model: nn.Module, cfg: Config) -> Dict[str, bool]:
 
 
 def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
-    """sqrt(Σ‖g‖²) over all gradients (optax.global_norm)."""
-    return torch.nn.utils.get_total_norm(grads, norm_type=2.0)
+    """sqrt(Σ‖g‖²) over all gradients (optax.global_norm); the shards of
+    FSDP's DTensor gradients add their squares over the ranks."""
+    sharded = [g.to_local() for g in grads if isinstance(g, collectives.DTensor)]
+    if not sharded:
+        return torch.nn.utils.get_total_norm(grads, norm_type=2.0)
+    plain = [g for g in grads if not isinstance(g, collectives.DTensor)]
+    sq = collectives.all_reduce_sum(torch.nn.utils.get_total_norm(sharded, norm_type=2.0) ** 2)
+    if plain:
+        sq = sq + torch.nn.utils.get_total_norm(plain, norm_type=2.0) ** 2
+    return sq.sqrt()
 
 
 BETAS = (0.9, 0.999)
@@ -130,51 +150,105 @@ class Optimizer:
         self.clip_value = clip_value
         self.method = method
         self.named = dict(named or {})
+        # the torch optimizer that keeps this rank's moments (ZeRO-1's share)
+        self.local = opt.optim if isinstance(opt, ZeroRedundancyOptimizer) else opt
 
     @property
     def lr(self) -> float:
         """The learning rate last set."""
         return float(self.opt.param_groups[0]["lr"])
 
-    def moments(self) -> Tuple[int, Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
-        """(count, first, second) by parameter name. AdamW/Adam: the steps
-        taken, exp_avg and exp_avg_sq; SGD: 0, the momentum buffers and {}.
-        A moment not made yet (no step taken) reads as zeros, in bf16 for
-        AdamW's first moment under SOLVER.BF16_MOMENTS."""
+    def _states(self) -> Optional[Dict[str, dict]]:
+        """Each parameter's whole optimizer state by name; under ZeRO-1 on
+        rank 0 only (None elsewhere): every rank calls it, and each
+        parameter's moments come from the rank that keeps them as tensor
+        broadcasts (ZeroRedundancyOptimizer's own consolidation pickles
+        every rank's state through the group)."""
+        if not isinstance(self.opt, ZeroRedundancyOptimizer):
+            return {name: self.opt.state.get(p, {}) for name, p in self.named.items()}
+        params = self.params
+        owned = {id(p) for group in self.local.param_groups for p in group["params"]}
+        # per kept parameter: its tensors' (shape, dtype) and the scalars
+        mine = {i: {k: (tuple(v.shape), v.dtype) if torch.is_tensor(v) and v.dim() else
+                    (float(v) if torch.is_tensor(v) else v)
+                    for k, v in self.local.state.get(p, {}).items()}
+                for i, p in enumerate(params) if id(p) in owned}
+        meta = {}
+        for r, part in enumerate(collectives.gather_objects(mine)):
+            meta.update({i: (r, m) for i, m in part.items()})
+        master = collectives.is_master_proc()
+        states = []
+        for i, p in enumerate(params):
+            r, m = meta[i]
+            state = {}
+            for k, v in m.items():
+                if not isinstance(v, tuple):
+                    state[k] = torch.tensor(v)
+                    continue
+                buf = (self.local.state[p][k] if r == collectives.rank()
+                       else torch.empty(v[0], dtype=v[1], device=p.device))
+                torch.distributed.broadcast(buf, src=r)
+                state[k] = buf
+            if master:
+                states.append(state)
+        if not master:
+            return None
+        by_param = {id(p): st for p, st in zip(params, states)}
+        return {name: by_param[id(p)] for name, p in self.named.items()}
+
+    def moments(self) -> Optional[Tuple[int, Dict[str, torch.Tensor], Dict[str, torch.Tensor]]]:
+        """(count, first, second) by parameter name, whole tensors. AdamW/Adam:
+        the steps taken, exp_avg and exp_avg_sq; SGD: 0, the momentum
+        buffers and {}. A moment not made yet (no step taken) reads as
+        zeros, in bf16 for AdamW's first moment under SOLVER.BF16_MOMENTS.
+        Every rank calls it (the shards are gathered); under ZeRO-1 the
+        ranks other than 0 get None."""
+        states = self._states()
+        if states is None:
+            return None
         first, second, count = {}, {}, 0
-        bf16_mu = isinstance(self.opt, AdamWBF16Mu)
+        bf16_mu = isinstance(self.local, AdamWBF16Mu)
         for name, p in self.named.items():
-            state = self.opt.state.get(p, {})
+            state = {k: collectives.whole(v) for k, v in states[name].items()}
+            zeros = lambda dtype=p.dtype: torch.zeros(p.shape, dtype=dtype)  # noqa: E731
             if self.method == "sgd":
                 buf = state.get("momentum_buffer")
-                first[name] = buf if buf is not None else torch.zeros_like(p)
+                first[name] = buf if buf is not None else zeros()
                 continue
             if "step" in state:
                 count = int(state["step"])
                 first[name], second[name] = state["exp_avg"], state["exp_avg_sq"]
             else:
-                first[name] = torch.zeros_like(p, dtype=torch.bfloat16 if bf16_mu else p.dtype)
-                second[name] = torch.zeros_like(p)
+                first[name] = zeros(torch.bfloat16 if bf16_mu else p.dtype)
+                second[name] = zeros()
         return count, first, second
 
     def load_moments(self, count: int, first: Dict[str, torch.Tensor],
                      second: Dict[str, torch.Tensor]) -> None:
-        """Sets the state :meth:`moments` reads, copied into tensors of each
-        parameter's shape, layout and device, in the state's dtype."""
-        bf16_mu = isinstance(self.opt, AdamWBF16Mu)
-        fused = bool(self.opt.defaults.get("fused"))
+        """Sets the state :meth:`moments` reads (whole tensors by name),
+        copied into tensors of each parameter's shape, layout and device, in
+        the state's dtype: under ZeRO-1 the moments of this rank's share,
+        under FSDP this rank's shard of each."""
+        bf16_mu = isinstance(self.local, AdamWBF16Mu)
+        fused = bool(self.local.defaults.get("fused"))
+        owned = {id(p) for group in self.local.param_groups for p in group["params"]}
+
+        def like(p, value, dtype=None):
+            return collectives.shard_like(p, value.to(dtype or p.dtype))
+
         for name, p in self.named.items():
-            state = self.opt.state[p]
+            if id(p) not in owned:
+                continue
+            state = self.local.state[p]
             if self.method == "sgd":
-                if self.opt.defaults.get("momentum", 0.0):
-                    state["momentum_buffer"] = torch.empty_like(p).copy_(first[name])
+                if self.local.defaults.get("momentum", 0.0):
+                    state["momentum_buffer"] = like(p, first[name])
                 continue
             # fused AdamW keeps its step on the parameter's device
             state["step"] = torch.tensor(float(count), dtype=torch.float32,
                                          device=p.device if fused else "cpu")
-            state["exp_avg"] = torch.empty_like(
-                p, dtype=torch.bfloat16 if bf16_mu else p.dtype).copy_(first[name])
-            state["exp_avg_sq"] = torch.empty_like(p).copy_(second[name])
+            state["exp_avg"] = like(p, first[name], torch.bfloat16 if bf16_mu else None)
+            state["exp_avg_sq"] = like(p, second[name])
 
     def set_lr(self, lr: float) -> None:
         for group in self.opt.param_groups:
@@ -194,6 +268,7 @@ class Optimizer:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in params]
         norm = global_norm(grads)
+        grads = [collectives.local(g) for g in grads]  # FSDP: each rank clips its shards
         if self.clip_value:
             for g in grads:
                 g.clamp_(-self.clip_value, self.clip_value)
@@ -208,10 +283,10 @@ class Optimizer:
 
 
 def construct_optimizer(model: nn.Module, cfg: Config) -> Optimizer:
-    """The torch optimizer over two groups (decay, no decay), with the clip."""
+    """The torch optimizer over two groups (decay, no decay), with the clip;
+    under SOLVER.ZERO1 with a process group, sharded by
+    ``ZeroRedundancyOptimizer``."""
     solver = cfg.SOLVER
-    if solver.ZERO1 or solver.FSDP:
-        raise NotImplementedError("SOLVER.ZERO1 / SOLVER.FSDP are not ported yet")
     mask = weight_decay_mask(model, cfg)
     named = dict(model.named_parameters())
     groups = [
@@ -220,15 +295,22 @@ def construct_optimizer(model: nn.Module, cfg: Config) -> Optimizer:
     ]
     groups = [g for g in groups if g["params"]]
     method = solver.OPTIMIZING_METHOD
-    # one fused kernel for the update on CUDA (the same formula)
-    fused = next(model.parameters()).device.type == "cuda"
+    # one fused kernel for the update on CUDA (the same formula); FSDP's
+    # DTensor moments take the foreach update
+    fused = (next(model.parameters()).device.type == "cuda"
+             and not isinstance(next(model.parameters()), collectives.DTensor))
     if method in ("adamw", "adam") and solver.BF16_MOMENTS:
-        opt = AdamWBF16Mu(groups, lr=solver.BASE_LR)
+        cls, kwargs = AdamWBF16Mu, {"lr": solver.BASE_LR}
     elif method in ("adamw", "adam"):
-        opt = torch.optim.AdamW(groups, lr=solver.BASE_LR, betas=BETAS, eps=EPS, fused=fused)
+        cls, kwargs = torch.optim.AdamW, {"lr": solver.BASE_LR, "betas": BETAS, "eps": EPS,
+                                          "fused": fused}
     elif method == "sgd":
-        opt = torch.optim.SGD(groups, lr=solver.BASE_LR, momentum=solver.MOMENTUM,
-                              nesterov=solver.NESTEROV and solver.MOMENTUM > 0)
+        cls, kwargs = torch.optim.SGD, {"lr": solver.BASE_LR, "momentum": solver.MOMENTUM,
+                                        "nesterov": solver.NESTEROV and solver.MOMENTUM > 0}
     else:
         raise NotImplementedError(f"Does not support {method} optimizer")
+    if solver.ZERO1 and collectives.initialized():
+        opt = ZeroRedundancyOptimizer(groups, optimizer_class=cls, **kwargs)
+    else:
+        opt = cls(groups, **kwargs)
     return Optimizer(opt, solver.CLIP_GRAD_L2NORM, solver.CLIP_GRAD_VAL, method, named)

@@ -17,6 +17,16 @@ iteration. The stochastic-depth masks of iteration i of epoch e come from a
 draws are keyed the same way, so a resumed run replays the uninterrupted
 one. ``_PREEMPT_AFTER_ITERS`` injects the signal after that many iterations
 of the first trained epoch (drills and tests).
+
+Several processes: when the caller has started a process group
+(``parallel/mesh.py`` ``init_from_cfg``, as ``run_net`` does), each rank
+loads its stripe of every global batch, steps through DDP (or ZeRO-1 /
+FSDP under SOLVER.ZERO1 / SOLVER.FSDP), and the train and val records are
+the global batch's (the metrics' sums added over the ranks before the
+division), logged by rank 0. Rank 0 writes each checkpoint. SIGTERM may
+reach one rank first: every iteration the ranks agree on the stop flag
+(one MAX all-reduce), so all save and stop at the same iteration and none
+waits in a collective the others left.
 """
 
 from __future__ import annotations
@@ -36,6 +46,7 @@ from csts_torch.config import Config
 from csts_torch.data import loader as loader_lib
 from csts_torch.eval import metrics
 from csts_torch.models.csts import build_spec
+from csts_torch.parallel import collectives
 from csts_torch.train import step as step_lib
 from csts_torch.train.meters import EpochTimer, TrainGazeMeter, ValGazeMeter
 from csts_torch.utils import checkpoint as cu
@@ -72,8 +83,8 @@ def drop_generator(seed: int, epoch: int, iteration: int) -> torch.Generator:
 def _check_options(cfg: Config) -> None:
     if cfg.TRAIN.CHECKPOINT_BACKEND != "npz":
         raise NotImplementedError(
-            f"TRAIN.CHECKPOINT_BACKEND {cfg.TRAIN.CHECKPOINT_BACKEND!r}: only npz is ported "
-            "(orbax goes with several processes, ROADMAP A.8)")
+            f"TRAIN.CHECKPOINT_BACKEND {cfg.TRAIN.CHECKPOINT_BACKEND!r}: only npz is ported; "
+            "the card's machine has no orbax, and rank 0's npz serves every sharding")
     if cfg.TENSORBOARD.ENABLE:
         raise NotImplementedError("TENSORBOARD.ENABLE is not ported yet (ROADMAP A.9)")
 
@@ -99,7 +110,8 @@ def _weights(model: torch.nn.Module, named: Optional[Dict[str, torch.Tensor]]):
 
 def train(cfg: Config, device=None) -> step_lib.TrainState:
     """Trains for SOLVER.MAX_EPOCH epochs from the load chain's start (or
-    until preempted); returns the state."""
+    until preempted); returns the state. With a process group started, this
+    rank's part of a data-parallel run (``device`` its own card)."""
     device = resolve_device(device)
     _check_options(cfg)
     setup_logging(cfg.OUTPUT_DIR)
@@ -149,7 +161,7 @@ def train(cfg: Config, device=None) -> step_lib.TrainState:
                 cu.save_checkpoint(cfg.OUTPUT_DIR, state, cur_epoch, cfg)
             if (cur_epoch + 1) % cfg.TRAIN.EVAL_PERIOD == 0:
                 _eval_epoch(val_loader, state, eval_step, val_meter, cur_epoch, cfg, device)
-            if _PREEMPTED.is_set():
+            if collectives.any_rank(_PREEMPTED.is_set()):
                 # preempted on the epoch's last iteration: exit at the boundary
                 if not saved:
                     cu.save_checkpoint(cfg.OUTPUT_DIR, state, cur_epoch, cfg)
@@ -178,7 +190,7 @@ def _train_epoch(train_loader, state, train_step, meter, cur_epoch: int, cfg, de
         for offset, batch in enumerate(prefetch):
             cur_iter = start_iter + offset
             if (cfg.TRAIN.PROFILE_NUM_ITERS and not profile["done"]
-                    and cur_iter == cfg.TRAIN.PROFILE_START_ITER):
+                    and cur_iter == cfg.TRAIN.PROFILE_START_ITER and collectives.is_master_proc()):
                 prof = _start_profile(device)
             meter.data_toc()
             stats, preds = train_step(state, batch,
@@ -189,10 +201,11 @@ def _train_epoch(train_loader, state, train_step, meter, cur_epoch: int, cfg, de
                 prof, profile["done"] = None, True
             lr = float(stats["lr"])
             step_lib.check_nan_loss(loss, cur_iter)
-            f1, recall, precision, threshold = metrics.adaptive_f1(
-                metrics.minmax_rescale(preds), batch["labels_hm"], batch["labels"], dataset_name)
+            sums = collectives.all_reduce_sum(metrics.f1_sums(
+                metrics.minmax_rescale(preds), batch["labels_hm"], batch["labels"], dataset_name))
+            f1, recall, precision, threshold = metrics.best_f1(sums, dataset_name)
             meter.update_stats(f1, recall, precision, threshold, loss, lr,
-                               mb_size=batch["labels"].shape[0])
+                               mb_size=batch["labels"].shape[0] * collectives.world_size())
             if "egonce_loss" in stats and (cur_iter + 1) % cfg.LOG_PERIOD == 0:
                 logger.info("Iter %d: kld_loss %.4f, egonce_loss %.4f, loss %.4f", cur_iter + 1,
                             float(stats["kldiv_loss"]), float(stats["egonce_loss"]), loss)
@@ -203,7 +216,7 @@ def _train_epoch(train_loader, state, train_step, meter, cur_epoch: int, cfg, de
                 _PREEMPTED.set()
             # on the epoch's last iteration a preemption is an epoch-boundary
             # exit (the caller's), not a save pointing past the end
-            if _PREEMPTED.is_set() and cur_iter + 1 < data_size:
+            if collectives.any_rank(_PREEMPTED.is_set()) and cur_iter + 1 < data_size:
                 stopped_at = cur_iter + 1
                 break
     if prof is not None:  # the epoch ended inside the trace window
@@ -236,26 +249,48 @@ def _stop_profile(prof: torch.profiler.profile, cfg, cur_epoch: int) -> None:
                 cfg.TRAIN.PROFILE_START_ITER + cfg.TRAIN.PROFILE_NUM_ITERS, path)
 
 
+def _first_row(loader, epoch: int, device) -> Dict[str, torch.Tensor]:
+    """The loader's first clip as a batch of one on ``device``."""
+    batch = loader.collate_fn([loader.dataset[(0, epoch, 0)]])
+    return {k: v.to(device) for k, v in batch.items() if k not in loader_lib.HOST_KEYS}
+
+
 def _eval_epoch(val_loader, state, eval_step, meter, cur_epoch: int, cfg, device) -> None:
     """Validation: the eval forward (``make_eval_step``: the eval dispatch
     in the compute dtype) of the EMA weights when there are any, else the
-    weights; per batch the adaptive F1, weighted by its fixation frames. The
-    val split's final batch stays short (the JAX loader repeats leading rows
-    to fill it)."""
+    weights; per global batch the adaptive F1, weighted by its fixation
+    frames. The val split's final batch stays short (the JAX loader repeats
+    leading rows to fill it); a rank whose stripe of it is empty adds zero
+    sums to that batch's. Under FSDP, where each forward gathers the
+    parameters on every rank, that rank also runs the forward on one
+    placeholder row (the split's first), scored nowhere; else it runs none."""
     meter.iter_tic()
     dataset_name = cfg.TRAIN.DATASET
-    fix_idx = metrics.fixation_index(dataset_name)
+    k = len(metrics.thresholds_for(dataset_name))
+
+    def record(cur_iter: int, sums: torch.Tensor) -> None:
+        sums = collectives.all_reduce_sum(sums)
+        f1, recall, precision, threshold = metrics.best_f1(sums, dataset_name)
+        meter.iter_toc()
+        weight = int(round(float(sums[2 * k])))  # the global batch's fixation frames
+        meter.update_stats(f1, recall, precision, None, threshold, weight=weight)
+        meter.log_iter_stats(cur_epoch, cur_iter)
+        meter.iter_tic()
+
+    done = 0
     with _weights(state.model, state.ema), loader_lib.DevicePrefetcher(
             iter(val_loader), device, depth=cfg.DATA_LOADER.PREFETCH_DEPTH) as prefetch:
-        for cur_iter, batch in enumerate(prefetch):
+        for batch in prefetch:
             meter.data_toc()
             preds = eval_step(state.model, batch)
-            f1, recall, precision, threshold = metrics.adaptive_f1(
-                metrics.minmax_rescale(preds), batch["labels_hm"], batch["labels"], dataset_name)
-            meter.iter_toc()
-            weight = int((batch["labels"][:, :, 2] == fix_idx).sum())
-            meter.update_stats(f1, recall, precision, None, threshold, fix_idx, weight=weight)
-            meter.log_iter_stats(cur_epoch, cur_iter)
-            meter.iter_tic()
+            record(done, metrics.f1_sums(metrics.minmax_rescale(preds), batch["labels_hm"],
+                                         batch["labels"], dataset_name))
+            done += 1
+        sharded = isinstance(next(state.model.parameters()), collectives.DTensor)
+        for cur_iter in range(done, val_loader.batch_sampler.num_batches()):
+            meter.data_toc()
+            if sharded:
+                eval_step(state.model, _first_row(val_loader, cur_epoch, device))
+            record(cur_iter, torch.zeros(2 * k + 1, device=device))
     meter.log_epoch_stats(cur_epoch)
     meter.reset()

@@ -18,7 +18,11 @@ shapes and order), the leaves are, in order:
 * P EMA weights, only when SOLVER.EMA_DECAY > 0.
 
 The moments convert with the params' own transposes; Adam's count is
-``torch.optim.AdamW``'s per-parameter ``step``. Under SOLVER.BF16_MOMENTS
+``torch.optim.AdamW``'s per-parameter ``step``.
+
+With a process group rank 0 writes the same archive whatever the sharding
+(ZeRO-1's moments consolidated there, FSDP's shards gathered whole), the
+other ranks wait at a barrier, and every rank reads a file after one. Under SOLVER.BF16_MOMENTS
 the JAX package writes its bf16 first moments as raw 2-byte ``|V2`` leaves
 (numpy has no bfloat16), which its own ``load_checkpoint`` cannot read back;
 the port reads them, and writes bf16 leaves as fp32, which holds every bf16
@@ -37,6 +41,7 @@ import torch
 from torch import nn
 
 from csts_torch.convert import from_torch, to_jax
+from csts_torch.parallel import collectives
 from csts_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -91,41 +96,51 @@ def _jax_leaves(named: Dict[str, torch.Tensor], lay) -> List[np.ndarray]:
     return [to_jax.to_jax_leaf(named[leaf.name], leaf.perm) for _, leaf in lay]
 
 
-def state_leaves(state) -> List[np.ndarray]:
-    """The port's ``train.step.TrainState`` as the JAX TrainState's leaves."""
+def state_leaves(state) -> Optional[List[np.ndarray]]:
+    """The port's ``train.step.TrainState`` as the JAX TrainState's leaves.
+    Every rank calls it (sharded state is gathered); the ranks other than
+    0 get None."""
     opt = state.optimizer
     lay = _layout(state.model)
-    count, first, second = opt.moments()
+    params = {n: collectives.whole(p) for n, p in state.model.named_parameters()}
+    ema = None if state.ema is None else {n: collectives.whole(t) for n, t in state.ema.items()}
+    moments = opt.moments()
+    if not collectives.is_master_proc():
+        return None
+    count, first, second = moments
     step = np.asarray(state.step, np.int32)
-    leaves = _jax_leaves(dict(state.model.named_parameters()), lay)
+    leaves = _jax_leaves(params, lay)
     if opt.method == "sgd":
         leaves += [step, np.asarray(opt.lr, np.float32)] + _jax_leaves(first, lay)
     else:
         leaves += [step, np.asarray(opt.lr, np.float32), np.asarray(count, np.int32)]
         leaves += _jax_leaves(first, lay) + _jax_leaves(second, lay)
     leaves.append(step)
-    if state.ema is not None:
-        leaves += _jax_leaves(state.ema, lay)
+    if ema is not None:
+        leaves += _jax_leaves(ema, lay)
     return leaves
 
 
 def save_checkpoint(output_dir: str, state, epoch: int, cfg=None,
                     iter_idx: Optional[int] = None) -> str:
-    """Writes ``state`` as the JAX package's npz TrainState and its sidecar;
-    returns the path. ``epoch`` is the last completed epoch; ``iter_idx``
-    (mid-epoch saves only) the iterations of epoch ``epoch + 1`` done."""
-    os.makedirs(checkpoint_dir(output_dir), exist_ok=True)
+    """Writes ``state`` as the JAX package's npz TrainState and its sidecar
+    (rank 0; every rank calls it and returns after the write); returns the
+    path. ``epoch`` is the last completed epoch; ``iter_idx`` (mid-epoch
+    saves only) the iterations of epoch ``epoch + 1`` done."""
     leaves = state_leaves(state)
     path = checkpoint_path(output_dir, epoch, iter_idx)
-    np.savez(path, **{f"leaf_{i:05d}": leaf for i, leaf in enumerate(leaves)})
-    meta = {"epoch": epoch, "num_leaves": len(leaves)}
-    if iter_idx is not None:
-        meta["iter"] = iter_idx
-    if cfg is not None:
-        meta["cfg"] = cfg.dump()
-    with open(path + ".json", "w") as f:
-        json.dump(meta, f)
-    logger.info("Saved checkpoint to %s", path)
+    if leaves is not None:
+        os.makedirs(checkpoint_dir(output_dir), exist_ok=True)
+        np.savez(path, **{f"leaf_{i:05d}": leaf for i, leaf in enumerate(leaves)})
+        meta = {"epoch": epoch, "num_leaves": len(leaves)}
+        if iter_idx is not None:
+            meta["iter"] = iter_idx
+        if cfg is not None:
+            meta["cfg"] = cfg.dump()
+        with open(path + ".json", "w") as f:
+            json.dump(meta, f)
+        logger.info("Saved checkpoint to %s", path)
+    collectives.barrier()
     return path
 
 
@@ -156,9 +171,10 @@ def _from_jax(lay, leaves, named) -> Dict[str, torch.Tensor]:
 
 
 def _copy_into(named: Dict[str, torch.Tensor], values: Dict[str, torch.Tensor]) -> None:
+    """Whole values into tensors by name (into a DTensor, this rank's shard)."""
     with torch.no_grad():
         for name, t in named.items():
-            t.copy_(values[name])
+            t.copy_(collectives.shard_like(t, values[name]))
 
 
 def _has_ema(n_leaves: int, n_params: int) -> bool:
@@ -263,7 +279,10 @@ def load_train_checkpoint(cfg, state) -> Tuple[int, int]:
       epoch after it, or epoch 0 with TRAIN.CHECKPOINT_EPOCH_RESET.
     * A ``.pyth`` one: the weights (partial merge), then the audio branch
       from TRAIN.AUDIO_CHECKPOINT_FILE_PATH; the EMA restarts from them.
+
+    With a process group every rank reads, after a barrier.
     """
+    collectives.barrier()
     if cfg.TRAIN.AUTO_RESUME and has_checkpoint(cfg.OUTPUT_DIR):
         last = get_last_checkpoint(cfg.OUTPUT_DIR)
         logger.info("Auto-resuming from %s", last)

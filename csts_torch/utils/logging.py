@@ -1,9 +1,9 @@
-"""Logging: stdout + file, structured JSON stat lines
+"""Logging: rank 0's stdout + file, structured JSON stat lines
 (``csts_tpu/utils/logging.py``; reference ``slowfast/utils/logging.py:19-96``).
 
-``json_stats:`` lines are the machine-readable record ("test_iter",
-"test_final" types). The port runs one process, so every process logs; with
-several processes (ROADMAP A.8) only rank 0 would.
+``json_stats:`` lines are the machine-readable record ("train_iter",
+"val_epoch", "test_final" types). With several processes only rank 0 logs:
+the others' root logger gets a null handler, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -14,9 +14,15 @@ import os
 import sys
 from typing import Any, Dict
 
+from csts_torch.parallel import collectives
+
 
 def setup_logging(output_dir: str | None = None) -> None:
-    """Root logger to stdout, and to ``output_dir/stdout.log`` when given."""
+    """Root logger to stdout, and to ``output_dir/stdout.log`` when given;
+    on ranks other than 0, nowhere."""
+    if not collectives.is_master_proc():
+        logging.getLogger().addHandler(logging.NullHandler())
+        return
     root = logging.getLogger()
     root.setLevel(logging.INFO)
     fmt = logging.Formatter(

@@ -292,3 +292,16 @@ def test_profile_forward_cpu_small(tmp_path):
     assert profile_forward.family("void csts::fb::block_mma_kernel<0, 1, 12, 12, 128>") \
         == "B3-B5, B9b/c whole blocks"
     assert profile_forward.family("hw2_upsample_kernel<bf16, 8>") == "B9a hw2_upsample"
+
+
+def test_window_losses_counts_a_lost_prefix(tmp_path):
+    seq = ("a", "b", "c", "d")
+    res = profile_forward.window_losses([seq, seq[2:], seq, ("a", "c", "d"), seq])
+    assert res == {"windows": 5, "kernels": 4, "differ": 2, "prefix_lost": [2, -1]}
+    out = tmp_path / "profile.json"
+    argv = ["--device", "cpu", "--small", "--batch", "1", "--iters", "1", "--windows", "2",
+            "--out", str(out)]
+    assert profile_forward.main(argv) == 0
+    rows = json.loads(out.read_text())["windows"]
+    assert [r["margin_ms"] for r in rows] == [0.0, profile_forward.WINDOW_MARGIN_S * 1e3]
+    assert all(r["windows"] == 2 and r["differ"] == 0 for r in rows)

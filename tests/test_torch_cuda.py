@@ -14,7 +14,9 @@ gradients, and the three autograd Functions against autograd of their plain
 versions; ``small_cfg``'s eval loop
 (``csts_torch.eval.tester.test``: loader, prefetcher, metrics) through the
 kernels against the same loop through the plain twins, and the AUC's
-tie order on the card against the CPU's.
+tie order on the card against the CPU's; ``small_cfg``'s step on two gloo
+ranks sharing the card (DDP, the kernels in each rank) against one process,
+and what NCCL and gloo do with two ranks on one card.
 
 They skip without a card. On one, run them without the JAX suite's conftest:
 
@@ -1230,3 +1232,150 @@ def test_max_pool_backward_fixed_order_on_the_card(gen, dtype):
     err = (grads[0].double().cpu() - want).abs()
     bar = 1e-6 if dtype == torch.float32 else 2 ** -8
     assert float((err / (1 + want.abs())).max()) <= bar
+
+
+# ----------------------------------------------------------------------------------
+# several processes: two gloo ranks sharing the card
+# ----------------------------------------------------------------------------------
+
+
+def test_small_ddp_two_ranks_on_the_card(gen, tmp_path):
+    """``small_cfg`` at global batch 4 on two gloo ranks sharing device 0
+    (batch 2 each, DDP, fp32, TF32 off, kldiv+egonce over the gathered
+    embeddings, drop-path 0.2 with the global batch's masks), through the
+    kernels in each rank, against one process at batch 4 on the card from
+    the same weights, batch and masks: each step's loss within 1e-5
+    relative, each gradient after step 1 within 1e-3 of its norm plus 1e-6
+    of the whole gradient's (chip_smoke's whole-step bars: the kernels sum
+    in other orders), the params after step 2 within 2·Σlr, and every
+    training kernel launched in each rank."""
+    import numpy as np
+
+    from chip_smoke import STEP_GRAD_FLOOR, STEP_GRAD_RTOL, STEP_LOSS_RTOL
+    from csts_torch.models.csts import build_spec, init_params, CSTS
+    from csts_torch.ops import sample_drop_masks
+    from csts_torch.train import step as step_lib
+    from test_torch_multiproc import run_ranks, run_steps, step_cfg, step_worker
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = step_cfg()
+    spec = build_spec(cfg)
+    model = CSTS(spec)
+    init_params(model, torch.Generator().manual_seed(3))
+    sd = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    rng = np.random.default_rng(2)
+    hm = rng.uniform(0.0, 1.0, (4, 8, 8, 8)).astype(np.float32)
+    batch = {"video": torch.from_numpy(rng.standard_normal((4, 8, 32, 32, 3), np.float32)),
+             "audio": torch.from_numpy(rng.standard_normal((4, 8, 32, 32, 1), np.float32)),
+             "labels_hm": torch.from_numpy(hm / hm.sum(axis=(2, 3), keepdims=True))}
+    drops = [sample_drop_masks(spec, 4, torch.Generator().manual_seed(s)) for s in (7, 8)]
+    torch.save({"sd": sd, "batch": batch, "drops": drops}, tmp_path / "inputs.pt")
+    one = step_lib.create_train_state(cfg, spec, state_dict=sd, device="cuda")
+    want = run_steps(one, cfg, {k: v.cuda() for k, v in batch.items()},
+                     [[None if m is None else tuple(x.cuda() for x in m) for m in d]
+                      for d in drops])
+    run_ranks(step_worker, str(tmp_path / "inputs.pt"), str(tmp_path), ("ddp",), "cuda",
+              timeout=300)
+    got = torch.load(tmp_path / "ddp.pt")
+    assert all(got["launches"].values()), got["launches"]
+    for g, w in zip(got["stats"], want["stats"]):
+        assert abs(g["loss"] - w["loss"]) <= STEP_LOSS_RTOL * abs(w["loss"]), (g, w)
+    norm = lambda t: float(torch.linalg.vector_norm(t))  # noqa: E731
+    total = float(np.sqrt(sum(norm(g) ** 2 for g in want["grads"].values())))
+    for n, w in want["grads"].items():
+        assert norm(got["grads"][n] - w) <= STEP_GRAD_RTOL * norm(w) + STEP_GRAD_FLOOR * total, n
+    bar = 2 * sum(s["lr"] for s in want["stats"])
+    for n, w in want["params"].items():
+        assert float((got["params"][n] - w).abs().max()) <= bar, n
+
+
+GROUP_OPS = ("all_reduce", "broadcast", "all_gather", "all_gather_into_tensor",
+             "reduce_scatter_tensor")
+
+
+def _group_op(name: str, rank: int) -> None:
+    import torch.distributed as dist
+
+    x = torch.full((4,), float(rank + 1), device="cuda")
+    if name == "all_reduce":
+        dist.all_reduce(x)
+    elif name == "broadcast":
+        dist.broadcast(x, src=0)
+    elif name == "all_gather":
+        dist.all_gather([torch.empty_like(x) for _ in range(2)], x)
+    elif name == "all_gather_into_tensor":
+        dist.all_gather_into_tensor(torch.empty(8, device="cuda"), x)
+    else:
+        dist.reduce_scatter_tensor(torch.empty(2, device="cuda"), x)
+    torch.cuda.synchronize()
+
+
+def group_worker(rank: int, backend: str, port: int, out: str) -> None:
+    """One of two ranks on device 0: what ``backend`` does at
+    ``init_process_group`` and with each of GROUP_OPS on CUDA tensors, in its
+    own words, to ``out/{backend}{rank}.json``."""
+    import datetime
+    import json
+
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    res = {}
+    try:
+        dist.init_process_group(
+            backend, init_method=f"tcp://127.0.0.1:{port}", world_size=2, rank=rank,
+            timeout=datetime.timedelta(seconds=30),
+            device_id=torch.device("cuda", 0) if backend == "nccl" else None)
+    except Exception as exc:  # noqa: BLE001 — the test reads what the backend says
+        res["init"] = f"{type(exc).__name__}: {exc}"
+    else:
+        res["init"] = "ok"
+        for name in GROUP_OPS:
+            try:
+                _group_op(name, rank)
+                res[name] = "ok"
+            except Exception as exc:  # noqa: BLE001
+                res[name] = f"{type(exc).__name__}: {exc}"
+                break  # a failed communicator takes no further work
+        dist.destroy_process_group()
+    with open(os.path.join(out, f"{backend}{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def test_two_ranks_on_one_card_need_gloo(gen, tmp_path):
+    """Why two ranks sharing the card (``chip_smoke.py`` phase 8, the DDP
+    test above) run over gloo: NCCL refuses two ranks on one device (at
+    ``init_process_group`` or the first collective; a group that hangs is
+    killed after 90 s and counts as refused), while gloo runs on CUDA
+    tensors the c10d collectives DDP and ZeRO-1 use and those FSDP2's
+    parameters and gradients go through. Each rank's words are printed."""
+    import json
+    import time
+
+    from csts_torch.parallel.mesh import free_port
+
+    got = {}
+    for backend in ("nccl", "gloo"):
+        out = tmp_path / backend
+        out.mkdir()
+        ctx = torch.multiprocessing.start_processes(
+            group_worker, args=(backend, free_port(), str(out)), nprocs=2, join=False,
+            start_method="spawn")
+        deadline = time.monotonic() + 90
+        try:
+            while not ctx.join(timeout=1):
+                if time.monotonic() > deadline:
+                    break
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join(10)
+        got[backend] = {r: json.loads((out / f"{backend}{r}.json").read_text())
+                        for r in range(2) if (out / f"{backend}{r}.json").exists()}
+    print(json.dumps({"torch": torch.__version__, "nccl": torch.cuda.nccl.version(), **got}))
+    assert len(got["gloo"]) == 2, got
+    assert all(r.get(k) == "ok" for r in got["gloo"].values() for k in ("init", *GROUP_OPS)), got
+    refused = len(got["nccl"]) < 2 or any(v != "ok" for r in got["nccl"].values()
+                                          for v in r.values())
+    assert refused, got

@@ -1,4 +1,4 @@
-"""Ten training steps of the port against ``make_train_step`` at
+"""Ten and twenty training steps of the port against ``make_train_step`` at
 ``small_cfg(2)`` on the CPU, fp32, kldiv + EgoNCE, drop-path 0.2 with the JAX
 masks injected: the question whether EgoNCE's rise over the flagship's first
 steps on one fixed batch (PERF.md) comes from the port or from the model.
@@ -33,10 +33,24 @@ def test_ten_steps_track_make_train_step(small_init):  # noqa: F811
     optimizer or a kernel's gradient shows within a step or two far above
     1e-3, while two correct fp32 runs drift apart slowly through Adam's
     normalisation of near-zero gradients."""
+    _track(small_init, STEPS)
+
+
+@pytest.mark.slow
+def test_twenty_steps_track_make_train_step(small_init):  # noqa: F811
+    """Twenty steps (keys 100..119), the longer trajectory: the same 1e-3
+    relative bar, or 1e-6 absolute. By step 12 EgoNCE has fallen to ~4e-5:
+    it is -log of a softmax diagonal within 4e-5 of 1, where one fp32 ulp
+    (6e-8) of the probability is 1.5e-3 of the loss, so there the bar is a
+    few ulps of the probability, not a share of the loss."""
+    _track(small_init, 2 * STEPS, abs_floor=1e-6)
+
+
+def _track(small_init, steps: int, abs_floor: float = 0.0) -> None:  # noqa: F811
     jspec, params, batch = small_init
     jcfg, tcfg = _cfgs()
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
-    keys = [jax.random.PRNGKey(100 + i) for i in range(STEPS)]
+    keys = [jax.random.PRNGKey(100 + i) for i in range(steps)]
 
     state, tx = jstep.create_train_state(jcfg, jspec, jax.random.PRNGKey(0))
     jtrain = jstep.make_train_step(jcfg, jspec, tx, steps_per_epoch=10)
@@ -59,7 +73,7 @@ def test_ten_steps_track_make_train_step(small_init):  # noqa: F811
         for name, value in w.items():
             rel = abs(g[name] - value) / max(abs(value), 1e-12)
             worst[name] = max(worst.get(name, 0.0), rel)
-            assert rel <= 1e-3, (i, name, g[name], value)
+            assert rel <= 1e-3 or abs(g[name] - value) <= abs_floor, (i, name, g[name], value)
     egonce = [w["egonce_loss"] for w in want]
-    print(f"egonce over {STEPS} steps (JAX): {egonce}; port's worst relative gap per stat: "
+    print(f"egonce over {steps} steps (JAX): {egonce}; port's worst relative gap per stat: "
           f"{worst}")

@@ -204,14 +204,15 @@ def test_optimizer_update_matches_optax(small, method):
 
 
 def test_unported_solver_options_raise(small):
-    """ZeRO-1 and FSDP (several processes, ROADMAP A.8) raise; BF16_MOMENTS
-    and gradient accumulation are ported (tests/test_torch_trainer.py)."""
+    """ZeRO-1 and FSDP shard over a process group
+    (tests/test_torch_parallel.py); in one process, which holds every
+    shard, they are the plain optimizer. BF16_MOMENTS and gradient
+    accumulation are ported (tests/test_torch_trainer.py)."""
     _, tcfg, _, params, _ = small
     model = _port_model(tcfg, params)
     for option in ("ZERO1", "FSDP"):
         setattr(tcfg.SOLVER, option, True)
-        with pytest.raises(NotImplementedError):
-            construct_optimizer(model, tcfg)
+        assert type(construct_optimizer(model, tcfg).opt) is torch.optim.AdamW
         setattr(tcfg.SOLVER, option, False)
     tcfg.SOLVER.BF16_MOMENTS = True
     construct_optimizer(model, tcfg)

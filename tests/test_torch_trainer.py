@@ -478,7 +478,7 @@ def test_trainer_refuses_what_is_not_ported(split, tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         ttrainer.train(cfg)
     cfg.TRAIN.CHECKPOINT_BACKEND = "orbax"
-    with pytest.raises(NotImplementedError, match="A.8"):
+    with pytest.raises(NotImplementedError, match="no orbax"):
         ttrainer.train(cfg, device="cpu")
     cfg.TRAIN.CHECKPOINT_BACKEND = "npz"
     cfg.TENSORBOARD.ENABLE = True
