@@ -140,6 +140,15 @@ Phases (any failure exits non-zero; nothing is caught):
      the results npz equal, every row scored once; then one
      ``init_from_cfg`` group under NCCL at world size 1 (run_net's backend)
      through two trainer iterations with the launches counted.
+Every process the run starts is audited (``ProcessAudit``): a thread reads
+this process's descendants from ``/proc`` twice a second, and each phase
+ends with a ``phase X: processes after: n`` line naming those alive. At the
+end, before the ``kernels`` line, every loader still open is closed, the
+HTTP server's and micro-batcher's threads must be gone (spawned ranks are
+checked gone where ``spawn_ranks`` joins them), ``multiprocessing``'s fork
+server and resource tracker are stopped, and no process seen during the
+run may be alive: the run prints ``processes left: 0``, or fails naming
+each leftover pid, its cmdline and the phase that first saw it.
 It prints the ``kernels`` JSON line, the card line and, last, the result line.
 ``python3 chip_smoke.py --determinism`` is a one-off beside it: the build and
 phase 7 alone under ``torch.use_deterministic_algorithms(True, warn_only=True)``,
@@ -178,6 +187,7 @@ from csts_torch.models.csts import CSTS, build_spec, init_params  # noqa: E402
 from csts_torch import ops as tops  # noqa: E402
 from csts_torch.ops import conv as oc  # noqa: E402
 from csts_torch.ops import sample_drop_masks  # noqa: E402
+from csts_torch.data import loader as loader_lib  # noqa: E402
 from csts_torch.parallel import collectives, mesh  # noqa: E402
 from csts_torch.presets import flagship_cfg, flagship_train_cfg  # noqa: E402
 from csts_torch.serving import GazePredictor  # noqa: E402
@@ -190,6 +200,7 @@ from csts_torch.tools.profile_forward import (FAMILIES, device_ms, device_trace,
 from csts_torch.train import step as train_lib  # noqa: E402
 from csts_torch.train.losses import frame_softmax  # noqa: E402
 from csts_torch.utils import checkpoint as cu  # noqa: E402
+from csts_torch.utils import procs  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, bf16 tensor-core
 # FLOP/s and fp32 FLOP/s outside the tensor cores
@@ -549,6 +560,83 @@ CARD = ""  # nvidia-smi's name and power limit, printed beside every time
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+AUDIT_SAMPLE_S = 0.5  # the process audit reads this process's descendants this often
+AUDIT_GRACE_S = 10.0  # at the end, how long an exiting process may take to be gone
+
+
+class ProcessAudit:
+    """Every process the run starts: a thread reads this process's
+    descendants from ``/proc`` every AUDIT_SAMPLE_S seconds (so the short-lived
+    ones are seen too: nvcc, spawned ranks and their loader workers), and each
+    phase boundary reads and logs those alive. :meth:`finish` fails the run
+    if any process it saw is alive at the end."""
+
+    def __init__(self):
+        self.seen = {}  # (pid, start time) -> (cmdline, the phase that first saw it)
+        self.phase = "build"
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, name="process-audit", daemon=True)
+        self._thread.start()
+
+    def _record(self) -> dict:
+        now = procs.descendants()
+        with self._lock:
+            for pid, (start, cmd) in now.items():
+                self.seen.setdefault((pid, start), (cmd, self.phase))
+        return now
+
+    def _sample(self) -> None:
+        while not self._stop.wait(AUDIT_SAMPLE_S):
+            self._record()
+
+    def at(self, phase: str) -> dict:
+        """Ends the current phase (logs the processes alive after it) and
+        names the next."""
+        now = self._record()
+        log(f"phase {self.phase}: processes after: {len(now)}"
+            + "".join(f"; {pid} {cmd[:100]}" for pid, (_, cmd) in sorted(now.items())))
+        self.phase = phase
+        return now
+
+    def finish(self) -> dict:
+        """After the closing steps: asserts that no process seen during the
+        run, and no current descendant, is alive (zombies have exited)."""
+        self.at("end")
+        self._stop.set()
+        self._thread.join()
+        seen = dict(self.seen)
+        for pid, (start, cmd) in procs.descendants().items():
+            seen.setdefault((pid, start), (cmd, "end"))
+        deadline = time.monotonic() + AUDIT_GRACE_S
+        while True:
+            left = {key: v for key, v in seen.items() if procs.alive(*key)}
+            if not left or time.monotonic() >= deadline:
+                break
+            time.sleep(0.1)
+        for (pid, _), (cmd, phase) in sorted(left.items()):
+            log(f"process left: pid {pid}, first seen in phase {phase}: {cmd}")
+        assert not left, f"{len(left)} process(es) the run started are alive at its end"
+        log(f"processes left: 0 (of {len(seen)} seen during the run)")
+        return {"seen": len(seen), "left": 0}
+
+
+def close_run(audit: ProcessAudit) -> dict:
+    """The run's closing steps, in order: every loader closed, the HTTP
+    server's and micro-batcher's threads gone, multiprocessing's fork
+    server and resource tracker stopped, then the audit (``processes left:
+    0``). Spawned ranks are checked gone where they are joined
+    (``spawn_ranks``)."""
+    audit.at("closing")
+    closed = loader_lib.close_all()
+    serving = [t.name for t in threading.enumerate()
+               if t.name in ("gaze-http", "gaze-microbatcher")]
+    log(f"closing: {closed} loader(s) still open closed; serving threads alive: {serving}")
+    assert not serving, serving
+    procs.stop_mp_helpers()
+    return audit.finish()
 
 
 def _signature(args) -> tuple:
@@ -2201,7 +2289,7 @@ def pool_backward_timing(pools: list) -> list:
     return out
 
 
-def determinism_probe() -> int:
+def determinism_probe(audit: "ProcessAudit") -> int:
     """``python3 chip_smoke.py --determinism``, a one-off beside the smoke:
     the kernel build, then phase 7 (``trainer_phase``) alone under
     ``torch.use_deterministic_algorithms(True, warn_only=True)`` (cuBLAS
@@ -2233,6 +2321,7 @@ def determinism_probe() -> int:
     for key, n in sorted(named.items()):
         log(f"  {n:6d} x {key}")
     log(f"determinism: phase 7 {'raised ' + failure if failure else 'ran to its end'}")
+    close_run(audit)
     return 0
 
 
@@ -2466,6 +2555,8 @@ def spawn_ranks(tasks: list, out: str, device: str, timeout: float = 900.0) -> l
             if p.is_alive():
                 p.kill()
             p.join(10)
+        left = procs.wait_gone([p.pid for p in ctx.processes], AUDIT_GRACE_S)
+        assert not left, f"ranks alive after the kill: {left}"
     return [torch.load(os.path.join(out, f"rank{r}.pt")) for r in range(PAR_WORLD)]
 
 
@@ -2732,14 +2823,16 @@ def parallel_phase(rng: np.random.Generator, device: str = "cuda") -> dict:
     return res
 
 
-def parallel_only(t_start: float) -> int:
+def parallel_only(t_start: float, audit: ProcessAudit) -> int:
     """``--parallel``: the build, then phase 8 alone (its JSON to
     ``chiprun_out/chip_smoke_parallel.json``), then the card and result
     lines."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"phase build: {time.perf_counter() - t_start:.2f} s")
+    audit.at("parallel")
     res = parallel_phase(np.random.default_rng(SEED))
+    res["processes"] = close_run(audit)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_parallel.json"), "w") as f:
         json.dump({"card": CARD, "parallel": res}, f, indent=1, default=str)
@@ -2756,19 +2849,20 @@ def main() -> int:
         return 1
     global CARD
     t_start = time.perf_counter()
+    audit = ProcessAudit()
     card = CARD = card_line()
     log(f"card: {card}")
     if sys.argv[1:] == ["--determinism"]:
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")  # before cuBLAS starts
     log(f"torch {torch.__version__} cuda {torch.version.cuda} {torch.cuda.get_device_name(0)}")
     if sys.argv[1:] == ["--determinism"]:
-        return determinism_probe()
+        return determinism_probe(audit)
 
     # --- phase 1: build ------------------------------------------------------
     t0 = time.perf_counter()
     logs = _build.build_all()
     if sys.argv[1:] == ["--parallel"]:
-        return parallel_only(t0)
+        return parallel_only(t0, audit)
     log(f"phase build: {time.perf_counter() - t0:.2f} s for {sorted(logs)}")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -2779,11 +2873,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # --- phase 1b: the repaired widths ----------------------------------------
+    audit.at("widths")
     t0 = time.perf_counter()
     widths = widths_phase()
     log(f"phase widths: {time.perf_counter() - t0:.2f} s")
 
     # --- phase 2: flagship model behind the predictor ------------------------
+    audit.at("model")
     cfg = flagship_cfg()
     cfg.TRAIN.MIXED_PRECISION = True
     spec = build_spec(cfg)
@@ -2809,6 +2905,7 @@ def main() -> int:
             + ", ".join(f"{n} {len(s)}" for n, s in calls.items()))
 
     # --- phase 3: kernels against their plain versions ----------------------
+    audit.at("kernels")
     t0 = time.perf_counter()
     with torch.inference_mode():
         report = check_kernels(calls_by_bucket)
@@ -2816,6 +2913,7 @@ def main() -> int:
     log(f"phase kernels: {time.perf_counter() - t0:.2f} s")
 
     # --- phase 4: the serving path -------------------------------------------
+    audit.at("serve")
     # Each bucket ran its first request eagerly in phase 2: the requests of 1
     # and 5 clips now capture the graphs of buckets 1 and 8 (the wrappers
     # count their launches as they are captured), the request of 8 replays.
@@ -2884,6 +2982,7 @@ def main() -> int:
     dispatch = dispatch_ab(pred, rng, spec)
 
     # --- phase 4b: the hw2 path (ab_flags' hw2_skip) under the same predictor -
+    audit.at("hw2")
     t0 = time.perf_counter()
     hw2 = hw2_phase(pred, v, a)
     log(f"phase hw2: {time.perf_counter() - t0:.2f} s")
@@ -2891,32 +2990,38 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # --- phase 4c: the blocks path (ab_block's stacks) ------------------------
+    audit.at("blocks")
     t0 = time.perf_counter()
     blocks = blocks_phase()
     log(f"phase blocks: {time.perf_counter() - t0:.2f} s")
 
     # --- phase 4d: the eval entry point (tester.test) on a synthetic split ----
+    audit.at("eval")
     t0 = time.perf_counter()
     evals = eval_phase(rng)
     log(f"phase eval total: {time.perf_counter() - t0:.2f} s")
 
     # --- phase 5: the training path ------------------------------------------
+    audit.at("train")
     t0 = time.perf_counter()
     train = train_path(rng)
     log(f"phase train total: {time.perf_counter() - t0:.2f} s")
 
     # --- phase 6: training kernels against their plain versions --------------
+    audit.at("train checks")
     t0 = time.perf_counter()
     train_report = check_train_kernels(train.pop("calls"))
     whole_step = whole_step_check(rng)
     log(f"phase train checks: {time.perf_counter() - t0:.2f} s")
 
     # --- phase 7: the training entry point (run_net's train mode) -------------
+    audit.at("trainer")
     t0 = time.perf_counter()
     trainer = trainer_phase(rng)
     log(f"phase trainer total: {time.perf_counter() - t0:.2f} s")
 
     # --- phase 8: several processes (two ranks sharing the card) --------------
+    audit.at("parallel")
     parallel = parallel_phase(rng)
 
     kernels = []
@@ -3020,8 +3125,10 @@ def main() -> int:
                    "hw2": hw2, "blocks": blocks, "yardsticks": yardsticks,
                    "train": train, "train_per_shape": train_report,
                    "train_fp32_step": whole_step, "widths": widths, "eval": evals,
-                   "trainer": trainer, "parallel": parallel}, f, indent=1,
+                   "trainer": trainer, "parallel": parallel,
+                   "processes": processes}, f, indent=1,
                   default=str)
+    processes = close_run(audit)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

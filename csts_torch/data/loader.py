@@ -18,6 +18,13 @@ device prefetcher (``csts_tpu/data/loader.py``; reference
   epochs and validations start none, and they ignore SIGTERM: a
   preemption signal sent to the whole process group leaves them serving
   the main process until it has saved its checkpoint.
+* So the workers end only when their loader is closed: ``GazeLoader.close()``
+  (or the end of its ``with`` block) shuts them down, joins them and
+  SIGKILLs any still alive (``terminate()`` sends the SIGTERM they
+  ignore). Every caller closes its loaders in a ``finally``. An ``atexit``
+  hook closes those still open at interpreter exit, before
+  ``multiprocessing``'s own exit handler, which would otherwise SIGTERM
+  the workers and wait for them forever.
 * The final batch of val/test stays short (the JAX loader wrap-pads it to
   keep jit shapes static); the meters drop repeated dataset indices either
   way. Train drops the incomplete final batch.
@@ -32,9 +39,12 @@ device prefetcher (``csts_tpu/data/loader.py``; reference
 
 from __future__ import annotations
 
+import atexit
+import multiprocessing.util  # noqa: F401 — its exit handler registers first, runs last
 import queue
 import signal
 import threading
+import weakref
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -125,8 +135,49 @@ class EpochBatches(Sampler):
             yield [(int(order[p]), self.epoch, p) for p in range(lo, hi)]
 
 
+JOIN_TIMEOUT_S = 10.0  # a closing loader's wait for each worker before SIGKILL
+_LIVE: "weakref.WeakSet[GazeLoader]" = weakref.WeakSet()  # loaders not yet closed
+
+
 class GazeLoader(DataLoader):
-    """A ``DataLoader`` over :class:`SeededItems` batched by :class:`EpochBatches`."""
+    """A ``DataLoader`` over :class:`SeededItems` batched by :class:`EpochBatches`.
+
+    A context manager: leaving the block closes it. A closed loader
+    raises on ``iter``; a new epoch after ``close()`` needs a loader built
+    anew (``construct_loader``)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._closed = False
+        _LIVE.add(self)
+
+    def __iter__(self):
+        if self._closed:
+            raise RuntimeError("the loader is closed; construct_loader builds a new one")
+        return super().__iter__()
+
+    def close(self, timeout: float = JOIN_TIMEOUT_S) -> None:
+        """Shuts down the workers of the live iterator and joins each for up
+        to ``timeout`` seconds; SIGKILLs any still alive. Idempotent."""
+        self._closed = True
+        _LIVE.discard(self)
+        it, self._iterator = self._iterator, None
+        workers = list(getattr(it, "_workers", ()))
+        if not workers:
+            return
+        it._shutdown_workers()  # the workers' stop message, a bounded join
+        for w in workers:
+            w.join(timeout)
+            if w.is_alive():
+                w.kill()
+                w.join(timeout)
+
+    def __enter__(self) -> "GazeLoader":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.close()
+        return False
 
     def set_epoch(self, epoch: int, start_iter: int = 0) -> None:
         """Seeded epoch order (shuffle_dataset, loader.py:112-130); ``start_iter``
@@ -163,6 +214,15 @@ def construct_loader(cfg: Config, split: str, device: Optional[torch.device] = N
         pin_memory=bool(cfg.DATA_LOADER.PIN_MEMORY and device is not None
                         and device.type == "cuda"),
     )
+
+
+@atexit.register
+def close_all() -> int:
+    """Closes every loader still open; returns how many there were."""
+    loaders = list(_LIVE)
+    for loader in loaders:
+        loader.close()
+    return len(loaders)
 
 
 class DevicePrefetcher:

@@ -103,39 +103,41 @@ def test(cfg: Config, device=None) -> dict:
     logger.info(pprint.pformat(cfg.dump()))
 
     spec = build_spec(cfg)
-    test_loader = loader_lib.construct_loader(cfg, "test", device)
-    num_views = cfg.TEST.NUM_ENSEMBLE_VIEWS * cfg.TEST.NUM_SPATIAL_CROPS
-    if len(test_loader.dataset) % num_views:
-        raise ValueError(f"{len(test_loader.dataset)} test rows do not divide into "
-                         f"{num_views} views a clip")
-    # TEST.SAVE_RESULTS_PATH: the compact per-row outputs (predicted gaze
-    # point, label xy and gaze type, dataset index) as an .npz sorted by index
-    results_path = _results_path(cfg)
-    results = ({"index": [], "pred_xy": [], "label_xy": [], "gaze_type": []}
-               if results_path else None)
+    # the loader's workers stop when the loop ends, on success or error
+    with loader_lib.construct_loader(cfg, "test", device) as test_loader:
+        num_views = cfg.TEST.NUM_ENSEMBLE_VIEWS * cfg.TEST.NUM_SPATIAL_CROPS
+        if len(test_loader.dataset) % num_views:
+            raise ValueError(f"{len(test_loader.dataset)} test rows do not divide into "
+                             f"{num_views} views a clip")
+        # TEST.SAVE_RESULTS_PATH: the compact per-row outputs (predicted gaze
+        # point, label xy and gaze type, dataset index) as an .npz sorted by index
+        results_path = _results_path(cfg)
+        results = ({"index": [], "pred_xy": [], "label_xy": [], "gaze_type": []}
+                   if results_path else None)
 
-    # the loader's workers start first, while the model is built and loaded
-    with loader_lib.DevicePrefetcher(iter(test_loader), device,
-                                     depth=cfg.DATA_LOADER.PREFETCH_DEPTH) as prefetch:
-        model = CSTS(spec)
-        cu.load_test_checkpoint(
-            cfg, model, init=lambda: init_params(model, torch.Generator().manual_seed(cfg.RNG_SEED)))
-        if cfg.TRAIN.MIXED_PRECISION:
-            model = model.to(torch.bfloat16)  # cast the weights once, not per op
-        model = model.to(device).eval()
-        eval_step = step_lib.make_eval_step(cfg, spec)
-        meter = TestGazeMeter(cfg.TEST.DATASET, num_views=num_views, device=device)
+        # the loader's workers start first, while the model is built and loaded
+        with loader_lib.DevicePrefetcher(iter(test_loader), device,
+                                         depth=cfg.DATA_LOADER.PREFETCH_DEPTH) as prefetch:
+            model = CSTS(spec)
+            cu.load_test_checkpoint(cfg, model, init=lambda: init_params(
+                model, torch.Generator().manual_seed(cfg.RNG_SEED)))
+            if cfg.TRAIN.MIXED_PRECISION:
+                model = model.to(torch.bfloat16)  # cast the weights once, not per op
+            model = model.to(device).eval()
+            eval_step = step_lib.make_eval_step(cfg, spec)
+            meter = TestGazeMeter(cfg.TEST.DATASET, num_views=num_views, device=device)
 
-        meter.iter_tic()
-        for cur_iter, batch in enumerate(prefetch):
-            meter.data_toc()
-            preds = metrics.minmax_rescale(eval_step(model, batch))
-            meter.update_stats(preds, batch["labels_hm"], batch["labels"], indices=batch["index"])
-            if results is not None:
-                _collect_results(results, preds, batch["labels"], batch["index"])
-            meter.iter_toc()  # update_stats read the batch's sums back
-            meter.log_iter_stats(cur_iter, cfg.LOG_PERIOD)
             meter.iter_tic()
+            for cur_iter, batch in enumerate(prefetch):
+                meter.data_toc()
+                preds = metrics.minmax_rescale(eval_step(model, batch))
+                meter.update_stats(preds, batch["labels_hm"], batch["labels"],
+                                   indices=batch["index"])
+                if results is not None:
+                    _collect_results(results, preds, batch["labels"], batch["index"])
+                meter.iter_toc()  # update_stats read the batch's sums back
+                meter.log_iter_stats(cur_iter, cfg.LOG_PERIOD)
+                meter.iter_tic()
 
     if results is not None:
         results = _merge_results(collectives.gather_objects(results))

@@ -105,13 +105,19 @@ def build_all() -> Dict[str, str]:
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, target)
     logs, failed = {}, []
-    for name, (proc, tmp, target) in procs.items():
-        out, _ = proc.communicate()
-        logs[name] = out
-        if proc.returncode != 0:
-            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{out}")
-        else:
-            os.replace(tmp, target)
+    try:
+        for name, (proc, tmp, target) in procs.items():
+            out, _ = proc.communicate()
+            logs[name] = out
+            if proc.returncode != 0:
+                failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{out}")
+            else:
+                os.replace(tmp, target)
+    finally:  # interrupted: no nvcc outlives the call
+        for proc, _, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     for name, target in todo.items():

@@ -22,7 +22,8 @@ tcp://host:port``:
         --init-method tcp://10.0.0.1:29500 NUM_DEVICES 8 ...
 
 SOLVER.BASE_LR_SCALE_NUM_SHARDS scales the LRs by ``--num-shards``
-(``config.finalize``). A rank that fails ends the run non-zero.
+(``config.finalize``). A rank that fails ends the run non-zero. No rank,
+and no loader worker (``GazeLoader.close``), outlives the call.
 """
 
 from __future__ import annotations
@@ -102,7 +103,17 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     init_method = args.init_method
     if init_method is None and cfg.NUM_SHARDS == 1:
         init_method = f"tcp://127.0.0.1:{mesh.free_port()}"
-    torch.multiprocessing.spawn(_rank_main, args=(cfg, device, init_method), nprocs=local)
+    ctx = torch.multiprocessing.start_processes(
+        _rank_main, args=(cfg, device, init_method), nprocs=local, join=False,
+        start_method="spawn")
+    try:
+        while not ctx.join():  # raises when a rank fails, after stopping the others
+            pass
+    finally:  # this process raised or was interrupted: no rank outlives it
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join()
     return {}
 
 

@@ -120,10 +120,16 @@ def train(cfg: Config, device=None) -> step_lib.TrainState:
     if cfg.DEBUG_NANS:
         torch.autograd.set_detect_anomaly(True)
 
+    # the loaders' workers start first, while the model is built and loaded;
+    # they stop when training ends, on success, error or preemption
+    with loader_lib.construct_loader(cfg, "train", device) as train_loader, \
+            loader_lib.construct_loader(cfg, "val", device) as val_loader:
+        return _fit(cfg, device, train_loader, val_loader)
+
+
+def _fit(cfg: Config, device, train_loader, val_loader) -> step_lib.TrainState:
+    """``train``'s body over its two loaders."""
     spec = build_spec(cfg)
-    # the loaders' workers start first, while the model is built and loaded
-    train_loader = loader_lib.construct_loader(cfg, "train", device)
-    val_loader = loader_lib.construct_loader(cfg, "val", device)
     steps_per_epoch = max(len(train_loader), 1)
     state = step_lib.create_train_state(
         cfg, spec, torch.Generator().manual_seed(cfg.RNG_SEED), device=device)
