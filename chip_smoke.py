@@ -139,7 +139,22 @@ Phases (any failure exits non-zero; nothing is caught):
      F1, recall, precision, threshold and AUC within 1e-6 of one process,
      the results npz equal, every row scored once; then one
      ``init_from_cfg`` group under NCCL at world size 1 (run_net's backend)
-     through two trainer iterations with the launches counted.
+     through two trainer iterations with the launches counted;
+  9. the forward's whole surface at flagship width (bf16, 256², seeded
+     weights): a batch-8
+     forward with both fusion maps and ``extract_activations`` over
+     ``CAPTURABLE``, launches against ``route_plan`` (``mvit.block_route``:
+     K1 leaves the two fusion blocks), the logits against the same forward
+     without maps at the golden bar and the maps against the fp32 plain
+     twins (max|Δ| < 0.02); MVIT.SPATIAL_AUDIO_ATTN's forward against its
+     fp32 plain twins and one training step (loss and grad norm finite, K1
+     25 a step); ``head_commute`` and ``t2_skip`` each flipped under one
+     predictor (the stale graph dropped, a new one captured, then replayed;
+     K3 0 with t2_skip off; per-frame softmax within the golden bar of the
+     defaults'); run_net's training, one epoch of 6 iterations, with and
+     without AUG.ENABLE at 4 loader workers (launches, the loader's wait
+     share, no worker alive after); ``tools/visualize.py --attention`` on 4
+     test clips from that run's npz (every PNG read back at its size).
 Every process the run starts is audited (``ProcessAudit``): a thread reads
 this process's descendants from ``/proc`` twice a second, and each phase
 ends with a ``phase X: processes after: n`` line naming those alive. At the
@@ -1377,6 +1392,13 @@ def service_phase(pred, spec, rng) -> dict:
     return res
 
 
+def switches(conf: str):
+    """``ab_flags.flags`` over the defaults: "base" is JAX's default switches
+    (head_commute and t2_skip on), another name is switched on beside them."""
+    on = "head_commute+t2_skip"
+    return ab_flags.flags(on if conf == "base" else f"{on}+{conf}")
+
+
 def stale_graph_phase(pred, requests) -> dict:
     """``hw2_skip`` flipped after bucket 8's capture: the next request must
     not replay the stale graph (B9a launches 2 there), the one after it
@@ -1385,7 +1407,7 @@ def stale_graph_phase(pred, requests) -> dict:
     video, audio = requests[-1]
     assert pred._slots[8].graph is not None
     res = {}
-    with ab_flags.flags("hw2_skip"):
+    with switches("hw2_skip"):
         for run in ("next", "capture"):
             reset_launches()
             pred.predict(video, audio)
@@ -1477,7 +1499,7 @@ def hw2_phase(pred, v, a) -> dict:
     on the way out (``ab_flags.flags``)."""
     counts = {}
     for conf in ("hw2_skip", "base"):
-        with ab_flags.flags(conf), torch.inference_mode():
+        with switches(conf), torch.inference_mode():
             reset_launches()
             pred.forward(v, a)
             torch.cuda.synchronize()
@@ -1491,7 +1513,7 @@ def hw2_phase(pred, v, a) -> dict:
     assert counts["base"]["hw2_upsample"] == 0, counts
 
     calls = {"hw2_upsample": {}}
-    with ab_flags.flags("hw2_skip"), recording(calls), torch.inference_mode():
+    with switches("hw2_skip"), recording(calls), torch.inference_mode():
         pred.forward(v, a)
     torch.cuda.synchronize()
     with torch.inference_mode():
@@ -1502,15 +1524,15 @@ def hw2_phase(pred, v, a) -> dict:
     turns = {"hw2_skip": [], "base": []}
     with torch.inference_mode():
         for conf in ("base", "hw2_skip", "hw2_skip", "base") * 3:
-            with ab_flags.flags(conf):
+            with switches(conf):
                 turns[conf].append(time_ms(lambda: pred.forward(v, a), target_s=0.3))
         logits = {}
         for conf in ("hw2_skip", "base"):
-            with ab_flags.flags(conf):
+            with switches(conf):
                 logits[conf] = pred.model(v, a).float()
         busy = {}
         for conf in ("hw2_skip", "base"):
-            with ab_flags.flags(conf):
+            with switches(conf):
                 busy[conf] = device_trace(lambda: pred.forward(v, a))[1]
     on, off = logits["hw2_skip"], logits["base"]
     dlogit = float((on - off).abs().max())
@@ -2823,6 +2845,356 @@ def parallel_phase(rng: np.random.Generator, device: str = "cuda") -> dict:
     return res
 
 
+
+# --- phase 9: the forward's whole surface ----------------------------------------
+#
+# At flagship width (bf16, 256², seeded weights): the fusion blocks' attention
+# maps and the captured activations, MVIT.SPATIAL_AUDIO_ATTN (a forward and a
+# training step), the head_commute and t2_skip switches under one predictor,
+# run_net's training with AUG.ENABLE, and tools/visualize.py.
+
+SURFACE_BATCH = 8
+MAP_BAR = 0.02   # a probability's max|Δ| against the fp32 plain twins (the softmax bar)
+AUG_WORKERS = 4  # DATA_LOADER.NUM_WORKERS of the AUG runs
+VIS_CLIPS = 4
+
+
+def route_plan(model, maps: bool = False) -> dict:
+    """Each kernel's launches in one eval forward of ``model`` as
+    ``mvit.block_route`` routes its blocks (the fusion blocks on the
+    "attn_map" route when ``maps``, and the spatial fusion also under
+    MVIT.SPATIAL_AUDIO_ATTN), with K3 at the x2 T resizes while
+    ``kup.T2_SKIP_KERNEL`` is set and B9a at the (1,2,2) skips of B5's route
+    while ``kup.HW2_SKIP_KERNEL`` is."""
+    from csts_torch.models.csts import _thw_after_blocks
+
+    spec = model.spec
+    plan = {name: 0 for name in PER_FORWARD}
+
+    def add(b, mask, thw, attn=False):
+        route = tmvit.block_route(b, mask, thw, attn)
+        if route in ("block", "pool_block", "decoder_block"):
+            plan[route] += 1
+        else:
+            plan["mlp_tail"] += 1
+            plan["attention"] += route == "composite"
+        if b.upsample_q and b.skip_upsample_on:
+            stride = tuple(b.stride_q)
+            plan["t2_upsample"] += stride == (2, 1, 1) and kup.T2_SKIP_KERNEL
+            plan["hw2_upsample"] += (stride == (1, 2, 2) and route == "decoder_block"
+                                     and kup.HW2_SKIP_KERNEL)
+        if b.upsample_q:
+            return tmvit._static_upsample_out(thw, b.kernel_q, b.stride_q, b.padding_q,
+                                              b.output_padding_q)
+        return _thw_after_blocks(thw, [b])
+
+    for blocks, thw in ((spec.video_blocks, spec.patch_dims),
+                        (spec.audio_blocks, spec.audio_patch_dims)):
+        for b in blocks:
+            thw = add(b, None, thw)
+    add(spec.spatial_fusion, model.inframe_mask, spec.fusion_thw,
+        maps or spec.spatial_audio_attn)
+    add(spec.temporal_fusion, None, (2, 2, 2), maps)
+    thw = spec.fusion_thw
+    for b in spec.decoder_blocks:
+        thw = add(b, None, thw)
+    plan["t2_upsample"] += bool(kup.T2_SKIP_KERNEL)  # the head's stem map
+    return plan
+
+
+def _forward_launches(fn):
+    reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: WRAPPERS[name].launches for name in PER_FORWARD}
+
+
+def maps_check(state: dict, spec, v, a) -> dict:
+    """9a: the forward with both maps and ``extract_activations`` through
+    the kernels, launches against ``route_plan``; the logits against the
+    forward without maps, the maps against the fp32 plain twins."""
+    from csts_torch.models.csts import CAPTURABLE, extract_activations
+    from csts_torch.tools import check_line, heatmap_check
+
+    model = CSTS(spec)
+    model.load_state_dict(state)
+    model = model.to(torch.bfloat16).cuda().eval()
+    with torch.inference_mode():
+        plain, n_plain = _forward_launches(lambda: model(v, a))
+        (logits, smap, tmap), n_maps = _forward_launches(
+            lambda: model(v, a, return_spatial_attn=True, return_temporal_attn=True))
+        (_, acts), n_acts = _forward_launches(lambda: extract_activations(model, v, a))
+    plan, plan_maps = route_plan(model), route_plan(model, maps=True)
+    log(f"phase surface maps: launches without maps {n_plain}, with both maps {n_maps}, "
+        f"extract_activations {n_acts}; block_route's plans {plan} and {plan_maps}")
+    assert plan == PER_FORWARD, (plan, PER_FORWARD)
+    assert n_plain == plan and n_acts == plan, (n_plain, n_acts, plan)
+    assert n_maps == plan_maps, (n_maps, plan_maps)
+    assert plan_maps == {**plan, "attention": plan["attention"] - 2}, plan_maps
+    chk = heatmap_check(logits, plain)
+    t, h, w = spec.fusion_thw
+    n = spec.spatial_fusion.num_heads
+    assert smap.shape == (SURFACE_BATCH, n, t * h * w + t, t * h * w + t), smap.shape
+    assert tmap.shape == (SURFACE_BATCH, spec.temporal_fusion.num_heads, 2 * t, 2 * t)
+    assert smap.dtype == tmap.dtype == torch.float32
+    del logits, plain
+    ref = CSTS(dataclasses.replace(spec, dtype="float32"))
+    ref.load_state_dict(state)
+    ref = ref.cuda().eval()
+    with plain_twins(), torch.inference_mode():
+        _, ref_s, ref_t = ref(v, a, return_spatial_attn=True, return_temporal_attn=True)
+    ds, dt = float((smap - ref_s).abs().max()), float((tmap - ref_t).abs().max())
+    rows = float((smap.sum(-1) - 1).abs().max())
+    names = sorted(acts)
+    finite = all(bool(torch.isfinite(x).all()) for x in acts.values())
+    log(f"phase surface maps: logits with maps against without: {check_line(chk)}; spatial map "
+        f"{tuple(smap.shape)} max|Δ| {ds:.3g}, temporal map {tuple(tmap.shape)} max|Δ| {dt:.3g} "
+        f"against the fp32 plain twins (bar {MAP_BAR}), rows sum to 1 within {rows:.2g}; "
+        f"{len(names)} activations ({', '.join(CAPTURABLE)}) all finite: {finite}")
+    assert chk["ok"], chk
+    assert ds < MAP_BAR and dt < MAP_BAR and rows < 1e-4, (ds, dt, rows)
+    assert len(names) == 2 + len(spec.video_blocks) + len(spec.audio_blocks) + 2 + 4 and finite
+    del ref, ref_s, ref_t, smap, tmap, acts, model
+    torch.cuda.empty_cache()
+    return {"launches": n_plain, "launches_maps": n_maps, "plan_maps": plan_maps,
+            "logits": chk, "spatial_map_max_abs_diff": ds, "temporal_map_max_abs_diff": dt,
+            "activations": names}
+
+
+def audio_attn_check(state: dict, spec, v, a, rng) -> dict:
+    """9b: MVIT.SPATIAL_AUDIO_ATTN: the forward through the kernels against
+    its fp32 plain twins at the golden bar (launches against ``route_plan``),
+    then one training step from ``flagship_train_cfg``, loss and gradient
+    norm finite (K1 leaves the spatial fusion: PER_STEP less one)."""
+    from csts_torch.tools import check_line, heatmap_check
+
+    aa_spec = dataclasses.replace(spec, spatial_audio_attn=True)
+    model = CSTS(aa_spec)
+    model.load_state_dict(state)
+    model = model.to(torch.bfloat16).cuda().eval()
+    with torch.inference_mode():
+        logits, launches = _forward_launches(lambda: model(v, a))
+    plan = route_plan(model)
+    del model
+    ref = CSTS(dataclasses.replace(aa_spec, dtype="float32"))
+    ref.load_state_dict(state)
+    ref = ref.cuda().eval()
+    with plain_twins(), torch.inference_mode():
+        chk = heatmap_check(logits, ref(v, a))
+    del ref, logits
+    torch.cuda.empty_cache()
+
+    cfg = flagship_train_cfg()
+    cfg.MVIT.SPATIAL_AUDIO_ATTN = True
+    tspec = build_spec(cfg)
+    st = train_lib.create_train_state(cfg, tspec, torch.Generator().manual_seed(SEED),
+                                      device="cuda")
+    step = train_lib.make_train_step(cfg, tspec, steps_per_epoch=STEPS_PER_EPOCH)
+    batch = make_train_batch(rng, cfg.TRAIN.BATCH_SIZE, tspec)
+    reset_launches()
+    stats, _ = step(st, batch, torch.Generator().manual_seed(SEED + 1))
+    stats = {k: float(x) for k, x in stats.items()}
+    step_launches = {name: WRAPPERS[name].launches for name in PER_STEP}
+    log(f"phase surface SPATIAL_AUDIO_ATTN: forward launches {launches} (plan {plan}); "
+        f"against the fp32 plain twins: {check_line(chk)}; one training step: loss "
+        f"{stats['loss']:.6g}, grad_norm {stats['grad_norm']:.6g}, launches {step_launches}")
+    assert launches == plan and plan["attention"] == PER_FORWARD["attention"] - 1, (launches, plan)
+    assert chk["ok"], chk
+    assert all(np.isfinite(x) for x in stats.values()), stats
+    want = {**PER_STEP, "attention": PER_STEP["attention"] - 1}
+    assert step_launches == want, (step_launches, want)
+    del st, step, batch
+    torch.cuda.empty_cache()
+    return {"launches": launches, "reference": chk, "train_step": stats,
+            "train_launches": step_launches}
+
+
+def switch_check(state: dict, cfg, spec, rng) -> dict:
+    """9c: head_commute and t2_skip, each flipped from the defaults under one
+    predictor (bucket 8): the first request after a flip drops the stale
+    graph and runs eagerly, the second captures a new one, the third
+    replays; K3's launches on each (2, 2, 0 with t2_skip on; 0, 0, 0 off);
+    the per-frame softmax within the golden bar of the defaults'."""
+    pred = GazePredictor(cfg, state, batch_sizes=(8,))
+    video, audio = make_inputs(rng, 8, spec)
+    with switches("base"):
+        for _ in range(2):  # eager, then the capture
+            want = pred.predict(video, audio)["heatmaps"]
+    slot = pred._slots[8]
+    res = {}
+    for flipped, conf in (("t2_skip", "head_commute"), ("head_commute", "t2_skip")):
+        old, k3, graphs = slot.graph, [], []
+        assert old is not None
+        with ab_flags.flags(conf):
+            for _ in range(3):
+                reset_launches()
+                got = pred.predict(video, audio)["heatmaps"]
+                k3.append(WRAPPERS["t2_upsample"].launches)
+                graphs.append(slot.graph)
+        chk = _golden(got, want)
+        res[flipped] = {"k3_launches": k3, "softmax": chk}
+        log(f"phase surface switch {flipped} off: K3 launches on the three requests after the "
+            f"flip {k3} (defaults: 2 a forward); graph dropped on the first, a new one captured "
+            f"on the second: {graphs[0] is None and graphs[1] is not None and graphs[1] is not old}"
+            f"; per-frame softmax against the defaults max|Δ| {chk['softmax_max_abs_diff']:.3g}")
+        assert graphs[0] is None and graphs[1] is not None and graphs[1] is not old
+        assert graphs[2] is graphs[1]
+        assert k3 == ([0, 0, 0] if flipped == "t2_skip" else [2, 2, 0]), k3
+        assert chk["ok"], chk
+    del pred
+    torch.cuda.empty_cache()
+    return res
+
+
+@contextlib.contextmanager
+def _train_waits(seen: dict):
+    """Records the consumer's waits on the prefetcher inside training epochs
+    and each epoch's seconds (run_net's trainer, patched back on exit)."""
+    from csts_torch.train import trainer as trainer_lib
+
+    next_batch, train_epoch = loader_lib.DevicePrefetcher.__next__, trainer_lib._train_epoch
+
+    def timed_next(self):
+        t = time.perf_counter()
+        try:
+            return next_batch(self)
+        finally:
+            if seen["in_train"]:
+                seen["waits"].append(time.perf_counter() - t)
+
+    def timed_epoch(*a, **k):
+        seen["in_train"] = True
+        t = time.perf_counter()
+        try:
+            return train_epoch(*a, **k)
+        finally:
+            seen["in_train"] = False
+            seen["epochs"].append(time.perf_counter() - t)
+
+    try:
+        loader_lib.DevicePrefetcher.__next__ = timed_next
+        trainer_lib._train_epoch = timed_epoch
+        yield
+    finally:
+        loader_lib.DevicePrefetcher.__next__ = next_batch
+        trainer_lib._train_epoch = train_epoch
+
+
+def aug_check(root: str, rng, audit: "ProcessAudit") -> dict:
+    """9d: run_net's training at flagship width on phase 7's kind of split,
+    one epoch of 6 iterations with AUG.ENABLE (the config's AUG.* values:
+    RandAugment rand-m7-n4-mstd0.5-inc1, random erasing at RE_PROB 0.25) and
+    AUG_WORKERS loader workers, and the same without AUG: launches (PER_STEP
+    a step), the loader's wait share after the first batch; after each, no
+    loader worker alive. Returns the AUG run's results and output directory."""
+    from multiprocessing import forkserver
+
+    from csts_torch.tools import run_net
+
+    split = _trainer_split(os.path.join(root, "data"), int(rng.integers(1 << 30)))
+    pyths, _ = _trainer_pyths(root)
+    res = {}
+    iters = TRAINER_TRAIN_ROWS // 8
+    for aug in (False, True):
+        out = os.path.join(root, f"aug_{aug}")
+        args = _run_net_args(split, pyths, out, AUG_WORKERS, False) + [
+            "SOLVER.MAX_EPOCH", "1", "TRAIN.CHECKPOINT_PERIOD", "1", "TRAIN.EVAL_PERIOD", "2",
+            "AUG.ENABLE", str(aug)]
+        seen = {"waits": [], "epochs": [], "in_train": False}
+        reset_launches()
+        t = time.perf_counter()
+        with _train_waits(seen):
+            run_net.main(args)
+        run_s = time.perf_counter() - t
+        launches = {name: WRAPPERS[name].launches for name in PER_STEP}
+        waits = seen["waits"]
+        loop_s = seen["epochs"][0] - waits[0]
+        share = sum(waits[1:]) / loop_s
+        fs = forkserver._forkserver._forkserver_pid
+        workers = procs.descendants(fs) if fs else {}
+        res["aug" if aug else "plain"] = {
+            "run_s": run_s, "epoch_s": seen["epochs"][0], "first_wait_s": waits[0],
+            "loader_wait_share": share, "launches": launches, "workers_alive": len(workers)}
+        log(f"phase surface trainer AUG.ENABLE {aug}: run_net 1 epoch of {iters} iterations at "
+            f"batch 8, {AUG_WORKERS} workers, {run_s:.1f} s (epoch {seen['epochs'][0]:.2f} s, "
+            f"first batch waited {waits[0]:.2f} s); loader wait share {share:.3f} after the "
+            f"first batch; launches {launches}; loader workers alive after it: {len(workers)} "
+            f"({CARD})")
+        audit.at(f"surface trainer aug {aug}")
+        assert not workers, workers
+        for name, per in PER_STEP.items():
+            assert launches[name] == per * iters, (name, launches[name], per * iters)
+    return res, os.path.join(root, "aug_True"), split
+
+
+def vis_check(split, out: str, root: str) -> dict:
+    """9e: ``tools/visualize.py`` with ``--attention`` on VIS_CLIPS clips of
+    the test split from the AUG run's npz: the files written (per clip T
+    overlays, heads x T spatial maps, heads temporal matrices), each read
+    back by the port's PNG reader at its size; the forward's launches
+    against ``route_plan`` with maps."""
+    from csts_torch.eval.visualization import read_png
+    from csts_torch.tools import visualize
+
+    prefix, splits = split
+    npz = cu.get_last_checkpoint(out)
+    vis_dir = os.path.join(root, "vis")
+    reset_launches()
+    t = time.perf_counter()
+    visualize.main(["--cfg", YAML, "--num-clips", str(VIS_CLIPS), "--attention",
+                    "--out", vis_dir, "NUM_DEVICES", "1", "DATA.PATH_PREFIX", prefix,
+                    "DATA.PATH_TO_DATA_DIR", splits, "DATA.DECODING_BACKEND", "npy",
+                    "TRAIN.MIXED_PRECISION", "True", "TEST.CHECKPOINT_FILE_PATH", npz,
+                    "TEST.BATCH_SIZE", "8", "DATA_LOADER.NUM_WORKERS", "2", "OUTPUT_DIR", out])
+    vis_s = time.perf_counter() - t
+    launches = {name: WRAPPERS[name].launches for name in PER_FORWARD}
+    spec = build_spec(flagship_cfg())
+    s = spec.crop_size
+    t_out, (t_f, _, _) = spec.num_frames, spec.fusion_thw
+    heads_s, heads_t = spec.spatial_fusion.num_heads, spec.temporal_fusion.num_heads
+    counts, sizes = {}, {}
+    for d, _, names in os.walk(vis_dir):
+        kind = os.path.basename(d)
+        kind = kind if kind in ("spatial_attn", "temporal_attn") else "overlay"
+        for n in names:
+            counts[kind] = counts.get(kind, 0) + 1
+            sizes.setdefault(kind, set()).add(read_png(os.path.join(d, n)).shape)
+    want = {"overlay": VIS_CLIPS * t_out, "spatial_attn": VIS_CLIPS * heads_s * t_f,
+            "temporal_attn": VIS_CLIPS * heads_t}
+    log(f"phase surface visualize: {sum(counts.values())} PNGs in {vis_s:.1f} s ({counts}; sizes "
+        f"{ {k: sorted(v) for k, v in sizes.items()} }), each read back; launches {launches}")
+    assert counts == want, (counts, want)
+    assert sizes == {"overlay": {(s, 2 * s, 3)}, "spatial_attn": {(s, s, 3)},
+                     "temporal_attn": {(256, 256, 3)}}, sizes
+    plan = {**PER_FORWARD, "attention": PER_FORWARD["attention"] - 2}
+    assert launches == plan, (launches, plan)
+    return {"files": counts, "s": vis_s, "launches": launches}
+
+
+def surface_phase(rng: np.random.Generator, audit: "ProcessAudit") -> dict:
+    """Phase 9: the forward's whole surface at flagship width."""
+    t_phase = time.perf_counter()
+    cfg = flagship_cfg()
+    cfg.TRAIN.MIXED_PRECISION = True
+    spec = build_spec(cfg)
+    ref = CSTS(dataclasses.replace(spec, dtype="float32"))
+    init_params(ref, torch.Generator().manual_seed(SEED))
+    state = ref.state_dict()
+    del ref
+    video, audio = make_inputs(rng, SURFACE_BATCH, spec)
+    v, a = torch.from_numpy(video).cuda(), torch.from_numpy(audio).cuda()
+    res = {"maps": maps_check(state, spec, v, a),
+           "spatial_audio_attn": audio_attn_check(state, spec, v, a, rng)}
+    del v, a
+    res["switches"] = switch_check(state, cfg, spec, rng)
+    with tempfile.TemporaryDirectory() as root:
+        res["aug"], out, split = aug_check(root, rng, audit)
+        res["visualize"] = vis_check(split, out, root)
+    res["s"] = time.perf_counter() - t_phase
+    log(f"phase surface: {res['s']:.2f} s")
+    return res
+
+
 def parallel_only(t_start: float, audit: ProcessAudit) -> int:
     """``--parallel``: the build, then phase 8 alone (its JSON to
     ``chiprun_out/chip_smoke_parallel.json``), then the card and result
@@ -3024,6 +3396,10 @@ def main() -> int:
     audit.at("parallel")
     parallel = parallel_phase(rng)
 
+    # --- phase 9: the forward's whole surface ----------------------------------
+    audit.at("surface")
+    surface = surface_phase(rng, audit)
+
     kernels = []
     for name, k in ALL_KERNELS.items():
         if name in KERNELS:
@@ -3125,7 +3501,7 @@ def main() -> int:
                    "hw2": hw2, "blocks": blocks, "yardsticks": yardsticks,
                    "train": train, "train_per_shape": train_report,
                    "train_fp32_step": whole_step, "widths": widths, "eval": evals,
-                   "trainer": trainer, "parallel": parallel,
+                   "trainer": trainer, "parallel": parallel, "surface": surface,
                    "processes": processes}, f, indent=1,
                   default=str)
     processes = close_run(audit)

@@ -18,8 +18,12 @@ forecast label gap     0                           SAMPLING_RATE (1 s protocol g
 
 Every random choice threads an explicit ``np.random.Generator`` (per-sample
 seeded by the loader). Items are numpy arrays; the loader collates them into
-tensors. AUG.ENABLE (RandAugment and random erasing in training) is not
-ported yet and raises.
+tensors. AUG.ENABLE adds RandAugment (AUG.AA_TYPE, on the raw uint8 frames)
+and random erasing (AUG.RE_PROB, AUG.RE_COUNT, on the normalised crop, so
+the frames ship as float whatever UINT8_TRANSFER says) in training, as the
+JAX package does (``csts_tpu/data/datasets.py:316-347``; numpy,
+``data/rand_augment.py``); they run where the item is built, in the
+loader's workers.
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ import numpy as np
 
 from csts_torch import native
 from csts_torch.config import Config
-from csts_torch.data import sampling, transform, video
+from csts_torch.data import rand_augment, sampling, transform, video
 from csts_torch.utils.registry import Registry
 
 DATASET_REGISTRY = Registry("DATASET")
@@ -96,9 +100,6 @@ class AVGazeDataset:
 
     def __init__(self, cfg: Config, mode: str, variant: VariantSpec, num_retries: int = 10):
         assert mode in ("train", "val", "test"), mode
-        if mode == "train" and cfg.AUG.ENABLE:
-            raise NotImplementedError(
-                "AUG.ENABLE (RandAugment, random erasing) is not ported yet (ROADMAP A.6)")
         self.cfg = cfg
         self.mode = mode
         self.variant = variant
@@ -328,10 +329,18 @@ class AVGazeDataset:
             labels_global = np.clip(labels_global, 0, vlabels.shape[0] - 1)
             label = vlabels[labels_global, :].astype(np.float32)
 
+            aug = self.mode == "train" and self.cfg.AUG.ENABLE
+            erase = aug and self.cfg.AUG.RE_PROB > 0
+            # --- optional RandAugment on the raw frames
+            if aug and frames.dtype == np.uint8:
+                frames = rand_augment.rand_augment_clip(frames, self.cfg.AUG.AA_TYPE, rng)
+
             # --- normalize + gaze-aware spatial transform (one fused pass).
             # With UINT8_TRANSFER the frames stay uint8 and the /255+mean/std affine
             # moves into the forward (CSTS.forward) — 4× less h2d per clip.
-            want_uint8 = self.cfg.DATA_LOADER.UINT8_TRANSFER and frames.dtype == np.uint8
+            # Random erasing fills normalised floats, so it keeps the host path.
+            want_uint8 = (self.cfg.DATA_LOADER.UINT8_TRANSFER and frames.dtype == np.uint8
+                          and not erase)
             frames, label = transform.spatial_sampling_fused(
                 frames, label,
                 spatial_idx=params["spatial_idx"],
@@ -342,6 +351,9 @@ class AVGazeDataset:
                 mean=self.cfg.DATA.MEAN, std=self.cfg.DATA.STD,
                 normalize=not want_uint8,
             )
+            if erase:
+                frames = rand_augment.random_erasing_clip(
+                    frames, rng, prob=self.cfg.AUG.RE_PROB, max_count=self.cfg.AUG.RE_COUNT)
 
             # --- label heatmaps at crop/4 (reference :318-328)
             hm_size = params["crop_size"] // 4

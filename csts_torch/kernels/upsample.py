@@ -2,7 +2,9 @@
 
 * K3 :func:`t2_upsample` (``_t2_kernel``, ``t2_upsample_padded`` without its
   128-lane padding): x2 half-pixel linear interpolation along T. It serves
-  d4's stride-(2,1,1) skip and the stem-skip T-resize at the head; a
+  d4's stride-(2,1,1) skip and the stem-skip T-resize at the head while
+  :data:`T2_SKIP_KERNEL` is set (the JAX package's switch, with its name
+  and default; off, both sites take the plain trilinear resize); a
   sliding window over T, one thread a 16-byte piece of a clip's plane
   (:func:`t2_upsample_window_plain` is the plain model of that plan).
 * B9a :func:`hw2_upsample` (``_hw2_kernel``): x2 along H, then x2 along W,
@@ -36,6 +38,14 @@ from csts_torch.ops.resize import upsample2x
 # where it measured as a loss on the TPU; ``python -m
 # csts_torch.tools.ab_flags --configs base hw2_skip`` measures it here.
 HW2_SKIP_KERNEL = False
+
+# The JAX package's switch for K3 (``csts_tpu/kernels/upsample.py:47``), on
+# by default as there, read where the models take a x2 T resize
+# (``models/mvit.py`` ``upsample_tokens_trilinear``): off, d4's skip and the
+# head's stem-map resize take ``ops.trilinear_resize`` and K3 is not
+# launched. JAX reads it at d4's skip only; its head resize is XLA's, whose
+# counterpart here is K3 as well.
+T2_SKIP_KERNEL = True
 
 
 def t2_upsample_plain(x: torch.Tensor, thw: Sequence[int]) -> torch.Tensor:

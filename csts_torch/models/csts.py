@@ -9,10 +9,19 @@ training mode, with the stochastic-depth masks passed in (``drop``) and every
 block on its training route (``mvit.MultiScaleBlock.forward_train``).
 
 The stem-skip head uses the classify-first side of the exact
-classifier/resize commute (the JAX default, ``HEAD_COMMUTE``): the 1x1x1
-classifier is a per-voxel linear map, so the stem grid is classified to one
-channel first and that map is T-resized (K3) and added to the classified
-decoder grid; the bias rides the decoder term once.
+classifier/resize commute while :data:`HEAD_COMMUTE` is set (the JAX
+package's switch and default): the 1x1x1 classifier is a per-voxel linear
+map, so the stem grid is classified to one channel first and that map is
+T-resized (K3) and added to the classified decoder grid; the bias rides
+the decoder term once. Off, the stem grid is T-resized whole, added to the
+decoder grid, and the sum classified.
+
+The forward's whole surface is JAX's ``csts_apply``: the fusion blocks'
+attention maps (``return_spatial_attn``, ``return_temporal_attn``: those
+blocks then take the plain attention core, ``mvit.block_route``'s
+"attn_map"), named activations (``capture``, :func:`extract_activations`)
+and MVIT.SPATIAL_AUDIO_ATTN (the spatial fusion's audio→video maps scale
+the temporal branch's video grid).
 """
 
 from __future__ import annotations
@@ -34,8 +43,16 @@ from csts_torch.models.mvit import (
     AttentionSpec,
     MultiScaleBlock,
     build_inframe_mask,
+    extract_audio_attention,
     round_width,
+    upsample_tokens_trilinear,
 )
+
+# The JAX package's switch (``csts_tpu/models/csts.py:37``, used at :628-647):
+# classify the stem skip before its T-resize (exact commute). JAX takes this
+# side only with its resize switch SPLIT_AXES_T_FIRST on too (the other XLA
+# lowering made it slow); the port has one resize, so it reads this alone.
+HEAD_COMMUTE = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -337,11 +354,6 @@ class CSTS(nn.Module):
 
     def __init__(self, spec: CSTSSpec):
         super().__init__()
-        if spec.spatial_audio_attn:
-            raise NotImplementedError(
-                "MVIT.SPATIAL_AUDIO_ATTN needs the spatial fusion's attention "
-                "probabilities, which the attention kernel never materialises; "
-                "no shipped config sets it")
         self.spec = spec
         e = spec.embed_dim
         self.patch_embed = PatchEmbed(
@@ -401,15 +413,28 @@ class CSTS(nn.Module):
         return block(x, thw, drop=drop)
 
     def forward(self, video: torch.Tensor, audio: torch.Tensor, return_embed: bool = False,
-                drop=None):
+                drop=None, return_spatial_attn: bool = False,
+                return_temporal_attn: bool = False, capture: Optional[dict] = None):
         """video: (B, T, H, W, 3) frames (float, or raw uint8 normalised here);
         audio: (B, T, F, S, 1) log-STFT slices; drop: in training, one entry
         per video block from ``ops.sample_drop_masks`` (None: no stochastic
         depth). Activations run in ``spec.compute_dtype`` whatever the
-        weights' dtype, as the JAX ``csts_apply``. Returns logits (B, T_out,
-        H', W', 1), and with ``return_embed`` also the NCE embeddings."""
+        weights' dtype, as the JAX ``csts_apply``. ``capture``: a dict
+        filled with the activations named in :data:`CAPTURABLE`.
+
+        Returns logits (B, T_out, H', W', 1); with ``return_embed`` the tuple
+        (logits, vision embedding, audio embedding); else with either map
+        asked for the list [logits, spatial map, temporal map] (each map
+        only if asked): the spatial fusion's probabilities (B, N, L, L),
+        L = T·H·W + T with the audio tokens last, and the temporal
+        fusion's (B, N, 2T, 2T), both fp32."""
         spec = self.spec
         cdt = spec.compute_dtype
+
+        def cap(name, value):
+            if capture is not None:
+                capture[name] = value
+
         if drop is None:
             drop = [None] * len(self.blocks)
         if not video.is_floating_point():
@@ -420,8 +445,12 @@ class CSTS(nn.Module):
             video = video.to(cdt)
         audio = audio.to(cdt)
 
-        x = self.patch_embed(video) + self._pos_embed(False).to(cdt)
-        y = self.patch_embed_audio(audio) + self._pos_embed(True).to(cdt)
+        x = self.patch_embed(video)
+        y = self.patch_embed_audio(audio)
+        cap("patch_embed", x)
+        cap("patch_embed_audio", y)
+        x = x + self._pos_embed(False).to(cdt)
+        y = y + self._pos_embed(True).to(cdt)
         thw: THW = spec.patch_dims
         thw_audio: THW = spec.audio_patch_dims
 
@@ -431,10 +460,12 @@ class CSTS(nn.Module):
         for gi, ((vs, ve), (as_, ae)) in enumerate(groups):
             for i in range(vs, ve):
                 x, thw = self._encoder_block(self.blocks[i], x, thw, drop[i])
+                cap(f"blocks/{i}", x)
             if gi < len(groups) - 1:
                 inter_feat.append((x, thw))
             for i in range(as_, ae):
                 y, thw_audio = self._encoder_block(self.blocks_audio[i], y, thw_audio)
+                cap(f"blocks_audio/{i}", y)
 
         # spatial-temporal fusion (custom_multimodal_builder.py:413-462)
         b = x.shape[0]
@@ -443,15 +474,28 @@ class CSTS(nn.Module):
         y_grid = y.reshape(b, *thw_audio, td)
         y_spatial = _conv(self.audio_pool, y_grid).reshape(b, t, td)
         av_spatial = torch.cat([x, y_spatial], dim=1)
-        av_spatial, _ = self.spatial_fusion(av_spatial, thw, mask=self.inframe_mask)
+        spatial_attn = None
+        if spec.spatial_audio_attn or return_spatial_attn:
+            av_spatial, _, spatial_attn = self.spatial_fusion(
+                av_spatial, thw, mask=self.inframe_mask, return_attn=True)
+        else:
+            av_spatial, _ = self.spatial_fusion(av_spatial, thw, mask=self.inframe_mask)
+        cap("spatial_fusion", av_spatial)
         n_video = x.shape[1]
         x_spatial = av_spatial[:, :n_video]
 
         x_grid = x.reshape(b, *thw, td)
+        if spec.spatial_audio_attn:
+            # the audio token's attention over its frame, averaged over heads,
+            # scales that frame's video tokens (custom_multimodal_builder.py:434-441)
+            audio_attn = extract_audio_attention(spatial_attn, spec.fusion_thw)
+            x_grid = x_grid * audio_attn.mean(dim=1)[..., None].to(cdt)
         x_temporal = _conv(self.vision_pool, x_grid).reshape(b, t, td)
         y_temporal = _conv(self.audio_pool2, y_grid).reshape(b, t, td)
         av_temporal = torch.cat([x_temporal, y_temporal], dim=1)
-        av_temporal, _ = self.temporal_fusion(av_temporal, (2, 2, 2))
+        av_temporal, _, *temporal_attn = self.temporal_fusion(
+            av_temporal, (2, 2, 2), return_attn=return_temporal_attn)
+        cap("temporal_fusion", av_temporal)
 
         x_weights = av_temporal[:, :t]
         x_reweight = (x_spatial.reshape(b, *thw, td) * x_weights[:, :, None, None, :])
@@ -466,20 +510,67 @@ class CSTS(nn.Module):
             feat, thw = getattr(self, f"decode_block{i + 1}")(feat, thw)
             if i < n_dec - 1:
                 feat = feat + inter_feat[-(i + 1)][0]
+            cap(f"decode_block{i + 1}", feat)
 
-        # head: classify first, then T-resize the 1-channel stem map (exact commute)
+        # head: the stem skip T-resized (K3 while kup.T2_SKIP_KERNEL is set)
         stem_feat, stem_thw = inter_feat[0]
-        logits = _conv(self.classifier, feat.reshape(b, *thw, -1))
-        w = self.classifier.weight.reshape(1, -1).to(stem_feat.dtype)
-        stem_cls = ops.linear(stem_feat, w)  # (B, L_stem, 1), no bias
-        t2 = kup.t2_upsample_train if self.training else kup.t2_upsample
-        logits = logits + t2(stem_cls, stem_thw).reshape(logits.shape)
+        if HEAD_COMMUTE:  # classify first, then T-resize the 1-channel map
+            logits = _conv(self.classifier, feat.reshape(b, *thw, -1))
+            w = self.classifier.weight.reshape(1, -1).to(stem_feat.dtype)
+            stem_cls = ops.linear(stem_feat, w)  # (B, L_stem, 1), no bias
+            stem_up, _ = upsample_tokens_trilinear(stem_cls, stem_thw, (2, 1, 1),
+                                                   train=self.training)
+            logits = logits + stem_up.reshape(logits.shape)
+        else:
+            stem_up, _ = upsample_tokens_trilinear(stem_feat, stem_thw, (2, 1, 1),
+                                                   train=self.training)
+            logits = _conv(self.classifier, (feat + stem_up).reshape(b, *thw, -1))
 
-        if not return_embed:
+        if return_embed:
+            x_embed = ops.linear(x_reweight.mean(dim=1), self.vision_proj.weight,
+                                 self.vision_proj.bias)
+            y_embed = ops.linear(y_reweight.mean(dim=1), self.audio_proj.weight,
+                                 self.audio_proj.bias)
+            return logits, x_embed, y_embed
+        if not (return_spatial_attn or return_temporal_attn):
             return logits
-        x_embed = ops.linear(x_reweight.mean(dim=1), self.vision_proj.weight, self.vision_proj.bias)
-        y_embed = ops.linear(y_reweight.mean(dim=1), self.audio_proj.weight, self.audio_proj.bias)
-        return logits, x_embed, y_embed
+        return ([logits] + ([spatial_attn] if return_spatial_attn else [])
+                + temporal_attn)
+
+
+#: the layers :func:`extract_activations` captures (JAX's names, "/"-separated)
+CAPTURABLE = (
+    "patch_embed", "patch_embed_audio", "blocks/<i>", "blocks_audio/<i>",
+    "spatial_fusion", "temporal_fusion", "decode_block<1-4>",
+)
+
+
+def extract_activations(model: CSTS, video: torch.Tensor, audio: torch.Tensor,
+                        layers: Optional[Tuple[str, ...]] = None):
+    """Runs the forward and returns ``(logits, {layer name: activation})``
+    (``csts_tpu/models/csts.py:680-699``; the reference's forward hooks,
+    ``GetWeightAndActivation``): every layer of :data:`CAPTURABLE`, or
+    those named in ``layers``. Tokens (B, L, C) in the compute dtype, the
+    stems' before their position embeddings."""
+    acts: dict = {}
+    logits = model(video, audio, capture=acts)
+    if layers is not None:
+        acts = {k: v for k, v in acts.items() if k in set(layers)}
+    return logits, acts
+
+
+def get_weights(model: CSTS, layers) -> dict:
+    """{layer name: weights} by "/"-separated path into the module tree
+    ("blocks/3/attn/qkv", "decode_block1/mlp/fc1/weight"): a parameter's
+    tensor, or a module's state dict (``csts_tpu/models/csts.py:702-707``
+    over the port's names)."""
+    out = {}
+    for name in layers:
+        node = model
+        for part in name.split("/"):
+            node = node[int(part)] if isinstance(node, nn.ModuleList) else getattr(node, part)
+        out[name] = node.state_dict() if isinstance(node, nn.Module) else node
+    return out
 
 
 def init_params(model: CSTS, generator: torch.Generator) -> None:

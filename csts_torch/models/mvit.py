@@ -19,10 +19,14 @@ the composite route, as the JAX predicates force when not deterministic: K1
 forward with B8 backward (``ka.attention_train``), the skip plus the
 stochastic-depth attention branch, and the B7 tail (``kb.mlp_tail_train``)
 with the MLP branch's mask as its per-sample factor; K3 through
-``kup.t2_upsample_train``. The kernels are called through their modules
-(``ka.fused_attention`` ...) so a check can swap in the plain versions on the
-card. The dispatch depends on the model and its mode only, never on the
-device.
+``kup.t2_upsample_train``. A block asked for its attention map
+(``return_attn``: the fusion blocks' maps) takes the composite route with
+the plain attention core and its fp32 probabilities (:func:`attention_probs`,
+JAX's ``_attention_core`` with ``need_attn``) in place of K1, at eval and in
+training, as JAX's predicates leave every whole-block route then. The
+kernels are called through their modules (``ka.fused_attention`` ...) so a
+check can swap in the plain versions on the card. The dispatch depends on
+the model and its mode only, never on the device.
 """
 
 from __future__ import annotations
@@ -179,7 +183,8 @@ def pool_tokens_max(x: torch.Tensor, thw: THW, kernel, stride, padding) -> Tuple
 def upsample_tokens_trilinear(x: torch.Tensor, thw: THW, stride, train: bool = False,
                               decoder_kernel: bool = False) -> Tuple[torch.Tensor, THW]:
     """nn.Upsample(scale_factor=stride, trilinear) on tokens (attention.py:463-467).
-    The stride-(2,1,1) case is K3 (inside autograd when ``train``). The
+    The stride-(2,1,1) case is K3 (inside autograd when ``train``) while
+    ``kup.T2_SKIP_KERNEL`` is set. The
     stride-(1,2,2) case is B9a when ``kup.HW2_SKIP_KERNEL`` is set, at eval,
     for the skip of a block on B5's route (``decoder_kernel``): the JAX
     package reads the switch there only (``_decoder_kernel_forward``,
@@ -187,7 +192,7 @@ def upsample_tokens_trilinear(x: torch.Tensor, thw: THW, stride, train: bool = F
     b, l, c = x.shape
     t, h, w = thw
     size = (t * stride[0], h * stride[1], w * stride[2])
-    if tuple(stride) == (2, 1, 1):
+    if tuple(stride) == (2, 1, 1) and kup.T2_SKIP_KERNEL:
         return (kup.t2_upsample_train if train else kup.t2_upsample)(x, thw), size
     if tuple(stride) == (1, 2, 2) and decoder_kernel and kup.HW2_SKIP_KERNEL and not train:
         return kup.hw2_upsample(x, thw), size
@@ -375,9 +380,16 @@ def decoder_eligible(spec: AttentionSpec, mask, thw: THW) -> bool:
     )
 
 
-def block_route(spec: AttentionSpec, mask, thw: THW) -> str:
+def block_route(spec: AttentionSpec, mask, thw: THW, return_attn: bool = False) -> str:
     """The kernel a block runs in, in the JAX package's order:
-    "block" (B3), "decoder_block" (B5), "pool_block" (B4) or "composite"."""
+    "block" (B3), "decoder_block" (B5), "pool_block" (B4) or "composite"
+    (K1 and K2); a block asked for its attention map (``return_attn``)
+    takes "attn_map": the composite route with the plain attention core
+    (:func:`attention_probs`) in place of K1, as JAX's predicates leave
+    every whole-block route then (``csts_tpu/models/mvit.py:643, :658,
+    :687``)."""
+    if return_attn:
+        return "attn_map"
     if block_eligible(spec, mask):
         return "block"
     if decoder_eligible(spec, mask, thw):
@@ -390,6 +402,24 @@ def block_route(spec: AttentionSpec, mask, thw: THW) -> str:
 # ----------------------------------------------------------------------------------
 # MultiScaleAttention / MultiScaleBlock (attention.py:52-248, 292-479)
 # ----------------------------------------------------------------------------------
+
+
+def attention_probs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                    mask: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """softmax(q kᵀ · scale [+ mask]) v with its probabilities, in plain
+    PyTorch (JAX's ``_attention_core`` with ``need_attn``,
+    ``csts_tpu/models/mvit.py:285-320``): fp32 logits from the inputs'
+    dtype, fp32 probabilities, the product with v from the probabilities
+    rounded to v's dtype, summed in fp32 and rounded once. Differentiable.
+    q: (B, N, Lq, hd); k, v: (B, N, Lk, hd); mask: additive (Lq, Lk).
+    Returns (out (B, N, Lq, hd) in v's dtype, probabilities (B, N, Lq, Lk)
+    fp32)."""
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if mask is not None:
+        logits = logits + mask.float()
+    attn = torch.softmax(logits, dim=-1)
+    out = torch.matmul(attn.to(v.dtype).float(), v.float()).to(v.dtype)
+    return out, attn
 
 
 class MultiScaleAttention(nn.Module):
@@ -435,9 +465,12 @@ class MultiScaleAttention(nn.Module):
         return (proj[..., :s.dim] if with_q else None), k, v
 
     def forward(
-        self, xn: torch.Tensor, thw: THW, mask: Optional[torch.Tensor] = None
-    ) -> Tuple[torch.Tensor, THW]:
-        """xn: LN1'd tokens (B, L, dim). Returns (out (B, Lq, dim), thw_q)."""
+        self, xn: torch.Tensor, thw: THW, mask: Optional[torch.Tensor] = None,
+        return_attn: bool = False,
+    ):
+        """xn: LN1'd tokens (B, L, dim). Returns (out (B, Lq, dim), thw_q),
+        and with ``return_attn`` also the fp32 probabilities (B, N, Lq, Lk)
+        from :func:`attention_probs`, which then replaces K1."""
         s = self.spec
         b, l, _ = xn.shape
         q, k, v = self.project(xn, thw)
@@ -450,10 +483,15 @@ class MultiScaleAttention(nn.Module):
                                        output_padding=s.output_padding_q)
             else:
                 q, q_thw = _pool_heads(q, self.pool_q, self.norm_q, thw, s.stride_q, s.padding_q)
-        attend = ka.attention_train if self.training else ka.fused_attention
-        out = attend(q, k, v, s.scale, mask)
+        attn = None
+        if return_attn:
+            out, attn = attention_probs(q, k, v, s.scale, mask)
+        else:
+            attend = ka.attention_train if self.training else ka.fused_attention
+            out = attend(q, k, v, s.scale, mask)
         out = out.transpose(1, 2).reshape(b, out.shape[2], s.dim)
-        return ops.linear(out, self.proj.weight, self.proj.bias), q_thw
+        out = ops.linear(out, self.proj.weight, self.proj.bias)
+        return (out, q_thw, attn) if return_attn else (out, q_thw)
 
 
 class Mlp(nn.Module):
@@ -499,17 +537,19 @@ class MultiScaleBlock(nn.Module):
 
     def forward(
         self, x: torch.Tensor, thw: THW, mask: Optional[torch.Tensor] = None,
-        drop: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-    ) -> Tuple[torch.Tensor, THW]:
+        drop: Optional[Tuple[torch.Tensor, torch.Tensor]] = None, return_attn: bool = False,
+    ):
         """x: (B, L, dim) tokens on grid ``thw``. ``drop``: in training, the
         block's (attention-branch, MLP-branch) stochastic-depth masks, or None
-        for none. Returns (out (B, L', dim_out), thw')."""
+        for none. Returns (out (B, L', dim_out), thw'), and with
+        ``return_attn`` also the attention probabilities (B, N, L', Lk) fp32
+        (:func:`block_route`'s "attn_map" route)."""
         if self.training:
-            return self.forward_train(x, thw, mask, drop)
+            return self.forward_train(x, thw, mask, drop, return_attn)
         s, a = self.spec, self.attn
-        route = block_route(s, mask, thw)
-        if route == "composite":
-            return self.forward_composite(x, thw, mask)
+        route = block_route(s, mask, thw, return_attn)
+        if route in ("composite", "attn_map"):
+            return self.forward_composite(x, thw, mask, return_attn)
         if route == "block":
             return self.forward_block(x, thw)
         # the kernels take one dtype: fp32 master weights are cast to x's
@@ -565,33 +605,37 @@ class MultiScaleBlock(nn.Module):
         return x
 
     def forward_composite(
-        self, x: torch.Tensor, thw: THW, mask: Optional[torch.Tensor] = None
-    ) -> Tuple[torch.Tensor, THW]:
+        self, x: torch.Tensor, thw: THW, mask: Optional[torch.Tensor] = None,
+        return_attn: bool = False,
+    ):
         """The block through K1 and K2 (the route of every block the
-        whole-block kernels do not take)."""
+        whole-block kernels do not take); with ``return_attn``, through
+        :func:`attention_probs` and K2, returning the probabilities too."""
         xn = ops.layer_norm(x, self.norm1.weight, self.norm1.bias)
-        x_block, thw_new = self.attn(xn, thw, mask)
-        return (kb.fused_mlp_tail(self._skip(x, thw) + x_block, *self._tail_weights(x.dtype)[2:]),
-                thw_new)
+        x_block, thw_new, *attn = self.attn(xn, thw, mask, return_attn)
+        out = kb.fused_mlp_tail(self._skip(x, thw) + x_block, *self._tail_weights(x.dtype)[2:])
+        return (out, thw_new, *attn)
 
     def forward_train(
         self, x: torch.Tensor, thw: THW, mask: Optional[torch.Tensor] = None,
-        drop: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-    ) -> Tuple[torch.Tensor, THW]:
+        drop: Optional[Tuple[torch.Tensor, torch.Tensor]] = None, return_attn: bool = False,
+    ):
         """The training route (the JAX composite at ``deterministic=False``):
-        K1 forward with B8 backward, skip + drop_path(attention branch), then
-        the B7 tail with the MLP-branch mask as its per-sample factor (ones
-        without stochastic depth). The weights stay in their own dtype: the
-        ops and B7's Function cast them in the graph."""
+        K1 forward with B8 backward (with ``return_attn``, the
+        differentiable :func:`attention_probs` instead, its probabilities
+        returned too), skip + drop_path(attention branch), then the B7 tail
+        with the MLP-branch mask as its per-sample factor (ones without
+        stochastic depth). The weights stay in their own dtype: the ops and
+        B7's Function cast them in the graph."""
         xn = ops.layer_norm(x, self.norm1.weight, self.norm1.bias)
-        x_block, thw_new = self.attn(xn, thw, mask)
+        x_block, thw_new, *attn = self.attn(xn, thw, mask, return_attn)
         if drop is not None:
             x_block = ops.drop_path(x_block, drop[0])
             dp = drop[1]
         else:
             dp = torch.ones(x.shape[0], dtype=torch.float32, device=x.device)
         out = kb.mlp_tail_train(self._skip(x, thw) + x_block, *self._tail_weights()[2:], dp)
-        return out, thw_new
+        return (out, thw_new, *attn)
 
 
 def build_inframe_mask(thw: THW, num_audio_tokens: int) -> np.ndarray:
@@ -614,3 +658,18 @@ def build_inframe_mask(thw: THW, num_audio_tokens: int) -> np.ndarray:
         mask[t * hw + f, sl] = 0.0
         mask[t * hw + f, t * hw + f] = 0.0
     return mask
+
+
+def extract_audio_attention(attn: torch.Tensor, thw: THW) -> torch.Tensor:
+    """Per-frame audio→video attention map, min-max rescaled
+    (av_attention.py:360-370; ``csts_tpu/models/mvit.py:864-880``): row
+    T·H·W + f of the spatial fusion's probabilities, the audio token of
+    frame f, over frame f's video columns. ``attn``: (B, N, L, L) fp32,
+    L = T·H·W + T. Returns (B, N, T, H, W) in [0, 1]."""
+    t, h, w = thw
+    hw = h * w
+    rows = torch.stack([attn[:, :, t * hw + f, hw * f:hw * (f + 1)] for f in range(t)], dim=2)
+    amax = rows.amax(dim=-1, keepdim=True)
+    amin = rows.amin(dim=-1, keepdim=True)
+    rescaled = (rows - amin) / (amax - amin + 1e-8)
+    return rescaled.reshape(*rescaled.shape[:2], t, h, w)

@@ -14,6 +14,12 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
+# The JAX package's switch between two XLA lowerings of this resize
+# (``csts_tpu/ops/resize.py:36``). ``tools/ab_flags`` lists it so that a
+# config names the same switches in both packages; nothing here reads it,
+# as the port has one lowering (separable, the switch's default side).
+SPLIT_AXES_T_FIRST = True
+
 
 def upsample2x(g: torch.Tensor, axis: int) -> torch.Tensor:
     """x2 half-pixel linear upsampling of ``g`` along ``axis``, in g's dtype:

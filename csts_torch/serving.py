@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import json
 import os
+import sys
 import threading
 from typing import Dict, List, Optional, Sequence
 
@@ -49,10 +50,13 @@ def _program_file(bucket: int) -> str:
 
 def _switches() -> tuple:
     """The values of the port's experiment switches, which decide a kernel
-    route when the forward runs (and so what a graph captured)."""
-    from csts_torch.tools.ab_flags import flag_registry
+    route when the forward runs (and so what a graph captured). A switch
+    whose module was never imported reads None: nothing flipped it (an
+    exported program imports no model code)."""
+    from csts_torch.tools.ab_flags import SWITCHES
 
-    return tuple(getattr(mod, attr) for mod, attr in flag_registry().values())
+    return tuple(getattr(sys.modules[mod], attr) if mod in sys.modules else None
+                 for mod, attr in SWITCHES.values())
 
 
 class _Slot:

@@ -3,7 +3,8 @@ eval forward.
 
 Counterpart of the JAX package's ``tools/ab_flags.py``:
 
-    python -m csts_torch.tools.ab_flags [--batch 8] [--iters 20] [--configs base hw2_skip]
+    python -m csts_torch.tools.ab_flags [--batch 8] [--iters 20] \
+        [--configs base head_commute+t2_skip head_commute+t2_skip+hw2_skip]
 
 Each config is ``base`` or '+'-joined switch names from the registry below
 (the JAX package's switches the port has, with their names and defaults).
@@ -21,15 +22,23 @@ is printed, and the tool fails if it reaches 0.02 (the bf16 bar of
 given; ``--small`` takes the reduced model (a check on the CPU, where the
 kernels' plain twins run and the host clock gives no device metric).
 
-Switches:
-  hw2_skip  the decoder's stride-(1,2,2) skips on B5's route through B9a
-            (``kernels/upsample.py`` ``HW2_SKIP_KERNEL``)
+Switches (the defaults are JAX's: head_commute and t2_skip on, the others off):
+  head_commute  classify the stem skip before its T-resize (``models/csts.py``
+                ``HEAD_COMMUTE``)
+  t2_skip       the x2 T resizes (d4's skip, the head's stem map) through K3
+                (``kernels/upsample.py`` ``T2_SKIP_KERNEL``); off, plain
+  hw2_skip      the decoder's stride-(1,2,2) skips on B5's route through B9a
+                (``kernels/upsample.py`` ``HW2_SKIP_KERNEL``)
+  split_resize  JAX's choice between two XLA lowerings of the trilinear
+                resize (``ops/resize.py`` ``SPLIT_AXES_T_FIRST``); it has no
+                meaning here and nothing reads it: flipping it changes nothing
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import importlib
 import statistics
 from typing import Dict, Sequence, Tuple
 
@@ -38,10 +47,17 @@ import torch
 GUARD = 0.02
 
 
-def flag_registry() -> Dict[str, Tuple[object, str]]:
-    from csts_torch.kernels import upsample as kup
+# each switch's module and attribute, by name (imported where flipped)
+SWITCHES = {
+    "head_commute": ("csts_torch.models.csts", "HEAD_COMMUTE"),
+    "split_resize": ("csts_torch.ops.resize", "SPLIT_AXES_T_FIRST"),
+    "t2_skip": ("csts_torch.kernels.upsample", "T2_SKIP_KERNEL"),
+    "hw2_skip": ("csts_torch.kernels.upsample", "HW2_SKIP_KERNEL"),
+}
 
-    return {"hw2_skip": (kup, "HW2_SKIP_KERNEL")}
+
+def flag_registry() -> Dict[str, Tuple[object, str]]:
+    return {name: (importlib.import_module(mod), attr) for name, (mod, attr) in SWITCHES.items()}
 
 
 @contextlib.contextmanager
@@ -136,7 +152,8 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--rounds", type=int, default=3, help="turns over the configs")
-    ap.add_argument("--configs", nargs="+", default=["base", "hw2_skip"],
+    ap.add_argument("--configs", nargs="+",
+                    default=["base", "head_commute+t2_skip", "head_commute+t2_skip+hw2_skip"],
                     help="each entry: 'base' or '+'-joined switch names from the registry")
     ap.add_argument("--small", action="store_true", help="the reduced model (small_cfg)")
     ap.add_argument("--device", default=None, help="default: cuda (raises without a card)")

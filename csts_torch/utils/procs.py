@@ -92,10 +92,15 @@ def wait_gone(pids: Iterable[int] | Dict[int, Proc], timeout: float) -> Dict[int
 def stop_mp_helpers() -> None:
     """Stops ``multiprocessing``'s fork server, then its resource tracker
     (the fork server holds the tracker's pipe), if this process started
-    them; each starts again on its next use. Call it only once no loader
-    worker or spawned process is left: the fork server's children outlive
-    it."""
+    them; each starts again on its next use. It raises, stopping neither,
+    while a child started through ``multiprocessing`` (a loader worker, a
+    spawned rank) is alive: the fork server's children would outlive it,
+    and the tracker waits for every holder of its pipe."""
+    import multiprocessing
     from multiprocessing import forkserver, resource_tracker
 
+    alive = multiprocessing.active_children()
+    if alive:
+        raise RuntimeError(f"multiprocessing children still alive: {alive}")
     forkserver._forkserver._stop()
     resource_tracker._resource_tracker._stop()

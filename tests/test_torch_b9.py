@@ -240,8 +240,13 @@ def test_decoder_whole_vol_matches_port(monkeypatch):
 
 
 def test_ab_flags_switches_restore():
+    from csts_torch.models import csts
+    from csts_torch.ops import resize
+
     reg = ab_flags.flag_registry()
-    assert reg == {"hw2_skip": (kup, "HW2_SKIP_KERNEL")}
+    assert reg == {"head_commute": (csts, "HEAD_COMMUTE"),
+                   "split_resize": (resize, "SPLIT_AXES_T_FIRST"),
+                   "t2_skip": (kup, "T2_SKIP_KERNEL"), "hw2_skip": (kup, "HW2_SKIP_KERNEL")}
     kup.HW2_SKIP_KERNEL = True  # a default that flips: base still forces it off
     try:
         with ab_flags.flags("base"):

@@ -1163,7 +1163,7 @@ def test_stale_graph_recaptures_after_a_switch(gen):
     video, audio = _small_requests(pred, 2, 0)
     for _ in range(3):
         base = pred.predict(video, audio)
-    with ab_flags.flags("hw2_skip"):
+    with ab_flags.flags("head_commute+t2_skip+hw2_skip"):  # hw2_skip beside the defaults
         hw2 = []
         for _ in range(3):
             reset_launches()

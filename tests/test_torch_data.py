@@ -12,6 +12,7 @@ through its own; the share of pixels that differ is asserted below 0.35:
 float32 1e-3 (the JAX package's bar for ``stft_jax``).
 """
 
+import copy
 import os
 
 import cv2
@@ -317,12 +318,23 @@ def test_video_readers(roots):
 
 
 def test_aug_in_training_raises(roots, tmp_path):
+    """AUG.ENABLE raised in training until RandAugment and random erasing
+    were ported (ROADMAP A.6); now the train split builds and augments (its
+    items differ from the same draws without AUG; the items against the JAX
+    package's are in test_torch_rand_augment.py), and eval reads no AUG."""
     root, prefix, splits = roots["ego4d", 32]
     _, tcfg = _cfgs(prefix, splits, "ego4d", str(tmp_path))
+    plain = {m: tds.build_dataset("ego4d_av_gaze_forecast", copy.deepcopy(tcfg), m)
+             for m in ("train", "test")}
     tcfg.AUG.ENABLE = True
-    with pytest.raises(NotImplementedError, match="A.6"):
-        tds.build_dataset("ego4d_av_gaze_forecast", tcfg, "train")
-    tds.build_dataset("ego4d_av_gaze_forecast", tcfg, "test")  # eval reads no AUG
+    tcfg.AUG.RE_PROB = 1.0
+    aug = {m: tds.build_dataset("ego4d_av_gaze_forecast", tcfg, m) for m in ("train", "test")}
+    got = aug["train"].__getitem__(0, rng=np.random.default_rng(0))
+    want = plain["train"].__getitem__(0, rng=np.random.default_rng(0))
+    assert got["video"].dtype == np.float32 and got["video"].shape == want["video"].shape
+    assert not np.array_equal(got["video"], want["video"])
+    _assert_items_equal(aug["test"].__getitem__(0, rng=np.random.default_rng(0)),
+                        plain["test"].__getitem__(0, rng=np.random.default_rng(0)))
 
 
 # ------------------------------------------------------------------ loader

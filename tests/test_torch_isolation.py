@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX package,
-nor OpenCV, nor PyYAML at module level, and it never drops to the CPU
-without being asked to."""
+nor OpenCV, nor PIL (the card's machine has neither), nor PyYAML, and it
+never drops to the CPU without being asked to."""
 
 import ast
 import os
@@ -16,7 +16,7 @@ import csts_torch
 from csts_torch import presets
 from csts_torch.models.csts import CSTS, build_spec
 from csts_torch.serving import GazePredictor
-from csts_torch.tools import ab_block, ab_flags, profile_forward
+from csts_torch.tools import ab_block, ab_flags, profile_forward, visualize
 
 torch.set_num_threads(2)
 
@@ -26,7 +26,7 @@ PORT_FILES = sorted(
     for d, _, files in os.walk(os.path.join(REPO, "csts_torch"))
     for f in files if f.endswith(".py")
 ) + [os.path.join(REPO, "chip_smoke.py")]
-FORBIDDEN = ("jax", "jaxlib", "csts_tpu", "cv2")
+FORBIDDEN = ("jax", "jaxlib", "csts_tpu", "cv2", "PIL")
 
 
 def _env(**extra):
@@ -87,6 +87,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     for tool in (ab_block, ab_flags, profile_forward):
         with pytest.raises(RuntimeError, match="CUDA"):
             tool.main(["--small"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        visualize.main(["--cfg", os.path.join(REPO, "configs", "Ego4D",
+                                              "CSTS_Ego4D_Gaze_Forecast.yaml")])
 
 
 def test_chip_smoke_refuses_without_cuda_and_alone(tmp_path):
