@@ -673,9 +673,9 @@ def recording(calls: dict):
     block_in: list = []
     block_forward = tmvit.MultiScaleBlock.forward
 
-    def forward(self, x, thw, mask=None, drop=None):
+    def forward(self, x, thw, mask=None, drop=None, return_attn=False):
         block_in[:] = [self, x, thw]
-        return block_forward(self, x, thw, mask, drop)
+        return block_forward(self, x, thw, mask, drop, return_attn)
 
     def make(name, fn):
         def rec(*args):
@@ -3101,6 +3101,7 @@ def aug_check(root: str, rng, audit: "ProcessAudit") -> dict:
             "SOLVER.MAX_EPOCH", "1", "TRAIN.CHECKPOINT_PERIOD", "1", "TRAIN.EVAL_PERIOD", "2",
             "AUG.ENABLE", str(aug)]
         seen = {"waits": [], "epochs": [], "in_train": False}
+        audit.at(f"surface trainer AUG.ENABLE {aug}")
         reset_launches()
         t = time.perf_counter()
         with _train_waits(seen):
@@ -3120,10 +3121,10 @@ def aug_check(root: str, rng, audit: "ProcessAudit") -> dict:
             f"first batch waited {waits[0]:.2f} s); loader wait share {share:.3f} after the "
             f"first batch; launches {launches}; loader workers alive after it: {len(workers)} "
             f"({CARD})")
-        audit.at(f"surface trainer aug {aug}")
         assert not workers, workers
         for name, per in PER_STEP.items():
             assert launches[name] == per * iters, (name, launches[name], per * iters)
+    audit.at("surface visualize")
     return res, os.path.join(root, "aug_True"), split
 
 
@@ -3491,6 +3492,7 @@ def main() -> int:
         "blocks through the K1+K2 route {b4_k1k2_route_device_ms:.4f} (device, phase 1 included); "
         "B9a device {b9a_device_ms:.4f} vs F.interpolate device {b9a_interpolate_device_ms:.4f} "
         "a forward with hw2_skip".format(**yardsticks) + f" ({card})")
+    processes = close_run(audit)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": kernels, "per_shape": report,
@@ -3504,7 +3506,6 @@ def main() -> int:
                    "trainer": trainer, "parallel": parallel, "surface": surface,
                    "processes": processes}, f, indent=1,
                   default=str)
-    processes = close_run(audit)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
