@@ -154,7 +154,25 @@ Phases (any failure exits non-zero; nothing is caught):
      defaults'); run_net's training, one epoch of 6 iterations, with and
      without AUG.ENABLE at 4 loader workers (launches, the loader's wait
      share, no worker alive after); ``tools/visualize.py --attention`` on 4
-     test clips from that run's npz (every PNG read back at its size).
+     test clips from that run's npz (every PNG read back at its size);
+ 10. the MViT-B 16x4 classifier (``presets.mvit_b_16x4_cfg``: 16 frames at
+     224², 16 blocks, 400 classes) from ``build_model`` with seeded weights,
+     bf16, with the cls token (the published configuration) and without
+     it: ``classifier_plan`` (``mvit.block_route``: K1 16 and K2 16 with the
+     token, B3 2, K1 14 and K2 14 without), then at batches 1 and 8 one
+     forward recording every launch's inputs and one with the counters set
+     to 0 before and read after, against the plan; the logits against the
+     same weights through the fp32 plain twins (max|Δ| within 0.05 of
+     max(1, the largest |logit|), the class softmax within 0.02, the top
+     class where decided); the batch-8 forward's ms (events), device busy
+     ms by kernel family (``profile_forward``) and clips/s; every recorded
+     K1, K2 and B3 launch against its plain
+     twin (``check_kernels``, K1 also against its split model where it
+     splits the keys) with device ms and the bound at batch 8; then the
+     native loader ops (``csts_torch/native``, g++ at first use) bit-equal
+     to their numpy twins at the flagship loader's shapes, and
+     ``utils.misc.benchmark_data_loading`` on a synthetic train split (4
+     clips at 256x320 listed 24 times, 4 workers, 10 batches of 8 timed).
 Every process the run starts is audited (``ProcessAudit``): a thread reads
 this process's descendants from ``/proc`` twice a second, and each phase
 ends with a ``phase X: processes after: n`` line naming those alive. At the
@@ -750,10 +768,14 @@ def _max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def check_kernels(calls_by_bucket: dict, kernels: dict = KERNELS) -> dict:
+def check_kernels(calls_by_bucket: dict, kernels: dict = KERNELS, timing="full") -> dict:
     """Phase 3: every kernel of ``kernels`` against its plain version at every
     recorded shape (a kernel's ``bars`` name the bars it takes, its ``peak``
-    the peak rate of its operations)."""
+    the peak rate of its operations). At the largest bucket's shapes
+    ``timing`` "full" times the kernel, its plain version and its library
+    call by CUDA events and by device time (and a whole block through the
+    K1+K2 route); "device" takes the device times and the bound only; None
+    times nothing."""
     report = {name: {"shapes": [], "max_abs_err": 0.0, "max_abs_err_fp32": 0.0}
               for name in kernels}
     failures = []
@@ -799,7 +821,21 @@ def check_kernels(calls_by_bucket: dict, kernels: dict = KERNELS) -> dict:
                 row = {"bucket": bucket, "signature": repr(sig), "launches_per_forward": count,
                        "max_abs_err": err, "bar": bar, "max_abs_err_fp32": err32,
                        "bar_fp32": bar32, **split}
-                if bucket == max(calls_by_bucket):
+                if bucket == max(calls_by_bucket) and timing == "device":
+                    nbytes, flops = k["cost"](*args)
+                    row.update(
+                        device_ms=device_ms(lambda: kern(*args)),
+                        library_device_ms=(device_ms(lambda: k["library"](*args))
+                                           if k["library"] is not None else None),
+                        bytes=nbytes, flops=flops, bytes_ms=nbytes / PEAK_BYTES_S * 1e3,
+                        ops_ms=flops / k.get("peak", PEAK_BF16_FLOPS) * 1e3)
+                    row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+                    log(f"  {name} {sig[0]} x{count}: device {row['device_ms']:.4f} ms (library "
+                        f"device {row['library_device_ms']}, bound {row['bound_ms']:.4f} = bytes "
+                        f"{row['bytes_ms']:.4f} / ops {row['ops_ms']:.4f}) max|Δ| bf16 {err:.3g} "
+                        f"fp32 {err32:.3g}" + (f" splits {split['splits']}" if split else "")
+                        + f" ({CARD})")
+                elif bucket == max(calls_by_bucket) and timing == "full":
                     nbytes, flops = k["cost"](*args)
                     row.update(
                         ms=time_ms(lambda: kern(*args)),
@@ -3196,6 +3232,221 @@ def surface_phase(rng: np.random.Generator, audit: "ProcessAudit") -> dict:
     return res
 
 
+# phase 10: the MViT-B 16x4 classifier (presets.mvit_b_16x4_cfg, 16 frames at
+# 224², 16 blocks) built by build_model, bf16, at these batches
+CLASSIFIER_BATCHES = (1, 8)
+# launches a forward from block_route at 16x224²: with the cls token every
+# block takes K1+K2 (B3 and B4 refuse a cls token); without it B3 takes v0
+# and v2 (Lk 392) and K1+K2 the other 14 (B4 refuses Lk 1568 > 1024 at v1,
+# v3 and v14)
+CLASSIFIER_PLAN = {True: {"attention": 16, "mlp_tail": 16, "block": 0},
+                   False: {"attention": 14, "mlp_tail": 14, "block": 2}}
+CLASSIFIER_FORWARD_S = 0.5  # CUDA-event timing of the batch-8 forward
+#: the bf16 logits against the fp32 plain twins: max|Δ| within this share of
+#: max(1, the largest |logit|), the class softmax within the golden bar
+CLASSIFIER_LOGIT_BAR = 0.05
+CLASSIFIER_SOFTMAX_BAR = 0.02
+NATIVE_CLIPS = 4        # the loader benchmark's synthetic clips (256x320) ...
+NATIVE_REPEATS = 24     # ... each listed this often in the train split
+NATIVE_WORKERS = 4
+NATIVE_BATCHES = 10     # timed batches of 8 after one warm-up batch
+
+
+def classifier_plan(model) -> dict:
+    """Each kernel's launches in one eval forward of the classifier ``model``
+    as ``mvit.block_route`` routes its blocks."""
+    plan = {name: 0 for name in PER_FORWARD}
+    thw = model.spec.patch_dims
+    for b in model.spec.blocks:
+        route = tmvit.block_route(b, None, thw)
+        if route in WHOLE_BLOCKS:
+            plan[route] += 1
+        else:
+            plan["attention"] += 1
+            plan["mlp_tail"] += 1
+        if b.pool_q_on:
+            thw = tmvit._static_pool_out(thw, b.kernel_q, b.stride_q, b.padding_q)
+    return plan
+
+
+def classifier_logits_check(got: torch.Tensor, ref: torch.Tensor) -> dict:
+    """bf16 logits against the fp32 plain twins' on the same inputs: max|Δ|,
+    the class softmax's max|Δ| and the top class where the top-2 gap
+    exceeds twice the error."""
+    got, ref = got.float(), ref.float()
+    err = float((got - ref).abs().max())
+    scale = max(1.0, float(ref.abs().max()))
+    dsm = float((got.softmax(-1) - ref.softmax(-1)).abs().max())
+    top2 = ref.topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 2 * err
+    agree = int((got.argmax(-1) == ref.argmax(-1))[decided].sum())
+    ok = (err <= CLASSIFIER_LOGIT_BAR * scale and dsm < CLASSIFIER_SOFTMAX_BAR
+          and agree == int(decided.sum()) and bool(torch.isfinite(got).all()))
+    return {"ok": ok, "max_abs_diff": err, "bar": CLASSIFIER_LOGIT_BAR * scale,
+            "softmax_max_abs_diff": dsm, "decided": int(decided.sum()), "top1_agree": agree}
+
+
+def classifier_run(cls: bool, rng: np.random.Generator) -> dict:
+    """10a/10b: the classifier with the cls token on or off."""
+    from csts_torch.models.build import build_model
+    from csts_torch.models.mvit_classifier import MViT, build_mvit_spec
+    from csts_torch.presets import mvit_b_16x4_cfg
+
+    tag = "cls" if cls else "no_cls"
+    cfg = mvit_b_16x4_cfg()
+    cfg.MVIT.CLS_EMBED_ON = cls
+    cfg.TRAIN.MIXED_PRECISION = True
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda").to(torch.bfloat16).eval()
+    build_s = time.perf_counter() - t0
+    cfg32 = copy.deepcopy(cfg)
+    cfg32.TRAIN.MIXED_PRECISION = False
+    ref = MViT(build_mvit_spec(cfg32))
+    ref.load_state_dict(model.state_dict())  # the same (bf16-rounded) weights in fp32
+    ref = ref.cuda().eval()
+    plan = classifier_plan(model)
+    want = {name: 0 for name in PER_FORWARD}
+    want.update(CLASSIFIER_PLAN[cls])
+    log(f"phase classifier {tag}: build_model {sum(p.numel() for p in model.parameters()) / 1e6:.2f}M "
+        f"params in {build_s:.2f} s; block_route's plan {plan}")
+    assert plan == want, (plan, want)
+    spec = model.spec
+    res = {"plan": plan, "build_s": build_s, "batches": {}}
+    calls_by_bucket = {}
+    for batch in CLASSIFIER_BATCHES:
+        video = torch.from_numpy(rng.standard_normal(
+            (batch, spec.num_frames, spec.crop_size, spec.crop_size, 3), dtype=np.float32)).cuda()
+        calls = {name: {} for name in KERNELS}
+        with torch.inference_mode():
+            with recording(calls):
+                model(video)
+            torch.cuda.synchronize()
+            logits, launches = _forward_launches(lambda: model(video))
+            with plain_twins():
+                ref_logits = ref(video)
+        recorded = {n: sum(c for c, _, _ in sigs.values()) for n, sigs in calls.items()}
+        chk = classifier_logits_check(logits, ref_logits)
+        log(f"phase classifier {tag} batch {batch}: launches {launches} (recorded "
+            f"{recorded}); logits {tuple(logits.shape)} max|Δ| {chk['max_abs_diff']:.4g} "
+            f"(bar {chk['bar']:.4g}) against the fp32 plain twins, class softmax max|Δ| "
+            f"{chk['softmax_max_abs_diff']:.3g}, top-1 agrees on {chk['top1_agree']}/"
+            f"{chk['decided']} decided clips")
+        assert launches == plan and recorded == {n: plan[n] for n in calls}, (launches, recorded)
+        assert chk["ok"], chk
+        assert tuple(logits.shape) == (batch, spec.num_classes)
+        calls_by_bucket[batch] = calls
+        row = {"launches": launches, "logits": chk}
+        if batch == max(CLASSIFIER_BATCHES):
+            with torch.inference_mode():
+                fwd_ms = time_ms(lambda: model(video), target_s=CLASSIFIER_FORWARD_S)
+                prof = profile_forward(lambda: model(video), fwd_ms, log=log)
+            row.update(ms=fwd_ms, clips_per_s=batch * 1e3 / fwd_ms, profile=prof)
+            log(f"phase classifier {tag} batch {batch}: forward {fwd_ms:.3f} ms (events) = "
+                f"{row['clips_per_s']:.2f} clips/s, device busy {prof['device_busy_ms']:.3f} ms "
+                f"over {prof['device_kernels']} activities ({CARD})")
+        res["batches"][batch] = row
+        del video, logits, ref_logits
+    del model, ref
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        res["kernels"] = check_kernels(calls_by_bucket, timing="device")
+    # a batch-8 forward's share of each kernel: device ms, the library
+    # call's and the bound, summed over its shapes times their launches
+    per = {}
+    for name, rep in res["kernels"].items():
+        rows = [r for r in rep["shapes"] if "device_ms" in r]
+        if rows:
+            tot = lambda key: sum((r[key] or 0.0) * r["launches_per_forward"]  # noqa: E731
+                                  for r in rows)
+            per[name] = {"launches": sum(r["launches_per_forward"] for r in rows),
+                         "device_ms": tot("device_ms"), "bound_ms": tot("bound_ms"),
+                         "library_device_ms": (tot("library_device_ms")
+                                               if KERNELS[name]["library"] else None)}
+    res["per_forward"] = per
+    log(f"phase classifier {tag}: a batch-8 forward's kernels, device ms (library device ms, "
+        "bound ms): " + "; ".join(
+            f"{n} x{p['launches']} {p['device_ms']:.4f} ({p['library_device_ms']}, "
+            f"{p['bound_ms']:.4f})" for n, p in per.items()) + f" ({CARD})")
+    return res
+
+
+def native_check(rng: np.random.Generator) -> dict:
+    """10c: the native loader ops (g++ at first use) bit-equal to their numpy
+    twins at the flagship loader's shapes, and ``benchmark_data_loading``
+    on a synthetic train split with NATIVE_WORKERS workers."""
+    from csts_torch import native
+    from csts_torch.data.synthetic import write_dataset
+    from csts_torch.native import build as nbuild
+    from csts_torch.native import twins
+    from csts_torch.utils.misc import benchmark_data_loading
+
+    t0 = time.perf_counter()
+    so = nbuild.build()
+    build_s = time.perf_counter() - t0
+    frames = rng.integers(0, 256, (8, 256, 320, 3), dtype=np.uint8)
+    gaze = rng.uniform(-0.1, 1.1, (8, 3)).astype(np.float32)
+    audio = rng.standard_normal((256, 2000)).astype(np.float32)
+    centers = np.sort(rng.integers(128, 2000 - 128, 8))
+    mean, std = [0.45] * 3, [0.225] * 3
+    cases = {
+        "crop_flip_normalize_uint8": lambda m: m.fused_crop_flip_normalize(
+            frames, 0, 32, 256, True, mean, std),
+        "crop_flip_normalize_f32": lambda m: m.fused_crop_flip_normalize(
+            frames.astype(np.float32) / 255.0, 0, 10, 256, False, mean, std),
+        "gaze_heatmaps": lambda m: m.gaze_heatmaps(gaze, 8, 64, 64, 19),
+        "audio_slice_gather": lambda m: m.audio_slice_gather(audio, centers, 128),
+    }
+    res = {"build_s": build_s, "library": os.path.relpath(so, ROOT), "ops": {}}
+    for name, run in cases.items():
+        got, want = run(native), run(twins)
+        equal = bool(np.array_equal(got, want))
+        reps = 5
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            run(native)
+        native_ms = (time.perf_counter() - t0) / reps * 1e3
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            run(twins)
+        twin_ms = (time.perf_counter() - t0) / reps * 1e3
+        res["ops"][name] = {"bit_equal": equal, "native_ms": native_ms, "twin_ms": twin_ms}
+        assert equal, name
+    log(f"phase classifier native: loader ops built in {build_s:.2f} s ({res['library']}); "
+        + "; ".join(f"{n} bit-equal {r['bit_equal']}, native {r['native_ms']:.3f} ms vs numpy "
+                    f"twin {r['twin_ms']:.3f} ms (host)" for n, r in res["ops"].items()))
+    with tempfile.TemporaryDirectory() as root:
+        prefix, splits = write_dataset(root, "ego4d", num_clips=NATIVE_CLIPS, res=(256, 320),
+                                       seed=int(rng.integers(1 << 30)))
+        train_csv = os.path.join(splits, "train_ego4d_gaze.csv")
+        with open(train_csv) as f:
+            clips = f.read().splitlines()
+        with open(train_csv, "w") as f:
+            f.write("\n".join(clips * NATIVE_REPEATS) + "\n")
+        cfg = flagship_cfg()
+        cfg.DATA.PATH_PREFIX, cfg.DATA.PATH_TO_DATA_DIR = prefix, splits
+        cfg.DATA.DECODING_BACKEND = "npy"
+        cfg.TRAIN.BATCH_SIZE = 8
+        cfg.DATA_LOADER.NUM_WORKERS = NATIVE_WORKERS
+        stats = benchmark_data_loading(cfg, NATIVE_BATCHES)
+    log(f"phase classifier loader: benchmark_data_loading {stats['batches']} batches of "
+        f"{stats['batch_size']} at {NATIVE_WORKERS} workers: {stats['clips_per_sec']:.2f} clips/s, "
+        f"{stats['batches_per_sec']:.3f} batches/s (host, {os.cpu_count()} cores)")
+    assert stats["batches"] == NATIVE_BATCHES and stats["clips_per_sec"] > 0, stats
+    res["benchmark_data_loading"] = stats
+    return res
+
+
+def classifier_phase(rng: np.random.Generator) -> dict:
+    """Phase 10: the MViT-B 16x4 classifier family, then the native loader
+    ops."""
+    t_phase = time.perf_counter()
+    res = {tag: classifier_run(cls, rng) for tag, cls in (("cls", True), ("no_cls", False))}
+    res["native"] = native_check(rng)
+    res["s"] = time.perf_counter() - t_phase
+    log(f"phase classifier: {res['s']:.2f} s")
+    return res
+
+
 def parallel_only(t_start: float, audit: ProcessAudit) -> int:
     """``--parallel``: the build, then phase 8 alone (its JSON to
     ``chiprun_out/chip_smoke_parallel.json``), then the card and result
@@ -3401,6 +3652,19 @@ def main() -> int:
     audit.at("surface")
     surface = surface_phase(rng, audit)
 
+    # --- phase 10: the MViT-B 16x4 classifier, the native loader ops ------------
+    audit.at("classifier")
+    classifier = classifier_phase(rng)
+
+    # the classifier's launches a forward and device ms a forward, at batch 8
+    # with the cls token (the published MViT-B 16x4) and without it
+    cls_launches = {tag: classifier[tag]["batches"][max(CLASSIFIER_BATCHES)]["launches"]
+                    for tag in ("cls", "no_cls")}
+
+    def classifier_device(tag: str, name: str):
+        per = classifier[tag]["per_forward"].get(name)
+        return per["device_ms"] if per else None
+
     kernels = []
     for name, k in ALL_KERNELS.items():
         if name in KERNELS:
@@ -3433,6 +3697,11 @@ def main() -> int:
             "composite_ms": per("composite_ms") if name in WHOLE_BLOCKS else None,
             "block_device_ms": per("block_device_ms") if name in WHOLE_BLOCKS else None,
             "composite_device_ms": per("composite_device_ms") if name in WHOLE_BLOCKS else None,
+            # phase 10: launches and device ms a batch-8 classifier forward
+            "launches_classifier": cls_launches["cls"].get(name, 0),
+            "launches_classifier_no_cls": cls_launches["no_cls"].get(name, 0),
+            "classifier_device_ms": classifier_device("cls", name),
+            "classifier_no_cls_device_ms": classifier_device("no_cls", name),
         })
     for name, k in B9_KERNELS.items():
         res = {"hw2_upsample": hw2, "block_multihead": blocks}[name]
@@ -3456,6 +3725,8 @@ def main() -> int:
             "block_ms": res.get("block_ms"), "composite_ms": res.get("composite_ms"),
             "block_device_ms": res.get("block_device_ms"),
             "composite_device_ms": res.get("composite_device_ms"),
+            "launches_classifier": 0, "launches_classifier_no_cls": 0,
+            "classifier_device_ms": None, "classifier_no_cls_device_ms": None,
         })
     # yardsticks beside the kernels: cuBLAS's products alone at K2's and B7's
     # sites, SDPA's backward at B8's, B3's and B4's blocks against the same
@@ -3504,7 +3775,7 @@ def main() -> int:
                    "train": train, "train_per_shape": train_report,
                    "train_fp32_step": whole_step, "widths": widths, "eval": evals,
                    "trainer": trainer, "parallel": parallel, "surface": surface,
-                   "processes": processes}, f, indent=1,
+                   "classifier": classifier, "processes": processes}, f, indent=1,
                   default=str)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

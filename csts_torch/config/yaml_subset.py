@@ -17,6 +17,10 @@ Anything else (block sequences, flow maps, anchors, tags, multi-line
 scalars, hex/octal/sexagesimal ints, timestamps, duplicate keys, tabs)
 raises :class:`YamlSubsetError` with the line number rather than being
 read some other way.
+
+:func:`dump` writes a dict in the same subset (sorted keys, block maps, flow
+lists, each scalar in a form that both this reader and PyYAML read back as
+the same value), for ``python -m csts_torch.config``.
 """
 
 from __future__ import annotations
@@ -246,3 +250,71 @@ def load(source: str) -> Optional[dict]:
 def load_file(path: str) -> Optional[dict]:
     with open(path, "r") as f:
         return load(f.read())
+
+
+def _scalar(value: Any, flow: bool) -> str:
+    """``value`` written so that it reads back equal (in a flow list when
+    ``flow``)."""
+    if value is None:
+        return "null"
+    if isinstance(value, bool):
+        return "true" if value else "false"
+    if isinstance(value, int):
+        text = str(value)
+    elif isinstance(value, float):
+        if value != value:
+            return ".nan"
+        if value in (float("inf"), float("-inf")):
+            return ".inf" if value > 0 else "-.inf"
+        text = repr(value)
+        mantissa, e, exp = text.partition("e")
+        if "." not in mantissa:
+            text = f"{mantissa}.0{e}{exp}"
+    elif isinstance(value, str):
+        text = value
+    else:
+        raise YamlSubsetError(f"{type(value).__name__} {value!r} is outside the subset")
+    if not _reads_back(text, value, flow):
+        if not isinstance(value, str) or "\n" in value:
+            raise YamlSubsetError(f"{value!r} has no form in the subset")
+        text = "'" + value.replace("'", "''") + "'"
+    return text
+
+
+def _reads_back(text: str, value: Any, flow: bool) -> bool:
+    try:
+        got = load(f"k: [{text}]" if flow else f"k: {text}")
+    except YamlSubsetError:
+        return False
+    got = got["k"]
+    if flow:
+        if len(got) != 1:
+            return False
+        got = got[0]
+    return type(got) is type(value) and got == value
+
+
+def _flow(value: list) -> str:
+    return "[" + ", ".join(_flow(v) if isinstance(v, (list, tuple)) else _scalar(v, True)
+                           for v in value) + "]"
+
+
+def dump(data: dict, indent: int = 0) -> str:
+    """``data`` (nested dicts of scalars and lists, string keys) as YAML in
+    the subset, keys sorted, two spaces an indent level. A value outside the
+    subset (an empty dict, a dict in a list, another type) raises."""
+    lines = []
+    for key in sorted(data):
+        value = data[key]
+        if not isinstance(key, str) or not _KEY.match(key):
+            raise YamlSubsetError(f"key {key!r} is outside the subset")
+        pad = " " * indent
+        if isinstance(value, dict):
+            if not value:
+                raise YamlSubsetError(f"{key}: an empty map has no form in the subset")
+            lines.append(f"{pad}{key}:\n" + dump(value, indent + 2))
+        elif isinstance(value, (list, tuple)):
+            lines.append(f"{pad}{key}: {_flow(value)}\n")
+        else:
+            lines.append(f"{pad}{key}: {_scalar(value, False)}\n")
+    return "".join(lines)

@@ -4,7 +4,9 @@ The port's own copy of the layout rules of ``csts_tpu/convert/to_torch.py``
 (the port imports nothing of the JAX package): it takes the channels-last
 param tree ``csts_init`` builds and the npz checkpoints hold (leaves as numpy
 arrays) and emits tensors under the reference's module names, which are the
-port's, so ``CSTS.load_state_dict(sd, strict=True)`` takes it.
+port's, so ``CSTS.load_state_dict(sd, strict=True)`` takes it;
+:func:`mvit_state_dict_from_jax` does the same for the classifier's tree
+(``mvit_init``) and ``MViT``.
 
 * Linear   w (in, out)          -> (out, in)              [transpose]
 * Conv3d   w (kT,kH,kW, I/g, O) -> (O, I/g, kT,kH,kW)     [transpose(4,3,0,1,2)]
@@ -100,4 +102,21 @@ def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
             _block(out, f"decode_block{i}", params[f"decode_block{i}"], upsample=True)
     if "classifier" in params:
         _conv(out, "classifier", params["classifier"])
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in out.items()}
+
+
+def mvit_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX MViT classifier param tree (``mvit_init``, numpy leaves) -> fp32
+    ``state_dict`` of :class:`csts_torch.models.mvit_classifier.MViT`, in
+    PySlowFast's MViT names."""
+    out: Dict[str, np.ndarray] = {}
+    _conv(out, "patch_embed.proj", params["patch_embed"])
+    for name in ("cls_token", "pos_embed_spatial", "pos_embed_temporal", "pos_embed_class",
+                 "pos_embed"):
+        if name in params:
+            out[name] = _np(params[name])
+    for i, blk in enumerate(params["blocks"]):
+        _block(out, f"blocks.{i}", blk)
+    _norm(out, "norm", params["norm"])
+    _linear(out, "head.projection", params["head"])
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in out.items()}

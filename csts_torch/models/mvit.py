@@ -26,7 +26,10 @@ JAX's ``_attention_core`` with ``need_attn``) in place of K1, at eval and in
 training, as JAX's predicates leave every whole-block route then. The
 kernels are called through their modules (``ka.fused_attention`` ...) so a
 check can swap in the plain versions on the card. The dispatch depends on
-the model and its mode only, never on the device.
+the model and its mode only, never on the device. A block of the MViT
+classifier (``has_cls``) pools with its leading cls token bypassing the
+pools (JAX's ``pool_heads_conv`` and ``pool_tokens_max``) and takes K1+K2:
+B3 and B4 refuse the token, as JAX's predicates do.
 """
 
 from __future__ import annotations
@@ -155,10 +158,17 @@ def _pool_heads(
     padding,
     transposed: bool = False,
     output_padding=(0, 0, 0),
+    has_cls: bool = False,
 ) -> Tuple[torch.Tensor, THW]:
     """Per-head depthwise (transposed) conv over (B·N, T, H, W, hd) and the
     pool norm at eps 1e-5 (attention.py:11-49 attention_pool and :251-289
-    attention_upsample; the reference hard-codes torch's default eps there)."""
+    attention_upsample; the reference hard-codes torch's default eps there).
+    With ``has_cls`` the leading token bypasses the pool and is prepended
+    again before the norm (attention.py:24-43; ``csts_tpu/models/mvit.py``
+    ``pool_heads_conv``)."""
+    cls_tok = None
+    if has_cls:
+        cls_tok, x = x[:, :, :1], x[:, :, 1:]
     b, n, l, hd = x.shape
     # one copy of the head views into NCDHW memory, read through a
     # channels-last view (the convs' layout) without another
@@ -169,15 +179,26 @@ def _pool_heads(
         out = ops.depthwise_conv3d(grid, conv.weight, stride, padding)
     new_thw = tuple(int(s) for s in out.shape[1:4])
     out = out.reshape(b, n, -1, hd)
+    if cls_tok is not None:
+        out = torch.cat([cls_tok, out], dim=2)
     return ops.layer_norm(out, norm.weight, norm.bias, eps=1e-5), new_thw
 
 
-def pool_tokens_max(x: torch.Tensor, thw: THW, kernel, stride, padding) -> Tuple[torch.Tensor, THW]:
-    """MaxPool3d on (B, L, C) tokens — the encoder's residual skip (attention.py:234-241)."""
+def pool_tokens_max(x: torch.Tensor, thw: THW, kernel, stride, padding,
+                    has_cls: bool = False) -> Tuple[torch.Tensor, THW]:
+    """MaxPool3d on (B, L, C) tokens — the encoder's residual skip
+    (attention.py:234-241); with ``has_cls`` the leading token bypasses the
+    pool and leads the output."""
+    cls_tok = None
+    if has_cls:
+        cls_tok, x = x[:, :1], x[:, 1:]
     b, l, c = x.shape
     pooled = ops.max_pool3d(x.reshape(b, *thw, c), kernel, stride, padding)
     new_thw = tuple(int(s) for s in pooled.shape[1:4])
-    return pooled.reshape(b, -1, c), new_thw
+    pooled = pooled.reshape(b, -1, c)
+    if cls_tok is not None:
+        pooled = torch.cat([cls_tok, pooled], dim=1)
+    return pooled, new_thw
 
 
 def upsample_tokens_trilinear(x: torch.Tensor, thw: THW, stride, train: bool = False,
@@ -426,7 +447,8 @@ class MultiScaleAttention(nn.Module):
     def __init__(self, spec: AttentionSpec):
         super().__init__()
         assert spec.mode == "conv", "only 'conv' pooling mode is exercised by CSTS"
-        assert not spec.has_cls, "CSTS runs without a cls token"
+        # the reference's upsample path has no cls token (attention.py:251-289)
+        assert not (spec.has_cls and spec.upsample_q), "an upsample-Q block has no cls token"
         self.spec = spec
         hd = spec.head_dim
         self.qkv = nn.Linear(spec.dim, 3 * spec.dim, bias=spec.qkv_bias)
@@ -460,8 +482,10 @@ class MultiScaleAttention(nn.Module):
         kv = proj[..., -2 * s.dim:].reshape(b, l, 2, s.num_heads, s.head_dim)
         k, v = kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2)
         if s.pool_kv_on:
-            k, _ = _pool_heads(k, self.pool_k, self.norm_k, thw, s.stride_kv, s.padding_kv)
-            v, _ = _pool_heads(v, self.pool_v, self.norm_v, thw, s.stride_kv, s.padding_kv)
+            k, _ = _pool_heads(k, self.pool_k, self.norm_k, thw, s.stride_kv, s.padding_kv,
+                               has_cls=s.has_cls)
+            v, _ = _pool_heads(v, self.pool_v, self.norm_v, thw, s.stride_kv, s.padding_kv,
+                               has_cls=s.has_cls)
         return (proj[..., :s.dim] if with_q else None), k, v
 
     def forward(
@@ -482,7 +506,8 @@ class MultiScaleAttention(nn.Module):
                                        s.padding_q, transposed=True,
                                        output_padding=s.output_padding_q)
             else:
-                q, q_thw = _pool_heads(q, self.pool_q, self.norm_q, thw, s.stride_q, s.padding_q)
+                q, q_thw = _pool_heads(q, self.pool_q, self.norm_q, thw, s.stride_q, s.padding_q,
+                                       has_cls=s.has_cls)
         attn = None
         if return_attn:
             out, attn = attention_probs(q, k, v, s.scale, mask)
@@ -601,7 +626,7 @@ class MultiScaleBlock(nn.Module):
                                              decoder_kernel=decoder_kernel)[0]
         if s.skip_pool_on:
             pad = tuple(int(k // 2) for k in s.skip_kernel)
-            return pool_tokens_max(x, thw, s.skip_kernel, s.stride_q, pad)[0]
+            return pool_tokens_max(x, thw, s.skip_kernel, s.stride_q, pad, s.has_cls)[0]
         return x
 
     def forward_composite(

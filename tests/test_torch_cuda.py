@@ -1379,3 +1379,131 @@ def test_two_ranks_on_one_card_need_gloo(gen, tmp_path):
     refused = len(got["nccl"]) < 2 or any(v != "ok" for r in got["nccl"].values()
                                           for v in r.values())
     assert refused, got
+
+
+# ----------------------------------------------------------------------------------
+# the MViT classifier: K1, K2 and B3 at its shapes (ragged key counts, the cls
+# row, odd row counts) and the small classifier through the kernels
+# ----------------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("b,n,lq,lk", [
+    (1, 4, 1569, 1569),   # v3 with the cls token at batch 1: two key splits, a ragged chunk
+    (1, 8, 393, 1569),    # v14: four key splits
+    (2, 2, 6273, 393),    # v2: seven chunks, the last of 9 keys
+    (1, 1, 25089, 393),   # v0
+])
+def test_attention_classifier_shapes(gen, b, n, lq, lk):
+    hd = 96
+    q, k, v = _randn(gen, b, n, lq, hd), _randn(gen, b, n, lk, hd), _randn(gen, b, n, lk, hd)
+    _check("attention", ka.fused_attention, ka.fused_attention_plain, [q, k, v, hd ** -0.5])
+    splits = ka.key_splits(b * n, lq, lk, torch.cuda.get_device_properties(0).multi_processor_count)
+    if splits > 1:
+        with torch.inference_mode():
+            q16, k16, v16 = q.bfloat16(), k.bfloat16(), v.bfloat16()
+            got = ka.fused_attention(q16, k16, v16, hd ** -0.5)
+            want = ka.fused_attention_split_plain(q16, k16, v16, hd ** -0.5, splits)
+        assert float((got.float() - want.float()).abs().max()) <= split_bar(want)
+
+
+@pytest.mark.parametrize("m,c,cout", [(25089, 96, 192), (6273, 192, 384), (393, 768, 768)])
+def test_mlp_tail_classifier_rows(gen, m, c, cout):
+    """K2 at the classifier's odd row counts (its blocks' L + 1 with the cls token)."""
+    h = 4 * c
+    args = [_randn(gen, 1, m, c), 1 + _randn(gen, c, scale=0.1), _randn(gen, c, scale=0.1),
+            _randn(gen, h, c, scale=c ** -0.5), _randn(gen, h, scale=0.1),
+            _randn(gen, cout, h, scale=h ** -0.5), _randn(gen, cout, scale=0.1)]
+    if c != cout:
+        args += [_randn(gen, cout, c, scale=c ** -0.5), _randn(gen, cout, scale=0.1)]
+    _check("mlp_tail", kb.fused_mlp_tail, kb.fused_mlp_tail_plain, args)
+
+
+@pytest.mark.parametrize("b,l,c,cout,heads,lk", [
+    (1, 25088, 96, 192, 1, 392),    # the classifier's v0 without the cls token
+    (1, 6272, 192, 384, 2, 392),    # its v2
+])
+def test_block_classifier_shapes(gen, b, l, c, cout, heads, lk):
+    hd = c // heads
+    k, v = _kv(gen, b, heads, lk, hd)
+    args = [_randn(gen, b, l, c), k, v, hd ** -0.5, 1 + _randn(gen, c, scale=0.1),
+            _randn(gen, c, scale=0.1), _randn(gen, c, c, scale=c ** -0.5),
+            _randn(gen, c, scale=0.1)] + _tail(gen, c, cout, 4 * c)
+    _check("block", kb.fused_block, kb.fused_block_plain, args)
+
+
+def _small_classifier_cfg(cls: bool, crop: int):
+    """tests/test_mvit_classifier.py's small classifier (8 frames, depth 4,
+    width 16) at crop ``crop``, cls token on or off."""
+    from csts_torch.config import get_cfg
+
+    cfg = get_cfg()
+    cfg.DATA.TRAIN_CROP_SIZE = cfg.DATA.TEST_CROP_SIZE = crop
+    cfg.DATA.NUM_FRAMES = 8
+    cfg.MVIT.PATCH_PADDING = [1, 3, 3]
+    cfg.MVIT.CLS_EMBED_ON = cls
+    cfg.MVIT.SEP_POS_EMBED = True
+    cfg.MVIT.DEPTH = 4
+    cfg.MVIT.EMBED_DIM = 16
+    cfg.MVIT.DIM_MUL = [[1, 2.0], [2, 2.0], [3, 2.0]]
+    cfg.MVIT.HEAD_MUL = [[1, 2.0], [2, 2.0], [3, 2.0]]
+    cfg.MVIT.POOL_KVQ_KERNEL = [3, 3, 3]
+    cfg.MVIT.POOL_KV_STRIDE_ADAPTIVE = [1, 4, 4]
+    cfg.MVIT.POOL_Q_STRIDE = [[1, 1, 2, 2], [2, 1, 2, 2], [3, 1, 2, 2]]
+    cfg.MODEL.MODEL_NAME = "MVIT"
+    cfg.MODEL.NUM_CLASSES = 11
+    cfg.TRAIN.MIXED_PRECISION = True
+    return cfg
+
+
+@pytest.mark.parametrize("crop", [48, 80])
+@pytest.mark.parametrize("cls", [True, False], ids=["cls", "no_cls"])
+def test_small_classifier_through_kernels(gen, cls, crop):
+    """The small classifier's bf16 forward from ``build_model`` through the
+    kernels (ragged key counts: 37 and 101 keys at v0 with the cls token, 36
+    and 100 without) against the fp32 plain twins: the launches as
+    ``block_route`` plans them (with the cls token K1+K2 at every block;
+    without it B3 at v0, the one identity-skip block, and B4 at the three
+    Q-pool blocks, whose keys stay few at this size), each recorded launch
+    against its plain twin at the card's bars (``chip_smoke.check_kernels``),
+    the logits within 0.05 of the largest and the top class equal where
+    decided."""
+    import copy
+
+    import numpy as np
+
+    from chip_smoke import WRAPPERS, check_kernels, classifier_plan, recording, reset_launches
+    from csts_torch.models.build import build_model
+    from csts_torch.models.mvit_classifier import MViT, build_mvit_spec
+    from csts_torch.tools import plain_twins
+
+    cfg = _small_classifier_cfg(cls, crop)
+    model = build_model(cfg, device="cuda").to(torch.bfloat16).eval()
+    cfg32 = copy.deepcopy(cfg)
+    cfg32.TRAIN.MIXED_PRECISION = False
+    ref = MViT(build_mvit_spec(cfg32))
+    ref.load_state_dict(model.state_dict())
+    ref = ref.cuda().eval()
+    plan = classifier_plan(model)
+    assert plan["block"] == plan["pool_block"] // 3 == (0 if cls else 1)
+    assert plan["attention"] + plan["block"] + plan["pool_block"] == 4
+    video = torch.from_numpy(
+        np.random.default_rng(crop).standard_normal((3, 8, crop, crop, 3), dtype=np.float32)).cuda()
+    calls = {name: {} for name in ("attention", "mlp_tail", "block", "pool_block")}
+    with torch.inference_mode():
+        with recording(calls):
+            model(video)
+        reset_launches()
+        logits = model(video).float()
+        torch.cuda.synchronize()
+        launches = {name: WRAPPERS[name].launches for name in plan}
+        with plain_twins():
+            want = ref(video)
+    assert launches == plan, (launches, plan)
+    assert {n: sum(c for c, _, _ in sigs.values()) for n, sigs in calls.items()} == {
+        n: plan[n] for n in calls}
+    check_kernels({3: calls}, timing=None)
+    err = float((logits - want).abs().max())
+    assert err <= 0.05 * max(1.0, float(want.abs().max())), err
+    top2 = want.topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 2 * err
+    assert bool((logits.argmax(-1) == want.argmax(-1))[decided].all())

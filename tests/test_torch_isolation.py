@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX package,
-nor OpenCV, nor PIL (the card's machine has neither), nor PyYAML, and it
-never drops to the CPU without being asked to."""
+nor OpenCV, nor PIL, nor matplotlib (the card's machine has none of them),
+nor PyYAML, and it never drops to the CPU without being asked to."""
 
 import ast
 import os
@@ -26,7 +26,15 @@ PORT_FILES = sorted(
     for d, _, files in os.walk(os.path.join(REPO, "csts_torch"))
     for f in files if f.endswith(".py")
 ) + [os.path.join(REPO, "chip_smoke.py")]
-FORBIDDEN = ("jax", "jaxlib", "csts_tpu", "cv2", "PIL")
+FORBIDDEN = ("jax", "jaxlib", "csts_tpu", "cv2", "PIL", "matplotlib")
+# the model and host modules of the classifier slice, which the walk must reach
+NEW_MODULES = (
+    "csts_torch.models.build", "csts_torch.models.mvit_classifier", "csts_torch.models.batchnorm",
+    "csts_torch.eval.class_metrics", "csts_torch.native.build", "csts_torch.native.ops",
+    "csts_torch.native.twins", "csts_torch.config.__main__", "csts_torch.convert.from_caffe2",
+    "csts_torch.tools.benchmark_loader", "csts_torch.tools.bench_loader_scaling",
+    "csts_torch.tools.plot_logs",
+)
 
 
 def _env(**extra):
@@ -51,6 +59,7 @@ def test_import_leaves_jax_and_csts_tpu_out():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert len(mods) >= 15, mods
+    assert set(NEW_MODULES) <= set(mods), sorted(set(NEW_MODULES) - set(mods))
 
 
 def _imports(path):

@@ -571,3 +571,26 @@ def step_worker(rank: int, inputs: str, out: str, modes, device: str = "cpu") ->
         res["dtensor"] = any(isinstance(p, collectives.DTensor) for p in named.values())
         if rank == 0:
             torch.save(res, os.path.join(out, f"{mode}.pt"))
+
+
+# ----------------------------------------------------------------------------------
+# synchronised BatchNorm (the worker of tests/test_torch_batchnorm.py)
+# ----------------------------------------------------------------------------------
+
+
+def sync_bn_worker(rank: int, inputs: str, out: str) -> None:
+    """BatchNorm with ``sync`` on this rank's stripe of the global batch in
+    ``inputs``: the output, the new state and the gradient of a loss that
+    weighs each element, saved to ``out``-rank.npz."""
+    from csts_torch.models import batchnorm as bn
+
+    data = np.load(inputs)
+    x = torch.from_numpy(stripe({"x": data["x"]}, rank)["x"]).requires_grad_()
+    c = x.shape[-1]
+    params = {"scale": torch.from_numpy(data["scale"]), "bias": torch.from_numpy(data["bias"])}
+    state = bn.bn_state_init(c)
+    y, new_state = bn.batch_norm(params, state, x, training=True, sync=True)
+    weight = torch.from_numpy(stripe({"w": data["w"]}, rank)["w"])
+    (y * weight).sum().backward()
+    np.savez(f"{out}-{rank}.npz", y=y.detach().numpy(), mean=new_state["mean"].detach().numpy(),
+             var=new_state["var"].detach().numpy(), grad=x.grad.numpy())
