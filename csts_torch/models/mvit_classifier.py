@@ -54,11 +54,6 @@ class MViTSpec:
     def compute_dtype(self) -> torch.dtype:
         return torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
 
-    @property
-    def video_blocks(self) -> Tuple[AttentionSpec, ...]:
-        """The blocks under the name ``ops.sample_drop_masks`` reads."""
-        return self.blocks
-
 
 def build_mvit_spec(cfg: Config) -> MViTSpec:
     """The CSTS derivation of the video blocks' trajectory
@@ -134,10 +129,10 @@ class MViT(nn.Module):
         """video: (B, T, H, W, C) -> (B, num_classes) logits, activations in
         ``spec.compute_dtype`` (JAX's ``mvit_apply``). In training
         (``module.train()``): ``drop``, one entry per block from
-        ``ops.sample_drop_masks`` (None: no stochastic depth), and the head's
-        dropout mask drawn from ``generator`` (a CPU generator, so the mask
-        does not depend on the device), required while MODEL.DROPOUT_RATE
-        is above 0."""
+        ``ops.sample_drop_masks(spec.blocks, ...)`` (None: no stochastic
+        depth), and the head's dropout mask drawn from ``generator`` (a CPU
+        generator, so the mask does not depend on the device), required
+        while MODEL.DROPOUT_RATE is above 0."""
         spec = self.spec
         cdt = spec.compute_dtype
         x = self.patch_embed(video.to(cdt))

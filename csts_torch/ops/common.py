@@ -9,7 +9,7 @@ JAX package rounds the product and then adds: at most one bf16 ulp apart.
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -43,16 +43,17 @@ def drop_path(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 
 def sample_drop_masks(
-    spec, batch: int, generator: torch.Generator, device=None
+    blocks: Sequence, batch: int, generator: torch.Generator, device=None
 ) -> List[Optional[Tuple[torch.Tensor, torch.Tensor]]]:
-    """Per video block of ``spec`` (a ``CSTSSpec``), the stochastic-depth
+    """Per block of ``blocks`` (``AttentionSpec``s: a ``CSTSSpec``'s
+    ``video_blocks``, an ``MViTSpec``'s ``blocks``), the stochastic-depth
     masks of one training step: None where the block's rate is 0, else
     (attention-branch mask, MLP-branch mask), each fp32 (batch,) of
     bernoulli(1 - rate) / (1 - rate). Drawn from ``generator`` (a CPU
     generator, so the masks do not depend on the device) and moved to
     ``device``. The audio, fusion and decoder blocks have rate 0."""
     masks: List[Optional[Tuple[torch.Tensor, torch.Tensor]]] = []
-    for blk in spec.video_blocks:
+    for blk in blocks:
         if blk.drop_path == 0.0:
             masks.append(None)
             continue

@@ -243,7 +243,8 @@ def make_train_step(cfg: Config, spec: CSTSSpec, steps_per_epoch: int,
             raise ValueError(f"batch of {rows} does not split into {accum_steps} micro-batches")
         if drop is None:
             device = next(state.model.parameters()).device
-            drop = [ops.sample_drop_masks(spec, rows * world // accum_steps, generator, device)
+            drop = [ops.sample_drop_masks(spec.video_blocks, rows * world // accum_steps,
+                                          generator, device)
                     for _ in range(accum_steps)]
         elif accum_steps == 1:
             drop = [drop]

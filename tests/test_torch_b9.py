@@ -310,3 +310,97 @@ def test_window_losses_counts_a_lost_prefix(tmp_path):
     rows = json.loads(out.read_text())["windows"]
     assert [r["margin_ms"] for r in rows] == [0.0, profile_forward.WINDOW_MARGIN_S * 1e3]
     assert all(r["windows"] == 2 and r["differ"] == 0 for r in rows)
+
+
+def test_agreed_reading_takes_two_whole_windows_that_agree():
+    calls = 20
+    windows = [(0.0, {}, 0),                     # no activity at all
+               (0.5, {"k": 15}, 5),              # a lost prefix: not whole calls
+               (1.0, {"k": 20, "m": 40}, 0),
+               (0.8, {"k": 20, "m": 40}, 1),     # whole calls, but a launch lost
+               (1.1, {"k": 20}, 0),              # whole, but other counts
+               (0.9, {"k": 20, "m": 40}, 0),     # agrees with the third
+               (5.0, {"k": 20, "m": 40}, 0)]
+    seen = []
+
+    def lazy():
+        for w in windows:
+            seen.append(w)
+            yield w
+
+    assert profile_forward.agreed_reading(lazy(), calls) == (1.0, {"k": 1, "m": 2})
+    assert len(seen) == 6  # no window is traced after the two that agree
+    assert profile_forward.agreed_reading(iter(windows[:5]), calls) == (None, None)
+    assert not profile_forward.whole_window(0.0, {}, calls)
+    assert not profile_forward.whole_window(0.5, {"k": 20}, calls, lost=1)
+    assert not profile_forward.whole_window(0.5, {"k": 20, "m": 10}, calls)
+    assert profile_forward.whole_window(0.5, {"k": 20, "m": 60}, calls)
+
+
+class _Event:
+    """A profiler event as ``_KinetoEvent`` gives it (the fields read)."""
+
+    def __init__(self, kind, name, corr, start, end, device=False):
+        self._v = (kind, name, corr, start, end, device)
+
+    def is_user_annotation(self):
+        return self._v[0] == "user_annotation"
+
+    def name(self):
+        return self._v[1]
+
+    def correlation_id(self):
+        return self._v[2]
+
+    def start_ns(self):
+        return self._v[3]
+
+    def end_ns(self):
+        return self._v[4]
+
+    def device_type(self):
+        return torch.autograd.DeviceType.CUDA if self._v[5] else torch.autograd.DeviceType.CPU
+
+
+def test_window_record_counts_lost_launches_and_gaps():
+    from types import SimpleNamespace
+
+    call = 1_000_000
+    events = [
+        _Event("cpu_op", "aten::mm", 0, call + 1_000, call + 9_000),
+        _Event("cuda_runtime", "cudaLaunchKernel", 7, call + 2_000, call + 3_000),
+        _Event("cuda_runtime", "cudaMemcpyAsync", 8, call + 4_000, call + 5_000),
+        _Event("cuda_driver", "cuLaunchKernelEx", 9, call + 6_000, call + 7_000),
+        _Event("cuda_runtime", "cudaStreamSynchronize", 10, call + 8_000, call + 9_000),
+        _Event("kernel", "gemm", 7, call + 7_000, call + 20_000, device=True),
+        _Event("gpu_memcpy", "Memcpy DtoD", 8, call + 21_000, call + 22_000, device=True),
+        _Event("user_annotation", "forward", 0, call, call + 23_000, device=True),
+    ]
+    results = SimpleNamespace(events=lambda: events, trace_start_ns=lambda: call - 20_000_000)
+    rec = profile_forward._window_record(SimpleNamespace(profiler=SimpleNamespace(
+        kineto_results=results)), call, 0.02)
+    # the driver launch (9) has no activity; the synchronisation is no launch
+    assert (rec["launches"], rec["activities"], rec["lost"]) == (3, 2, 1)
+    assert rec["least_gap_us"] == 5.0  # gemm 5 µs after its launch, the copy 17 µs
+    assert rec["window_us"] == -20_000.0
+    assert rec["margin_ms"] == 20.0 and rec["recorded"]
+    assert rec["priming_lost"] == 0
+    # the first launch primes the window: its activity is not the call's
+    rec = profile_forward._window_record(SimpleNamespace(profiler=SimpleNamespace(
+        kineto_results=results)), call, 0.02, priming=1)
+    assert (rec["launches"], rec["activities"], rec["lost"], rec["priming_lost"]) == (2, 1, 1, 0)
+    assert rec["least_gap_us"] == 17.0
+    gone = profile_forward._window_record(SimpleNamespace(profiler=None), call, 0.02)
+    assert not gone["recorded"] and "AttributeError" in gone["why"]
+
+
+def test_export_windows_cpu_small(tmp_path):
+    out = tmp_path / "profile.json"
+    argv = ["--device", "cpu", "--small", "--batch", "1", "--iters", "1", "--export-windows", "1",
+            "--out", str(out)]
+    assert profile_forward.main(argv) == 0
+    rows = json.loads(out.read_text())["export_windows"]
+    assert [(r["when"], r["priming"]) for r in rows] == [
+        (w, p) for w in ("before export", "after export")
+        for p in (0, profile_forward.PRIMING_LAUNCHES)]
+    assert all(r["lost"] is None for r in rows)  # no device, no counts

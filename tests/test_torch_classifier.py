@@ -257,7 +257,7 @@ def test_train_mode_with_dropout_is_finite(cls):
     video = torch.from_numpy(_video(6))
     with pytest.raises(ValueError, match="generator"):
         model(video)
-    drop = ops.sample_drop_masks(spec, 2, torch.Generator().manual_seed(1))
+    drop = ops.sample_drop_masks(spec.blocks, 2, torch.Generator().manual_seed(1))
     assert sum(d is not None for d in drop) == len(spec.blocks) - 1  # block 0's rate is 0
     a = model(video, drop=drop, generator=torch.Generator().manual_seed(2))
     b = model(video, drop=drop, generator=torch.Generator().manual_seed(2))

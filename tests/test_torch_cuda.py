@@ -520,7 +520,7 @@ def test_small_cfg_train_step_fp32_through_kernels(gen):
 
     def loss_and_grads():
         model.zero_grad(set_to_none=True)
-        drop = sample_drop_masks(spec, 2, torch.Generator().manual_seed(2), "cuda")
+        drop = sample_drop_masks(spec.video_blocks, 2, torch.Generator().manual_seed(2), "cuda")
         loss, _, _ = train_lib.forward_loss(cfg, model, batch, drop)
         loss.backward()
         return float(loss.detach()), {n: p.grad.detach().clone() if p.grad is not None
@@ -1268,7 +1268,8 @@ def test_small_ddp_two_ranks_on_the_card(gen, tmp_path):
     batch = {"video": torch.from_numpy(rng.standard_normal((4, 8, 32, 32, 3), np.float32)),
              "audio": torch.from_numpy(rng.standard_normal((4, 8, 32, 32, 1), np.float32)),
              "labels_hm": torch.from_numpy(hm / hm.sum(axis=(2, 3), keepdims=True))}
-    drops = [sample_drop_masks(spec, 4, torch.Generator().manual_seed(s)) for s in (7, 8)]
+    drops = [sample_drop_masks(spec.video_blocks, 4, torch.Generator().manual_seed(s))
+             for s in (7, 8)]
     torch.save({"sd": sd, "batch": batch, "drops": drops}, tmp_path / "inputs.pt")
     one = step_lib.create_train_state(cfg, spec, state_dict=sd, device="cuda")
     want = run_steps(one, cfg, {k: v.cuda() for k, v in batch.items()},

@@ -123,7 +123,7 @@ def _rel(a, b):
 
 def _micro_masks(spec, seed, accum):
     gen = torch.Generator().manual_seed(seed)
-    micro = [ops.sample_drop_masks(spec, BATCH // accum, gen) for _ in range(accum)]
+    micro = [ops.sample_drop_masks(spec.video_blocks, BATCH // accum, gen) for _ in range(accum)]
     whole = [None if m[0] is None else tuple(torch.cat([x[j] for x in m]) for j in range(2))
              for m in zip(*micro)]
     return micro, whole
