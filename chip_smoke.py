@@ -175,7 +175,20 @@ Phases (any failure exits non-zero; nothing is caught):
      first use) bit-equal to their numpy twins at the flagship loader's
      shapes, and ``utils.misc.benchmark_data_loading`` on a synthetic train
      split (32 clips at 256x320 listed 36 times, 4 workers, 128 batches of
-     8 timed, the clips read from the page cache).
+     8 timed, the clips read from the page cache);
+ 11. the model axes (``axes_phase``): two gloo ranks sharing the card
+     (``spawn_ranks``), a mesh of pipe, then model, then seq at 2: the
+     flagship's bf16 eval forward at batch 8 against one process
+     (``heatmap_check``), one fp32 step at global batch 2 (TF32 off,
+     drop-path 0.2, the global masks) against one process at phase 6's
+     whole-step bars, each rank's launches against the axis's plan (pipe:
+     v4-v11 in 2 stages of 4 at M = 2), the collectives run, the model
+     axis's split leaves and moments, each rank's ms a forward and a step
+     (CUDA events); then ``GazePredictor(devices=[cuda:0])`` bit-equal to
+     the plain predictor at buckets 1 and 8 (eager, capture, replay), the
+     preprocessing CLI's ``check`` and ``splits`` over a synthetic split,
+     whether an ffmpeg binary is present, and the TENSORBOARD.ENABLE
+     records of phase 7's second run.
 Every process the run starts is audited (``ProcessAudit``): a thread reads
 this process's descendants from ``/proc`` twice a second, and each phase
 ends with a ``phase X: processes after: n`` line naming those alive. At the
@@ -189,7 +202,8 @@ It prints the ``kernels`` JSON line, the card line and, last, the result line.
 ``python3 chip_smoke.py --determinism`` is a one-off beside it: the build and
 phase 7 alone under ``torch.use_deterministic_algorithms(True, warn_only=True)``,
 printing the ops it names (``determinism_probe``). ``python3 chip_smoke.py
---parallel`` is the build and phase 8 alone.
+--parallel`` is the build and phase 8 alone, ``--axes`` the build and phase
+11 alone.
 Per-shape details go to ``chiprun_out/chip_smoke.json``.
 """
 
@@ -2031,6 +2045,26 @@ def _npz_shapes(path: str) -> list:
     return shapes
 
 
+TB_TAGS = {"Train/loss", "Train/lr", "Train/F1", "Train/Recall", "Train/Precision"}
+
+
+def _tensorboard_records(log_dir: str) -> dict:
+    """What TENSORBOARD.ENABLE wrote: the JSONL records (no tensorboard
+    package: their count, steps and tags), or the event files."""
+    files = sorted(os.listdir(log_dir))
+    if "scalars.jsonl" not in files:
+        assert any(f.startswith("events") for f in files), files
+        return {"route": "SummaryWriter", "files": files}
+    with open(os.path.join(log_dir, "scalars.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    tags = sorted(set().union(*(r.keys() for r in recs)) - {"step", "ts"})
+    assert len(recs) == TRAINER_EPOCHS * (TRAINER_TRAIN_ROWS // 8), len(recs)
+    assert [r["step"] for r in recs] == list(range(len(recs))), recs
+    assert TB_TAGS <= set(tags) and all(np.isfinite(r["Train/loss"]) for r in recs), tags
+    return {"route": "scalars.jsonl", "records": len(recs), "tags": tags,
+            "loss_first_last": [recs[0]["Train/loss"], recs[-1]["Train/loss"]]}
+
+
 def trainer_phase(rng: np.random.Generator) -> dict:
     """Phase 7: ``python -m csts_torch.tools.run_net --cfg <the Ego4D forecast
     yaml>`` on the card through ``run_net.main``: the flagship at full width,
@@ -2133,10 +2167,13 @@ def trainer_phase(rng: np.random.Generator) -> dict:
             runs["a"] = {k: list(v) if isinstance(v, list) else v for k, v in seen.items()}
             for key in ("steps", "waits", "epochs"):
                 seen[key] = []
-            # a second uninterrupted run: the spread between two runs
+            # a second uninterrupted run: the spread between two runs; it also
+            # writes rank 0's TENSORBOARD.ENABLE scalars (11d)
             b_out = os.path.join(root, "run_b")
-            run_net.main(_run_net_args(split, pyths, b_out, DRILL_WORKERS, False))
+            run_net.main(_run_net_args(split, pyths, b_out, DRILL_WORKERS, False)
+                         + ["TENSORBOARD.ENABLE", "True"])
             runs["b"] = seen.pop("final")
+            out["tensorboard"] = _tensorboard_records(os.path.join(b_out, "runs-csts"))
             # the drill: SIGTERM injected mid-epoch, then auto-resume to the end
             c_out = os.path.join(root, "run_c")
             trainer_lib._PREEMPT_AFTER_ITERS = PREEMPT_AFTER
@@ -2500,10 +2537,12 @@ def _step_errors(stats, grads, params, ref: dict, lr_steps: float) -> dict:
     norm = lambda t: float(torch.linalg.vector_norm(t))  # noqa: E731
     loss_rel = max(abs(s["loss"] - r["loss"]) / abs(r["loss"]) for s, r in zip(stats, ref["stats"]))
     total = float(np.sqrt(sum(norm(g) ** 2 for g in ref["grads"].values())))
-    share = max(norm(grads[n] - g) / (STEP_GRAD_RTOL * norm(g) + STEP_GRAD_FLOOR * total)
-                for n, g in ref["grads"].items())
+    shares = {n: norm(grads[n] - g) / (STEP_GRAD_RTOL * norm(g) + STEP_GRAD_FLOOR * total)
+              for n, g in ref["grads"].items()}
+    worst = max(shares, key=shares.get)
     dp = [(params[n] - p).abs() for n, p in ref["params"].items()]
-    return {"loss_rel_err": loss_rel, "grad_bar_share_worst": share,
+    return {"loss_rel_err": loss_rel, "grad_bar_share_worst": shares[worst],
+            "grad_bar_worst_param": worst,
             "param_max_abs_err": max(float(d.max()) for d in dp),
             "params_above_1e-6": int(sum(int((d > 1e-6).sum()) for d in dp)),
             "param_bar": 2 * lr_steps}
@@ -2607,7 +2646,9 @@ def _par_eval(rank: int, cfgs: list, device: str) -> dict:
 
 
 EVAL_METRICS = ("f1", "recall", "precision", "threshold", "auc")
-PAR_TASKS = {"train": _par_train, "timed": _par_timed, "eval": _par_eval}
+
+
+PAR_TASKS = {"train": _par_train, "timed": _par_timed, "eval": _par_eval}  # + phase 11's "axes"
 
 
 def _par_rank(rank: int, port: int, tasks: list, out: str, device: str) -> None:
@@ -3510,6 +3551,287 @@ def classifier_phase(rng: np.random.Generator) -> dict:
     return res
 
 
+# --- phase 11: the model axes (two ranks sharing the card) -------------------------
+#
+# The model, seq and pipe axes of ``csts_torch/parallel`` at full flagship
+# width on two gloo ranks sharing the card (NCCL refuses two ranks on one
+# device), one axis of 2 at a time in one spawned group: the bf16 eval
+# forward at batch 8 against one process (heatmap_check), one fp32 step at
+# global batch 2 with drop-path 0.2 and the global masks against one process
+# at phase 6's whole-step bars, each rank's launches against the axis's plan,
+# each rank's ms a forward and a step (CUDA events); then, on one process,
+# the device-list predictor, the preprocessing CLI and the ffmpeg binary.
+
+AX_AXES = ("pipe", "model", "seq")
+AX_KW = {"pipe": "pipe_parallel", "model": "model_parallel", "seq": "seq_parallel"}
+AX_EVAL_BATCH = 8
+AX_TIMED = 3  # timed forwards and steps a rank, after the checked ones
+AX_FWD_KERNELS = ("attention", "mlp_tail", "block", "pool_block", "decoder_block",
+                  "t2_upsample")
+AX_STEP_KERNELS = ("attention", "attention_bwd", "mlp_tail_train", "t2_upsample")
+
+
+def _ax_events_ms(fn, n: int) -> list:
+    """``fn``'s ms, ``n`` calls each between two CUDA events."""
+    out = []
+    for _ in range(n):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end))
+    return out
+
+
+def _ax_pipe_blocks(model, batch: int) -> int:
+    """How many video blocks the installed pipe axis runs as a pipeline at
+    ``batch`` (the runs ``CSTS.forward`` finds)."""
+    n = 0
+    for vs, ve in model.spec.video_groups:
+        i = vs
+        while i < ve:
+            k = model._pipelined_run_len(i, ve, batch, None)
+            n, i = n + k, i + max(k, 1)
+    return n
+
+
+def _ax_step(cfg, sd: dict, batch: dict, drop: list, timed: int) -> dict:
+    """One fp32 step of ``make_train_step`` from ``sd`` with the global
+    masks: the stats, every gradient and the params after it (whole, on the
+    host), the training kernels' launches, then ``timed`` more steps' ms."""
+    spec = build_spec(cfg)
+    state = train_lib.create_train_state(cfg, spec, state_dict=sd, device="cuda")
+    step = train_lib.make_train_step(cfg, spec, STEPS_PER_EPOCH)
+    batch = {k: v.cuda() for k, v in batch.items()}
+    drop = [None if m is None else tuple(x.cuda() for x in m) for m in drop]
+    reset_launches()
+    st, _ = step(state, batch, None, drop=drop)
+    launches = {n: WRAPPERS[n].launches for n in AX_STEP_KERNELS}
+    res = {"stats": [{k: float(v) for k, v in st.items()}], "launches": launches,
+           "grads": {n: collectives.whole(p.grad, like=p).detach().float().cpu()
+                     for n, p in state.model.named_parameters()},
+           "params": {n: collectives.whole(p.detach(), like=p).float().cpu()
+                      for n, p in state.model.named_parameters()},
+           "split": sum(getattr(p, "model_split", None) is not None
+                        for p in state.model.parameters()),
+           "split_moments": sum(
+               tuple(state.optimizer.local.state[p]["exp_avg"].shape) == tuple(p.shape)
+               for p in state.model.parameters()
+               if getattr(p, "model_split", None) is not None)}
+    res["ms"] = _ax_events_ms(lambda: step(state, batch, None, drop=drop), timed)
+    return res
+
+
+def _ax_forward(sd: dict, video, audio, m) -> dict:
+    """The bf16 flagship eval forward of ``video``, ``audio`` under mesh
+    ``m`` (None: one process): logits on the host, launches, ms."""
+    cfg = flagship_cfg()
+    cfg.TRAIN.MIXED_PRECISION = True
+    model = CSTS(build_spec(cfg))
+    model.load_state_dict(sd)
+    model = model.to(torch.bfloat16).cuda().eval()
+    if m is not None and m.size(mesh.MODEL_AXIS) > 1:
+        mesh.split_model(model, m)
+    v, a = video.cuda(), audio.cuda()
+    reset_launches()
+    with torch.inference_mode():
+        logits = model(v, a).float().cpu()
+        launches = {n: WRAPPERS[n].launches for n in AX_FWD_KERNELS}
+        ms = _ax_events_ms(lambda: model(v, a), AX_TIMED)
+    return {"logits": logits, "launches": launches, "ms": ms,
+            "pipe_blocks": _ax_pipe_blocks(model, video.shape[0])}
+
+
+def _ax_task(rank: int, inputs: str, device: str) -> dict:
+    """Phase 11 on one rank of ``spawn_ranks``' group: for each axis, a mesh
+    of that axis at 2 installed, the forward and the step; {axis: result}."""
+    d = torch.load(inputs)
+    res = {}
+    for axis in AX_AXES:
+        with mesh.use(mesh.make_mesh(**{AX_KW[axis]: 2})) as m:
+            fwd = _ax_forward(d["sd"], d["video"], d["audio"], m)
+            step = _ax_step(_par_cfg(), d["sd"], d["batch"], d["drop"], AX_TIMED)
+            res[axis] = {"forward": fwd, "step": step, "coords": dict(m.coords),
+                         "counts": dict(mesh.COUNTS)}
+            mesh.COUNTS.clear()
+        torch.cuda.empty_cache()
+    return res
+
+
+PAR_TASKS["axes"] = _ax_task
+
+
+def _ax_plan(axis: str, one: dict, n_pipe: int, per_stage: int, microbatches: int) -> dict:
+    """Each kernel's launches a rank: one process's, except under the pipe
+    axis, where each of the ``n_pipe`` pipelined blocks' launches leave and
+    the rank's own ``per_stage`` blocks run once a microbatch."""
+    if axis != "pipe":
+        return dict(one)
+    per_block = {"attention": 1, "mlp_tail": 1, "attention_bwd": 1, "mlp_tail_train": 1}
+    return {n: c - per_block.get(n, 0) * (n_pipe - per_stage * microbatches)
+            for n, c in one.items()}
+
+
+def axes_phase(rng: np.random.Generator) -> dict:
+    """Phase 11: 11a-c, the three axes on two ranks sharing the card
+    against one process; 11d on one process."""
+    from csts_torch.parallel import pipeline
+    from csts_torch.tools import check_line, heatmap_check
+
+    t_phase = time.perf_counter()
+    cfg = _par_cfg()
+    spec = build_spec(cfg)
+    model = CSTS(spec)
+    init_params(model, torch.Generator().manual_seed(SEED + 7))
+    video, audio = make_inputs(rng, AX_EVAL_BATCH, spec)
+    inputs = {"sd": {k: v.detach().clone() for k, v in model.state_dict().items()},
+              "video": torch.from_numpy(video), "audio": torch.from_numpy(audio),
+              "batch": _par_batch(rng, PAR_BATCH, spec),
+              "drop": sample_drop_masks(spec.video_blocks, PAR_BATCH,
+                                        torch.Generator().manual_seed(SEED + 13), "cpu")}
+    del model
+    res = {}
+    with tempfile.TemporaryDirectory() as root:
+        path = os.path.join(root, "inputs.pt")
+        torch.save(inputs, path)
+        t0 = time.perf_counter()
+        one_fwd = _ax_forward(inputs["sd"], inputs["video"], inputs["audio"], None)
+        one_step = _ax_step(cfg, inputs["sd"], inputs["batch"], inputs["drop"], AX_TIMED)
+        torch.cuda.empty_cache()
+        res["one_process"] = {"forward_ms": one_fwd["ms"], "step_ms": one_step["ms"],
+                              "launches_forward": one_fwd["launches"],
+                              "launches_step": one_step["launches"],
+                              "s": time.perf_counter() - t0}
+        log(f"phase axes one process: forward bf16 batch {AX_EVAL_BATCH} "
+            f"{_ms(float(np.median(one_fwd['ms'])))} ms, fp32 step batch {PAR_BATCH} "
+            f"{_ms(float(np.median(one_step['ms'])))} ms (CUDA events, medians of {AX_TIMED}); "
+            f"launches forward {one_fwd['launches']}, step {one_step['launches']} ({CARD})")
+        t0 = time.perf_counter()
+        ranks = [rk["axes"] for rk in spawn_ranks([("axes", (path,))], root, "cuda")]
+        res["ranks_s"] = time.perf_counter() - t0
+        ref = {"stats": one_step["stats"], "grads": one_step["grads"],
+               "params": one_step["params"]}
+        for tag, axis in zip("abc", AX_AXES):
+            out = res[axis] = {"ranks": []}
+            for r, rk in enumerate(ranks):
+                got = rk[axis]
+                fwd, step = got["forward"], got["step"]
+                chk = heatmap_check(fwd["logits"], one_fwd["logits"])
+                assert chk["ok"], (axis, r, chk)
+                err = _step_errors(step["stats"], step["grads"], step["params"], ref,
+                                   sum(s["lr"] for s in step["stats"]))
+                _check_step_errors(f"{axis} rank {r}", err)
+                n_pipe = fwd["pipe_blocks"] if axis == "pipe" else 0
+                per_stage, mb = n_pipe // 2, pipeline.effective_microbatches(2)
+                plan_f = _ax_plan(axis, one_fwd["launches"], n_pipe, per_stage, mb)
+                plan_s = _ax_plan(axis, one_step["launches"], n_pipe, per_stage, mb)
+                assert fwd["launches"] == plan_f, (axis, r, fwd["launches"], plan_f)
+                assert step["launches"] == plan_s, (axis, r, step["launches"], plan_s)
+                assert got["counts"].get(axis, 0) > 0, (axis, r, got["counts"])
+                if axis == "pipe":
+                    assert n_pipe == 8, n_pipe  # v4-v11: v12 and v13 differ in dim_out
+                if axis == "model":
+                    assert step["split"] > 0 and step["split_moments"] == step["split"], step
+                out["ranks"].append({
+                    "check": chk, "errors": err, "launches_forward": fwd["launches"],
+                    "launches_step": step["launches"], "plan_forward": plan_f,
+                    "plan_step": plan_s, "forward_ms": fwd["ms"], "step_ms": step["ms"],
+                    "coords": got["coords"], "collectives": got["counts"],
+                    "split_leaves": step["split"], "pipe_blocks": n_pipe})
+                log(f"phase axes 11{tag} {axis}=2 rank {r}: forward bf16 batch {AX_EVAL_BATCH} "
+                    f"vs one process: {check_line(chk)}; fp32 step batch {PAR_BATCH} vs one "
+                    f"process: loss rel err {err['loss_rel_err']:.3g}, worst gradient bar share "
+                    f"{err['grad_bar_share_worst']:.3g} ({err['grad_bar_worst_param']}), "
+                    f"params max|Δ| "
+                    f"{err['param_max_abs_err']:.3g} (bar {err['param_bar']:.3g}); launches "
+                    f"forward {fwd['launches']} step {step['launches']} (plan met"
+                    + (f": {n_pipe} pipelined blocks, {per_stage} a stage, M={mb}" if n_pipe
+                       else "") + f"); collectives {got['counts']}"
+                    + (f"; {step['split']} split leaves, their moments split"
+                       if axis == "model" else ""))
+                log(f"phase axes 11{tag} {axis}=2 rank {r} timing (two ranks sharing one "
+                    f"card, not a scaling figure): forward ms {[round(x, 2) for x in fwd['ms']]}"
+                    f", step ms {[round(x, 2) for x in step['ms']]} (CUDA events) ({CARD})")
+        res["d"] = axes_one_process(root, inputs)
+    res["s"] = time.perf_counter() - t_phase
+    log(f"phase axes: {res['s']:.2f} s")
+    return res
+
+
+def axes_one_process(root: str, inputs: dict) -> dict:
+    """11d: ``GazePredictor(devices=[cuda:0])`` against the plain predictor
+    at buckets 1 and 8 (eager, capture, replay: bit-equal); the
+    preprocessing CLI's ``splits`` and ``check`` over a synthetic split;
+    whether an ffmpeg binary is present."""
+    import shutil
+    import subprocess
+
+    from csts_torch.data.synthetic import write_dataset
+
+    cfg = flagship_cfg()
+    cfg.TRAIN.MIXED_PRECISION = True
+    plain = GazePredictor(cfg, inputs["sd"], batch_sizes=(1, 8))
+    listed = GazePredictor(cfg, inputs["sd"], batch_sizes=(1, 8), devices=["cuda:0"])
+    v, a = inputs["video"].numpy(), inputs["audio"].numpy()
+    equal = {}
+    for n in (1, 8):
+        for turn in range(3):  # eager, capture, replay
+            want = plain.predict(v[:n], a[:n])["heatmaps"]
+            got = listed.predict(v[:n], a[:n])["heatmaps"]
+            equal[f"{n}/{turn}"] = bool(np.array_equal(got, want))
+    assert all(equal.values()), equal
+    graphs = sorted(b for b, slot in listed._replicas[0]._slots.items() if slot.graph is not None)
+    log(f"phase axes 11d serving: GazePredictor(devices=[cuda:0]) buckets 1 and 8, three "
+        f"requests each (eager, capture, replay), bit-equal to the plain predictor: {equal}; "
+        f"graphs captured for buckets {graphs}")
+    del plain, listed
+    torch.cuda.empty_cache()
+
+    prefix, splits = write_dataset(os.path.join(root, "pre"), "ego4d", num_clips=4,
+                                   res=(64, 80), seed=SEED)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    cli = [sys.executable, "-m", "csts_torch.data.preprocess"]
+    chk = subprocess.run(cli + ["check", "--prefix", prefix, "--data-dir", splits, "--dataset",
+                                "ego4d_av_gaze_forecast"], capture_output=True, text=True,
+                         env=env, cwd=ROOT, timeout=120)
+    assert chk.returncode == 0, chk.stdout + chk.stderr
+    out_dir = os.path.join(root, "pre_splits")
+    spl = subprocess.run(cli + ["splits", "--clips", prefix, "--output", out_dir, "--dataset",
+                                "ego4d", "--test-fraction", "0.5"], capture_output=True,
+                         text=True, env=env, cwd=ROOT, timeout=120)
+    assert spl.returncode == 0, spl.stdout + spl.stderr
+    made = sorted(os.listdir(out_dir))
+    assert made == ["ego4d_video_ids.txt", "test_ego4d_gaze.csv", "train_ego4d_gaze.csv"], made
+    ffmpeg = shutil.which("ffmpeg")
+    log(f"phase axes 11d preprocess: check over {prefix} -> rc 0 ({chk.stderr.strip()}); "
+        f"splits -> {made} ({spl.stderr.strip()}); ffmpeg binary: "
+        + (ffmpeg if ffmpeg else "absent (trim and audio raise without it, as JAX's do; "
+                                 "not a caught failure)"))
+    return {"serving_bit_equal": equal, "graphs": graphs, "check": chk.stderr.strip(),
+            "splits": made, "ffmpeg": ffmpeg}
+
+
+def axes_only(t_start: float, audit: ProcessAudit) -> int:
+    """``--axes``: the build, then phase 11 alone (its JSON to
+    ``chiprun_out/chip_smoke_axes.json``), then the card and result lines."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"phase build: {time.perf_counter() - t_start:.2f} s")
+    audit.at("axes")
+    res = axes_phase(np.random.default_rng(SEED))
+    res["processes"] = close_run(audit)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_axes.json"), "w") as f:
+        json.dump({"card": CARD, "axes": res}, f, indent=1, default=str)
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(CARD)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def parallel_only(t_start: float, audit: ProcessAudit) -> int:
     """``--parallel``: the build, then phase 8 alone (its JSON to
     ``chiprun_out/chip_smoke_parallel.json``), then the card and result
@@ -3550,6 +3872,8 @@ def main() -> int:
     logs = _build.build_all()
     if sys.argv[1:] == ["--parallel"]:
         return parallel_only(t0, audit)
+    if sys.argv[1:] == ["--axes"]:
+        return axes_only(t0, audit)
     log(f"phase build: {time.perf_counter() - t0:.2f} s for {sorted(logs)}")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -3719,6 +4043,13 @@ def main() -> int:
     audit.at("classifier")
     classifier = classifier_phase(rng)
 
+    # --- phase 11: the model axes (two ranks sharing the card), serving over a
+    # device list, the preprocessing CLI ----------------------------------------
+    audit.at("axes")
+    axes = axes_phase(rng)
+    log(f"phase axes 11d tensorboard: phase 7's second run with TENSORBOARD.ENABLE wrote "
+        f"{trainer['tensorboard']}")
+
     # the classifier's launches a forward and device ms a forward, at batch 8
     # with the cls token (the published MViT-B 16x4) and without it
     cls_launches = {tag: classifier[tag]["batches"][max(CLASSIFIER_BATCHES)]["launches"]
@@ -3839,7 +4170,7 @@ def main() -> int:
                    "train": train, "train_per_shape": train_report,
                    "train_fp32_step": whole_step, "widths": widths, "eval": evals,
                    "trainer": trainer, "parallel": parallel, "surface": surface,
-                   "classifier": classifier, "processes": processes,
+                   "classifier": classifier, "axes": axes, "processes": processes,
                    "profiler_windows": PROFILER_WINDOWS}, f, indent=1,
                   default=str)
     log(f"total {time.perf_counter() - t_start:.1f} s")

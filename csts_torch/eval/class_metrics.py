@@ -2,9 +2,9 @@
 top-k accuracy and the confusion matrix.
 
 Reference: ``slowfast/utils/metrics.py`` upstream ``topks_correct`` (dropped in
-the CSTS fork) and ``slowfast/visualization/utils.py:158-254``. The two
-``plot_*`` functions of the JAX module need matplotlib, which the card's
-machine lacks; they are not ported.
+the CSTS fork) and ``slowfast/visualization/utils.py:158-254``. The two ``plot_*`` functions
+draw with matplotlib in the JAX module, which the card's machine lacks: here
+they keep its path without matplotlib and return None (no figure, no file).
 """
 
 from __future__ import annotations
@@ -53,3 +53,15 @@ def confusion_matrix(preds, labels, num_classes: int) -> np.ndarray:
     cm = np.zeros((num_classes, num_classes), np.int64)
     np.add.at(cm, (labels, pred_cls.astype(np.int64)), 1)
     return cm
+
+
+def plot_topk_histogram(class_name, counts, k: int = 10, class_names=None, path: str = None):
+    """The JAX function's path without matplotlib
+    (``csts_tpu/eval/class_metrics.py:42-53``): no figure, None."""
+    return None
+
+
+def plot_confusion_matrix(cm, class_names=None, path: str = None):
+    """The JAX function's path without matplotlib
+    (``csts_tpu/eval/class_metrics.py:69-76``): no figure, None."""
+    return None

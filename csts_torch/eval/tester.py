@@ -32,7 +32,7 @@ from csts_torch.config import Config
 from csts_torch.data import loader as loader_lib
 from csts_torch.eval import metrics
 from csts_torch.models.csts import CSTS, build_spec, init_params
-from csts_torch.parallel import collectives
+from csts_torch.parallel import collectives, mesh
 from csts_torch.train import step as step_lib
 from csts_torch.train.meters import TestGazeMeter
 from csts_torch.utils import checkpoint as cu
@@ -124,6 +124,8 @@ def test(cfg: Config, device=None) -> dict:
             if cfg.TRAIN.MIXED_PRECISION:
                 model = model.to(torch.bfloat16)  # cast the weights once, not per op
             model = model.to(device).eval()
+            if mesh.axis_size(mesh.MODEL_AXIS) > 1:  # tensor-parallel eval, as JAX's
+                mesh.split_model(model)
             eval_step = step_lib.make_eval_step(cfg, spec)
             meter = TestGazeMeter(cfg.TEST.DATASET, num_views=num_views, device=device)
 

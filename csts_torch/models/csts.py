@@ -38,6 +38,7 @@ from torch.utils.checkpoint import checkpoint
 from csts_torch import ops
 from csts_torch.config import Config
 from csts_torch.kernels import upsample as kup
+from csts_torch.parallel import mesh, pipeline
 from csts_torch.models.mvit import (
     THW,
     AttentionSpec,
@@ -412,6 +413,63 @@ class CSTS(nn.Module):
                               preserve_rng_state=False)
         return block(x, thw, drop=drop)
 
+    def _seq_block(self, block: MultiScaleBlock, x: torch.Tensor, thw: THW, drop=None):
+        """One encoder block on this rank's stripe ``x`` of the seq axis:
+        the stripes gathered (the backward sums the ranks' gradients), the
+        stripe of the output computed (``forward_rows``), the block's
+        parameters marked as computed in part. An output token count the
+        axis does not divide ends the stripes: the block runs whole on
+        every rank. Returns (tokens, thw, whether striped)."""
+        thw_out = _thw_after_blocks(thw, [block.spec])
+        n_out = int(np.prod(thw_out))
+        if not mesh.seq_divides(n_out):
+            x = mesh.gather(x, mesh.SEQ_AXIS, 1, partial=False)
+            return (*self._encoder_block(block, x, thw, drop), False)
+        x = mesh.gather(x, mesh.SEQ_AXIS, 1, partial=True)
+        mesh.note_partial(mesh.SEQ_AXIS, mesh.module_params(block))
+        rows = mesh.seq_rows(n_out)
+        if self.spec.remat and self.training:
+            out, thw = checkpoint(block.forward_rows, x, thw, rows, drop, use_reentrant=False,
+                                  preserve_rng_state=False)
+        else:
+            out, thw = block.forward_rows(x, thw, rows, drop)
+        return out, thw, True
+
+    def _pipelined_run_len(self, lo: int, hi: int, batch: int, capture) -> int:
+        """The blocks from ``lo`` that run as a GPipe pipeline over the
+        installed pipe axis (JAX's ``_pipelined_run_len``,
+        ``csts_tpu/models/csts.py:475-492``): none with ``capture``, without
+        a pipe axis of S ≥ 2, or with a batch M microbatches do not divide;
+        else the run of blocks with ``lo``'s spec (drop-path aside) at
+        ``dim == dim_out`` with no pool or upsample, cut to a multiple of S,
+        if that is 2 or more."""
+        S = pipeline.pipe_size() if capture is None else None
+        if S is None or batch % pipeline.effective_microbatches(S):
+            return 0
+        blocks = self.spec.video_blocks
+        b0 = blocks[lo]
+        if b0.dim != b0.dim_out or b0.pool_q_on or b0.upsample_q:
+            return 0
+        j = lo + 1
+        while j < hi and dataclasses.replace(blocks[j], drop_path=b0.drop_path) == b0:
+            j += 1
+        n = ((j - lo) // S) * S
+        return n if n >= 2 else 0
+
+    def _pipelined_blocks(self, lo: int, n: int, x: torch.Tensor, thw: THW, drop):
+        """Video blocks [lo, lo + n) through ``pipeline.pipeline_blocks``:
+        microbatch m takes the rows m, m + M, ... of each block's masks."""
+        M = pipeline.effective_microbatches(pipeline.pipe_size())
+
+        def apply_one(j, z, m):
+            d = drop[lo + j]
+            if d is not None:
+                d = tuple(t[m::M] for t in d)
+            return self._encoder_block(self.blocks[lo + j], z, thw, d)[0]
+
+        return pipeline.pipeline_blocks(apply_one, n, x,
+                                        lambda j: list(self.blocks[lo + j].parameters()))
+
     def forward(self, video: torch.Tensor, audio: torch.Tensor, return_embed: bool = False,
                 drop=None, return_spatial_attn: bool = False,
                 return_temporal_attn: bool = False, capture: Optional[dict] = None):
@@ -456,16 +514,43 @@ class CSTS(nn.Module):
 
         # interleaved encoder groups, keeping the decoder's skip features
         inter_feat = [(x, thw)]
+        # the seq axis: each rank holds a stripe of each branch's tokens
+        # between blocks while the token count divides it (JAX's seq_constraint)
+        x_seq, y_seq = mesh.seq_divides(x.shape[1]), mesh.seq_divides(y.shape[1])
+        x, y = mesh.seq_constraint(x), mesh.seq_constraint(y)
+
+        def whole(t, striped):
+            return mesh.gather(t, mesh.SEQ_AXIS, 1, partial=False) if striped else t
+
+        def cap_tokens(name, t, striped):
+            if capture is not None:
+                with torch.no_grad():
+                    capture[name] = whole(t, striped)
+
         groups = list(zip(spec.video_groups, spec.audio_groups))
         for gi, ((vs, ve), (as_, ae)) in enumerate(groups):
-            for i in range(vs, ve):
-                x, thw = self._encoder_block(self.blocks[i], x, thw, drop[i])
-                cap(f"blocks/{i}", x)
+            i = vs
+            while i < ve:
+                n_pipe = self._pipelined_run_len(i, ve, x.shape[0], capture)
+                if n_pipe:
+                    x = self._pipelined_blocks(i, n_pipe, x, thw, drop)
+                    i += n_pipe
+                    continue
+                if x_seq:
+                    x, thw, x_seq = self._seq_block(self.blocks[i], x, thw, drop[i])
+                else:
+                    x, thw = self._encoder_block(self.blocks[i], x, thw, drop[i])
+                cap_tokens(f"blocks/{i}", x, x_seq)
+                i += 1
             if gi < len(groups) - 1:
-                inter_feat.append((x, thw))
+                inter_feat.append((whole(x, x_seq), thw))
             for i in range(as_, ae):
-                y, thw_audio = self._encoder_block(self.blocks_audio[i], y, thw_audio)
-                cap(f"blocks_audio/{i}", y)
+                if y_seq:
+                    y, thw_audio, y_seq = self._seq_block(self.blocks_audio[i], y, thw_audio)
+                else:
+                    y, thw_audio = self._encoder_block(self.blocks_audio[i], y, thw_audio)
+                cap_tokens(f"blocks_audio/{i}", y, y_seq)
+        x, y = whole(x, x_seq), whole(y, y_seq)
 
         # spatial-temporal fusion (custom_multimodal_builder.py:413-462)
         b = x.shape[0]

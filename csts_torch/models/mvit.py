@@ -42,6 +42,7 @@ import torch
 from torch import nn
 
 from csts_torch import ops
+from csts_torch.parallel import mesh
 from csts_torch.kernels import attention as ka
 from csts_torch.kernels import block as kb
 from csts_torch.kernels import upsample as kup
@@ -467,55 +468,102 @@ class MultiScaleAttention(nn.Module):
                 setattr(self, f"pool_{name}", nn.Conv3d(
                     hd, hd, spec.kernel_kv, spec.stride_kv, spec.padding_kv, groups=hd, bias=False))
                 setattr(self, f"norm_{name}", nn.LayerNorm(hd, eps=1e-5))
+        self.tp: Optional[Tuple[int, int]] = None  # (index, size) on the model axis once split
 
-    def project(self, xn: torch.Tensor, thw: THW, with_q: bool = True):
+    def qkv_params(self) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """qkv's whole weight and bias: this module's, or under the model
+        axis's split the ranks' heads gathered (for a route that runs the
+        block whole; the backward keeps this rank's heads' gradient)."""
+        if self.tp is None:
+            return self.qkv.weight, self.qkv.bias
+        s = self.spec
+
+        def whole(t):
+            heads = t.reshape(3, -1, s.head_dim, *t.shape[1:])
+            return mesh.gather(heads, mesh.MODEL_AXIS, 1, partial=False).reshape(
+                3 * s.dim, *t.shape[1:])
+
+        return whole(self.qkv.weight), (None if self.qkv.bias is None else whole(self.qkv.bias))
+
+    def proj_weight(self) -> torch.Tensor:
+        """proj's whole weight (gathered by its input columns under the split)."""
+        if self.tp is None:
+            return self.proj.weight
+        return mesh.gather(self.proj.weight, mesh.MODEL_AXIS, 1, partial=False)
+
+
+    def project(self, xn: torch.Tensor, thw: THW, with_q: bool = True, local: bool = False):
         """xn: LN1'd tokens (B, L, dim) -> Q token-major (B, L, dim), a view of
         the projection (None unless ``with_q``), and K, V as (B, N, Lk, hd),
         pooled and normed where the block pools them (the whole-block kernels'
         phase 1, ``csts_tpu/models/mvit.py`` ``_pooled_kv`` and the Q
-        projection of ``_slot_q_proj``, without the TPU's slot layouts)."""
+        projection of ``_slot_q_proj``, without the TPU's slot layouts).
+        ``local``: this rank's heads of the model axis's split only (Q of
+        width N/W · hd, K and V of N/W heads)."""
         s = self.spec
         b, l, _ = xn.shape
-        lo = 0 if with_q else s.dim
-        bias = self.qkv.bias[lo:] if self.qkv.bias is not None else None
-        proj = ops.linear(xn, self.qkv.weight[lo:], bias)
-        kv = proj[..., -2 * s.dim:].reshape(b, l, 2, s.num_heads, s.head_dim)
+        w, bias = (self.qkv.weight, self.qkv.bias) if local else self.qkv_params()
+        n = w.shape[0] // (3 * s.head_dim)
+        c = n * s.head_dim
+        lo = 0 if with_q else c
+        proj = ops.linear(xn, w[lo:], bias[lo:] if bias is not None else None)
+        kv = proj[..., -2 * c:].reshape(b, l, 2, n, s.head_dim)
         k, v = kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2)
         if s.pool_kv_on:
             k, _ = _pool_heads(k, self.pool_k, self.norm_k, thw, s.stride_kv, s.padding_kv,
                                has_cls=s.has_cls)
             v, _ = _pool_heads(v, self.pool_v, self.norm_v, thw, s.stride_kv, s.padding_kv,
                                has_cls=s.has_cls)
-        return (proj[..., :s.dim] if with_q else None), k, v
+        return (proj[..., :c] if with_q else None), k, v
+
+    def _pool_q(self, q: torch.Tensor, thw: THW) -> Tuple[torch.Tensor, THW]:
+        s = self.spec
+        if not s.pool_q_on:
+            return q, thw
+        if s.upsample_q:
+            return _pool_heads(q, self.upsample_q, self.norm_q, thw, s.stride_q, s.padding_q,
+                               transposed=True, output_padding=s.output_padding_q)
+        return _pool_heads(q, self.pool_q, self.norm_q, thw, s.stride_q, s.padding_q,
+                           has_cls=s.has_cls)
 
     def forward(
         self, xn: torch.Tensor, thw: THW, mask: Optional[torch.Tensor] = None,
-        return_attn: bool = False,
+        return_attn: bool = False, rows: Optional[Tuple[int, int]] = None,
     ):
         """xn: LN1'd tokens (B, L, dim). Returns (out (B, Lq, dim), thw_q),
         and with ``return_attn`` also the fp32 probabilities (B, N, Lq, Lk)
-        from :func:`attention_probs`, which then replaces K1."""
+        from :func:`attention_probs`, which then replaces K1. ``rows``
+        (first, count): the output rows of the seq axis's stripe only (Q's
+        rows after its pool; K and V whole). Split on the model axis, the
+        attention runs on this rank's heads and proj on their columns, summed
+        over the axis (with ``return_attn``, the block runs whole)."""
         s = self.spec
         b, l, _ = xn.shape
-        q, k, v = self.project(xn, thw)
-        q = q.reshape(b, l, s.num_heads, s.head_dim).transpose(1, 2)  # (B, N, L, hd) view
-        q_thw = thw
-        if s.pool_q_on:
-            if s.upsample_q:
-                q, q_thw = _pool_heads(q, self.upsample_q, self.norm_q, thw, s.stride_q,
-                                       s.padding_q, transposed=True,
-                                       output_padding=s.output_padding_q)
-            else:
-                q, q_thw = _pool_heads(q, self.pool_q, self.norm_q, thw, s.stride_q, s.padding_q,
-                                       has_cls=s.has_cls)
+        local = self.tp is not None and not return_attn
+        if local:
+            # the backward sums the heads' gradients of the normed tokens
+            xn = mesh.copy_in(xn, mesh.MODEL_AXIS)
+            # the pooling convs' and norms' weights are shared by the heads
+            mesh.note_partial(mesh.MODEL_AXIS, mesh.module_params(
+                self, ("pool_", "norm_", "upsample_q")))
+        q, k, v = self.project(xn, thw, local=local)
+        n = k.shape[1]
+        q = q.reshape(b, l, n, s.head_dim).transpose(1, 2)  # (B, N, L, hd) view
+        q, q_thw = self._pool_q(q, thw)
+        if rows is not None:
+            q = q[:, :, rows[0]:rows[0] + rows[1]]
         attn = None
         if return_attn:
             out, attn = attention_probs(q, k, v, s.scale, mask)
         else:
             attend = ka.attention_train if self.training else ka.fused_attention
             out = attend(q, k, v, s.scale, mask)
-        out = out.transpose(1, 2).reshape(b, out.shape[2], s.dim)
-        out = ops.linear(out, self.proj.weight, self.proj.bias)
+        out = out.transpose(1, 2).reshape(b, out.shape[2], n * s.head_dim)
+        if local:
+            out = mesh.reduce_sum(ops.linear(out, self.proj.weight), mesh.MODEL_AXIS)
+            out = out + self.proj.bias.to(out.dtype)
+        else:
+            out = ops.linear(out, self.proj_weight(), self.proj.bias)
         return (out, q_thw, attn) if return_attn else (out, q_thw)
 
 
@@ -548,14 +596,61 @@ class MultiScaleBlock(nn.Module):
         self.mlp = Mlp(spec.dim, spec.hidden_dim, spec.dim_out)
         if spec.dim != spec.dim_out:
             self.proj = nn.Linear(spec.dim, spec.dim_out)
+        self.tp: Optional[Tuple[int, int]] = None  # (index, size) on the model axis once split
 
-    def _tail_weights(self, dtype: Optional[torch.dtype] = None) -> tuple:
+    def can_split(self, w: int) -> bool:
+        """Whether the model axis's ``w`` ranks split this block: its heads
+        and its hidden width divide by ``w``."""
+        s = self.spec
+        return (w > 1 and not s.has_cls and s.num_heads % w == 0
+                and s.hidden_dim % w == 0)
+
+    @torch.no_grad()
+    def split_heads(self, r: int, w: int) -> None:
+        """Keeps rank ``r``'s part of the Megatron pairs (``parallel/mesh.py``
+        ``split_model``): qkv's rows of heads [r·N/w, (r+1)·N/w) of each of
+        Q, K and V, proj's input columns of those heads, fc1's rows and fc2's
+        input columns of the r-th of w parts of the hidden width. The
+        parameters are replaced by their shards, marked ``model_split``
+        ("qkv" or the dimension split)."""
+        s, a = self.spec, self.attn
+        heads = slice(r * s.num_heads // w, (r + 1) * s.num_heads // w)
+        cols = slice(r * s.dim // w, (r + 1) * s.dim // w)
+        hid = slice(r * s.hidden_dim // w, (r + 1) * s.hidden_dim // w)
+
+        def put(mod, name, value, how):
+            p = nn.Parameter(value.contiguous().clone())
+            p.model_split = how
+            setattr(mod, name, p)
+
+        put(a.qkv, "weight",
+            a.qkv.weight.reshape(3, s.num_heads, s.head_dim, s.dim)[:, heads].reshape(-1, s.dim),
+            "qkv")
+        if a.qkv.bias is not None:
+            put(a.qkv, "bias", a.qkv.bias.reshape(3, s.num_heads, s.head_dim)[:, heads].reshape(-1),
+                "qkv")
+        put(a.proj, "weight", a.proj.weight[:, cols], 1)
+        put(self.mlp.fc1, "weight", self.mlp.fc1.weight[hid], 0)
+        put(self.mlp.fc1, "bias", self.mlp.fc1.bias[hid], 0)
+        put(self.mlp.fc2, "weight", self.mlp.fc2.weight[:, hid], 1)
+        self.tp = a.tp = (r, w)
+
+    def _tail_weights(self, dtype: Optional[torch.dtype] = None, attn_proj: bool = True) -> tuple:
         """wproj, bproj, then K2's weights: LN2, fc1, fc2 and the dim-change
-        proj (None, None when dim == dim_out); cast to ``dtype`` if given."""
+        proj (None, None when dim == dim_out); cast to ``dtype`` if given.
+        Under the model axis's split the shards are gathered whole (K2, B7
+        and the whole blocks fuse across the split; the backward keeps this
+        rank's part). ``attn_proj``: False leaves wproj and bproj None."""
         proj = getattr(self, "proj", None)
+        fc1_w, fc1_b, fc2_w = self.mlp.fc1.weight, self.mlp.fc1.bias, self.mlp.fc2.weight
+        if self.tp is not None:
+            fc1_w = mesh.gather(fc1_w, mesh.MODEL_AXIS, 0, partial=False)
+            fc1_b = mesh.gather(fc1_b, mesh.MODEL_AXIS, 0, partial=False)
+            fc2_w = mesh.gather(fc2_w, mesh.MODEL_AXIS, 1, partial=False)
         ws = (
-            self.attn.proj.weight, self.attn.proj.bias, self.norm2.weight, self.norm2.bias,
-            self.mlp.fc1.weight, self.mlp.fc1.bias, self.mlp.fc2.weight, self.mlp.fc2.bias,
+            self.attn.proj_weight() if attn_proj else None,
+            self.attn.proj.bias if attn_proj else None, self.norm2.weight, self.norm2.bias,
+            fc1_w, fc1_b, fc2_w, self.mlp.fc2.bias,
             proj.weight if proj is not None else None, proj.bias if proj is not None else None,
         )
         return ws if dtype is None else tuple(None if w is None else w.to(dtype) for w in ws)
@@ -607,10 +702,11 @@ class MultiScaleBlock(nn.Module):
         tail = self._tail_weights(x.dtype)
         xn = ops.layer_norm(x, self.norm1.weight, self.norm1.bias)
         _, k, v = a.project(xn, thw, with_q=False)
-        bq = a.qkv.bias[:s.dim] if a.qkv.bias is not None else a.qkv.weight.new_zeros(s.dim)
+        wqkv, bqkv = a.qkv_params()
+        bq = bqkv[:s.dim] if bqkv is not None else wqkv.new_zeros(s.dim)
         # xn, the rows phase 1 normalised, is also LN1 for the kernel's Q product
         out = kb.fused_block(x, k, v, s.scale, self.norm1.weight.to(x.dtype),
-                             self.norm1.bias.to(x.dtype), a.qkv.weight[:s.dim].to(x.dtype),
+                             self.norm1.bias.to(x.dtype), wqkv[:s.dim].to(x.dtype),
                              bq.to(x.dtype), *tail, xn)
         return out, thw
 
@@ -629,21 +725,32 @@ class MultiScaleBlock(nn.Module):
             return pool_tokens_max(x, thw, s.skip_kernel, s.stride_q, pad, s.has_cls)[0]
         return x
 
+    def _branches(self, x: torch.Tensor, thw: THW, mask, return_attn: bool, rows):
+        """LN1, the attention (``rows``: of the output rows only) and the
+        skip of the unnormed input, cut to the same rows."""
+        xn = ops.layer_norm(x, self.norm1.weight, self.norm1.bias)
+        x_block, thw_new, *attn = self.attn(xn, thw, mask, return_attn, rows)
+        skip = self._skip(x, thw)
+        if rows is not None:
+            skip = skip[:, rows[0]:rows[0] + rows[1]]
+        return skip, x_block, thw_new, attn
+
     def forward_composite(
         self, x: torch.Tensor, thw: THW, mask: Optional[torch.Tensor] = None,
-        return_attn: bool = False,
+        return_attn: bool = False, rows: Optional[Tuple[int, int]] = None,
     ):
         """The block through K1 and K2 (the route of every block the
         whole-block kernels do not take); with ``return_attn``, through
-        :func:`attention_probs` and K2, returning the probabilities too."""
-        xn = ops.layer_norm(x, self.norm1.weight, self.norm1.bias)
-        x_block, thw_new, *attn = self.attn(xn, thw, mask, return_attn)
-        out = kb.fused_mlp_tail(self._skip(x, thw) + x_block, *self._tail_weights(x.dtype)[2:])
+        :func:`attention_probs` and K2, returning the probabilities too.
+        ``rows`` (first, count): those output rows only (the seq axis)."""
+        skip, x_block, thw_new, attn = self._branches(x, thw, mask, return_attn, rows)
+        out = kb.fused_mlp_tail(skip + x_block, *self._tail_weights(x.dtype, attn_proj=False)[2:])
         return (out, thw_new, *attn)
 
     def forward_train(
         self, x: torch.Tensor, thw: THW, mask: Optional[torch.Tensor] = None,
         drop: Optional[Tuple[torch.Tensor, torch.Tensor]] = None, return_attn: bool = False,
+        rows: Optional[Tuple[int, int]] = None,
     ):
         """The training route (the JAX composite at ``deterministic=False``):
         K1 forward with B8 backward (with ``return_attn``, the
@@ -651,16 +758,31 @@ class MultiScaleBlock(nn.Module):
         returned too), skip + drop_path(attention branch), then the B7 tail
         with the MLP-branch mask as its per-sample factor (ones without
         stochastic depth). The weights stay in their own dtype: the ops and
-        B7's Function cast them in the graph."""
-        xn = ops.layer_norm(x, self.norm1.weight, self.norm1.bias)
-        x_block, thw_new, *attn = self.attn(xn, thw, mask, return_attn)
+        B7's Function cast them in the graph. ``rows``: as
+        :meth:`forward_composite`'s."""
+        skip, x_block, thw_new, attn = self._branches(x, thw, mask, return_attn, rows)
         if drop is not None:
             x_block = ops.drop_path(x_block, drop[0])
             dp = drop[1]
         else:
             dp = torch.ones(x.shape[0], dtype=torch.float32, device=x.device)
-        out = kb.mlp_tail_train(self._skip(x, thw) + x_block, *self._tail_weights()[2:], dp)
+        out = kb.mlp_tail_train(skip + x_block, *self._tail_weights(attn_proj=False)[2:], dp)
         return (out, thw_new, *attn)
+
+    def forward_rows(self, x: torch.Tensor, thw: THW, rows: Tuple[int, int],
+                     drop: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                     ) -> Tuple[torch.Tensor, THW]:
+        """The rows [first, first + count) of the block's output from its
+        whole input ``x`` (the seq axis's stripe, ``models/csts.py``): on the
+        K1+K2 route and in training, K/V and the pooled Q from every token,
+        K1 on those Q rows, the skip and the tail (K2, B7) on those rows; a
+        whole-block route (B3, B4, B5) runs the block whole and keeps them."""
+        if self.training:
+            return self.forward_train(x, thw, drop=drop, rows=rows)
+        if block_route(self.spec, None, thw) == "composite":
+            return self.forward_composite(x, thw, rows=rows)
+        out, thw_new = self.forward(x, thw)
+        return out[:, rows[0]:rows[0] + rows[1]], thw_new
 
 
 def build_inframe_mask(thw: THW, num_audio_tokens: int) -> np.ndarray:

@@ -1,5 +1,11 @@
-"""Collectives over the default process group (``csts_tpu/parallel/collectives.py``;
+"""Collectives over the data axis (``csts_tpu/parallel/collectives.py``;
 reference ``slowfast/utils/distributed.py``).
+
+The data axis is the default process group, unless ``parallel/mesh.py``
+has installed a mesh with model, seq or pipe axes: then it is the group of
+the ranks that share this rank's place on those axes (:func:`set_data_group`),
+and :func:`world_size`, :func:`rank`, the sums and the gathers run over it.
+:func:`is_master_proc`, :func:`barrier` and :func:`any_rank` stay global.
 
 Every helper is the identity on one process (no group started): the one-rank
 path runs no collective. A group's tensors live on its backend's device:
@@ -29,26 +35,41 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor, distribute_tensor
 
 
+_DATA_GROUP = None  # the data axis's group under a mesh of several axes; None: the default
+
+
 def initialized() -> bool:
     return dist.is_available() and dist.is_initialized()
 
 
+def set_data_group(group) -> None:
+    """The group the data axis's collectives run over (None: the default)."""
+    global _DATA_GROUP
+    _DATA_GROUP = group
+
+
+def data_group():
+    return _DATA_GROUP
+
+
 def world_size() -> int:
-    return dist.get_world_size() if initialized() else 1
+    """The size of the data axis."""
+    return dist.get_world_size(_DATA_GROUP) if initialized() else 1
 
 
 def rank() -> int:
-    return dist.get_rank() if initialized() else 0
+    """This rank's index on the data axis."""
+    return dist.get_rank(_DATA_GROUP) if initialized() else 0
 
 
 def is_master_proc() -> bool:
-    """(distributed.py:160-173)"""
-    return rank() == 0
+    """(distributed.py:160-173) Global rank 0."""
+    return dist.get_rank() == 0 if initialized() else True
 
 
 def barrier() -> None:
-    """(distributed.py:176-185)"""
-    if world_size() > 1:
+    """(distributed.py:176-185) Every rank of every axis."""
+    if initialized() and dist.get_world_size() > 1:
         dist.barrier()
 
 
@@ -64,13 +85,14 @@ def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
     if world_size() == 1:
         return x
     y = x.detach().to(comm_device(), copy=True)
-    dist.all_reduce(y)
+    dist.all_reduce(y, group=_DATA_GROUP)
     return y.to(x.device)
 
 
 def any_rank(flag: bool) -> bool:
-    """Whether ``flag`` holds on some rank: one MAX all-reduce of an int."""
-    if world_size() == 1:
+    """Whether ``flag`` holds on some rank (of every axis): one MAX
+    all-reduce of an int."""
+    if not initialized() or dist.get_world_size() == 1:
         return flag
     t = torch.tensor([int(flag)], dtype=torch.int32, device=comm_device())
     dist.all_reduce(t, op=dist.ReduceOp.MAX)
@@ -88,12 +110,12 @@ def gather_objects(obj: Any) -> List[Any]:
     payload = torch.from_numpy(np.frombuffer(pickle.dumps(obj), dtype=np.uint8).copy()).to(dev)
     n = torch.tensor([payload.numel()], dtype=torch.int64, device=dev)
     sizes = [torch.empty_like(n) for _ in range(w)]
-    dist.all_gather(sizes, n)
+    dist.all_gather(sizes, n, group=_DATA_GROUP)
     sizes = [int(s.item()) for s in sizes]
     padded = torch.zeros(max(sizes), dtype=torch.uint8, device=dev)
     padded[:payload.numel()] = payload
     parts = [torch.empty_like(padded) for _ in range(w)]
-    dist.all_gather(parts, padded)
+    dist.all_gather(parts, padded, group=_DATA_GROUP)
     # the bytes are this program's own pickles, from the ranks of its group
     return [pickle.loads(p[:s].cpu().numpy().tobytes()) for p, s in zip(parts, sizes)]
 
@@ -101,17 +123,17 @@ def gather_objects(obj: Any) -> List[Any]:
 class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x: torch.Tensor) -> torch.Tensor:
-        w = dist.get_world_size()
+        w = world_size()
         x = x.contiguous()
         parts = [torch.empty_like(x) for _ in range(w)]
-        dist.all_gather(parts, x)
-        ctx.rows, ctx.rank = x.shape[0], dist.get_rank()
+        dist.all_gather(parts, x, group=_DATA_GROUP)
+        ctx.rows, ctx.rank = x.shape[0], rank()
         return torch.cat(parts)
 
     @staticmethod
     def backward(ctx, grad: torch.Tensor) -> torch.Tensor:
         grad = grad.contiguous().clone()
-        dist.all_reduce(grad)
+        dist.all_reduce(grad, group=_DATA_GROUP)
         return grad[ctx.rank * ctx.rows:(ctx.rank + 1) * ctx.rows]
 
 
@@ -130,16 +152,31 @@ def local(t: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def whole(t: torch.Tensor) -> torch.Tensor:
+def whole(t: torch.Tensor, like: torch.Tensor = None) -> torch.Tensor:
     """A DTensor gathered whole on every rank (all ranks call it; no
-    gradient flows), else ``t``."""
-    return t.full_tensor() if isinstance(t, DTensor) else t
+    gradient flows), and then a part of the model axis's split (``t`` or
+    the parameter ``like`` it is a state of, marked ``model_split``)
+    gathered over that axis; else ``t``."""
+    how = getattr(like if like is not None else t, "model_split", None)
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
+    if how is not None:
+        from csts_torch.parallel import mesh
+
+        t = mesh.whole_split(t, how)
+    return t
 
 
 def shard_like(p: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
-    """``value`` (a whole tensor of ``p``'s shape, in its own dtype) placed as
-    ``p`` is: this rank's shard of it when ``p`` is a DTensor (every rank
-    holds ``value``, so no rank sends), else a copy on ``p``'s device."""
+    """``value`` (a whole tensor of ``p``'s whole shape, in its own dtype)
+    placed as ``p`` is: this rank's part of it when ``p`` is split on the
+    model axis, this rank's shard of that when ``p`` is a DTensor (every
+    rank holds ``value``, so no rank sends), else a copy on ``p``'s device."""
+    how = getattr(p, "model_split", None)
+    if how is not None:
+        from csts_torch.parallel import mesh
+
+        value = mesh.shard_split(value, how)
     if isinstance(p, DTensor):
         return distribute_tensor(value.to(p.device), p.device_mesh, p.placements,
                                  src_data_rank=None)

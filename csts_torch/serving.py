@@ -76,10 +76,32 @@ class _Slot:
 class GazePredictor:
     """Batched gaze-heatmap inference with shape bucketing."""
 
-    def __init__(self, cfg, state_dict, batch_sizes: Sequence[int] = (1, 8), device=None):
+    _replicas: Optional[List["GazePredictor"]] = None  # with ``devices=``: one a device
+
+    def __init__(self, cfg, state_dict, batch_sizes: Sequence[int] = (1, 8), device=None,
+                 devices: Optional[Sequence] = None):
+        """``devices``: a list of devices (JAX's ``mesh=``, the data axis):
+        one replica of the weights on each, with its own buffers and CUDA
+        graphs at a 1/len(devices) share of every bucket. A bucket's rows
+        are split over the replicas in order and the answers concatenated
+        on the first device; every bucket must divide by the number of
+        devices. ``device`` is then ignored."""
         from csts_torch.models.csts import CSTS, build_spec
         from csts_torch.train.losses import frame_softmax
 
+        if devices is not None:
+            k = len(devices)
+            bad = [b for b in batch_sizes if b % k]
+            if not k or bad:
+                raise ValueError(f"batch buckets {bad} do not divide over {k} devices")
+            self._replicas = [GazePredictor(cfg, state_dict, [b // k for b in batch_sizes],
+                                            device=d) for d in devices]
+            first = self._replicas[0]
+            self.device, self.cfg, self.spec, self.model = (first.device, cfg, first.spec,
+                                                            first.model)
+            self._program = first._program
+            self._setup(batch_sizes, cfg.DATA.TEST_CROP_SIZE, cfg.DATA.MEAN, cfg.DATA.STD)
+            return
         self.device = resolve_device(device)
         self.cfg = cfg
         self.spec = build_spec(cfg)
@@ -91,6 +113,11 @@ class GazePredictor:
         self._program = lambda video, audio: frame_softmax(self.model(video, audio),
                                                            temperature=2.0)
         self._setup(batch_sizes, cfg.DATA.TEST_CROP_SIZE, cfg.DATA.MEAN, cfg.DATA.STD)
+
+    @property
+    def devices(self) -> List[torch.device]:
+        """The replicas' devices (one: this predictor's own)."""
+        return [r.device for r in self._replicas] if self._replicas else [self.device]
 
     def _setup(self, batch_sizes, crop, mean, std) -> None:
         self.batch_sizes = sorted(int(b) for b in batch_sizes)
@@ -205,6 +232,8 @@ class GazePredictor:
                              "through preprocess_frames first")
         n = video.shape[0]
         bucket = self._bucket(n)
+        if self._replicas is not None:
+            return self._serve_replicas(video, audio, n, bucket)
         with self._lock:
             if n > bucket:
                 return self.forward(video.to(self.device, torch.float32),
@@ -212,6 +241,23 @@ class GazePredictor:
             slot = self._slot(bucket, video, audio)
             self._copy_in(slot, (video, audio), n)
             return self._run(slot)[:n]
+
+    def _serve_replicas(self, video, audio, n: int, bucket: int) -> torch.Tensor:
+        """The request over the replicas: padded to its bucket with the last
+        clip (above the largest bucket, n rows split as evenly as they go),
+        replica i serving the i-th share of the rows; every replica is
+        launched before any answer is read."""
+        k = len(self._replicas)
+        if n < bucket:
+            pad = bucket - n
+            video = torch.cat([video, video[n - 1:n].expand(pad, *video.shape[1:])])
+            audio = torch.cat([audio, audio[n - 1:n].expand(pad, *audio.shape[1:])])
+        rows = video.shape[0]
+        bounds = [rows * i // k for i in range(k + 1)]
+        with self._lock:
+            outs = [r.serve(video[a:b], audio[a:b])
+                    for r, a, b in zip(self._replicas, bounds[:-1], bounds[1:]) if b > a]
+            return torch.cat([o.to(self.device) for o in outs])[:n]
 
     def _copy_in(self, slot: _Slot, inputs, n: int) -> None:
         """The request's n clips into the slot's buffers, and rows n.. the

@@ -74,6 +74,13 @@ def write_csvs(groups, out_dir: str):
     return paths
 
 
+def plot(groups, out_dir: str):
+    """The figures' step of ``tools/plot_logs.py``: without matplotlib (never
+    imported here) it says so, as the JAX tool does, and makes none."""
+    print("matplotlib not available — CSVs only", file=sys.stderr)
+    return []
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("log", help="stdout.log (or any file with json_stats lines)")
@@ -83,7 +90,7 @@ def main(argv=None):
     if not groups:
         print(f"no json_stats records found in {args.log}", file=sys.stderr)
         return 1
-    for p in write_csvs(groups, args.out):
+    for p in write_csvs(groups, args.out) + plot(groups, args.out):
         print(p)
     final = groups.get("test_final")
     if final:

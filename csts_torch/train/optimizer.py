@@ -70,17 +70,31 @@ def weight_decay_mask(model: nn.Module, cfg: Config) -> Dict[str, bool]:
     return out
 
 
-def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+def global_norm(grads: List[torch.Tensor], params: Optional[List[torch.Tensor]] = None
+                ) -> torch.Tensor:
     """sqrt(Σ‖g‖²) over all gradients (optax.global_norm); the shards of
-    FSDP's DTensor gradients add their squares over the ranks."""
-    sharded = [g.to_local() for g in grads if isinstance(g, collectives.DTensor)]
-    if not sharded:
+    FSDP's DTensor gradients add their squares over the data axis, and the
+    parts of the model axis's split (the parameters ``mesh`` marks
+    ``model_split``) over the model axis."""
+    from csts_torch.parallel import mesh
+
+    split = [getattr(p, "model_split", None) is not None for p in params or []]
+    split += [False] * (len(grads) - len(split))
+    sq = {}  # (sharded over data, split over model) -> the local sum of squares
+    for g, sp in zip(grads, split):
+        key = (isinstance(g, collectives.DTensor), sp)
+        sq.setdefault(key, []).append(collectives.local(g))
+    if list(sq) == [(False, False)]:  # one process or whole parameters
         return torch.nn.utils.get_total_norm(grads, norm_type=2.0)
-    plain = [g for g in grads if not isinstance(g, collectives.DTensor)]
-    sq = collectives.all_reduce_sum(torch.nn.utils.get_total_norm(sharded, norm_type=2.0) ** 2)
-    if plain:
-        sq = sq + torch.nn.utils.get_total_norm(plain, norm_type=2.0) ** 2
-    return sq.sqrt()
+    total = None
+    for (sharded, sp), gs in sorted(sq.items()):
+        part = torch.nn.utils.get_total_norm(gs, norm_type=2.0) ** 2
+        if sharded:
+            part = collectives.all_reduce_sum(part)
+        if sp:
+            part = mesh.all_reduce(part, mesh.MODEL_AXIS)
+        total = part if total is None else total + part
+    return total.sqrt()
 
 
 BETAS = (0.9, 0.999)
@@ -187,7 +201,7 @@ class Optimizer:
                     continue
                 buf = (self.local.state[p][k] if r == collectives.rank()
                        else torch.empty(v[0], dtype=v[1], device=p.device))
-                torch.distributed.broadcast(buf, src=r)
+                torch.distributed.broadcast(buf, group=collectives.data_group(), group_src=r)
                 state[k] = buf
             if master:
                 states.append(state)
@@ -209,7 +223,8 @@ class Optimizer:
         first, second, count = {}, {}, 0
         bf16_mu = isinstance(self.local, AdamWBF16Mu)
         for name, p in self.named.items():
-            state = {k: collectives.whole(v) for k, v in states[name].items()}
+            state = {k: collectives.whole(v, like=p) if torch.is_tensor(v) and v.dim() else v
+                     for k, v in states[name].items()}
             zeros = lambda dtype=p.dtype: torch.zeros(p.shape, dtype=dtype)  # noqa: E731
             if self.method == "sgd":
                 buf = state.get("momentum_buffer")
@@ -267,7 +282,7 @@ class Optimizer:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in params]
-        norm = global_norm(grads)
+        norm = global_norm(grads, params)
         grads = [collectives.local(g) for g in grads]  # FSDP: each rank clips its shards
         if self.clip_value:
             for g in grads:
@@ -310,7 +325,8 @@ def construct_optimizer(model: nn.Module, cfg: Config) -> Optimizer:
     else:
         raise NotImplementedError(f"Does not support {method} optimizer")
     if solver.ZERO1 and collectives.initialized():
-        opt = ZeroRedundancyOptimizer(groups, optimizer_class=cls, **kwargs)
+        opt = ZeroRedundancyOptimizer(groups, optimizer_class=cls,
+                                      process_group=collectives.data_group(), **kwargs)
     else:
         opt = cls(groups, **kwargs)
     return Optimizer(opt, solver.CLIP_GRAD_L2NORM, solver.CLIP_GRAD_VAL, method, named)

@@ -84,9 +84,17 @@ def create_train_state(
         init_params(model, generator if generator is not None else torch.Generator().manual_seed(0))
     model = model.float().to(device).train()
     net = mesh.wrap_for_training(model, cfg)
-    ema = ({n: p.detach().float().clone() for n, p in model.named_parameters()}
+    ema = ({n: _ema_like(p) for n, p in model.named_parameters()}
            if cfg.SOLVER.EMA_DECAY > 0 else None)
     return TrainState(model, construct_optimizer(model, cfg), 0, ema, net)
+
+
+def _ema_like(p: torch.Tensor) -> torch.Tensor:
+    """An fp32 copy of ``p`` for the EMA, split as ``p`` is on the model axis."""
+    t = p.detach().float().clone()
+    if getattr(p, "model_split", None) is not None:
+        t.model_split = p.model_split
+    return t
 
 
 def _main_loss(cfg: Config, logits: torch.Tensor, preds: torch.Tensor,
@@ -258,6 +266,7 @@ def make_train_step(cfg: Config, spec: CSTSSpec, steps_per_epoch: int,
             stats, preds = _grad_cache(cfg, net, batch, drop, accum_steps)
         else:
             stats, preds = _grad_mean(cfg, net, batch, drop, accum_steps)
+        mesh.sync_grads()  # the model axes' gradients computed in part
         grad_norm = state.optimizer.step(lr)
         state.step += 1
         if state.ema is not None:

@@ -85,8 +85,6 @@ def _check_options(cfg: Config) -> None:
         raise NotImplementedError(
             f"TRAIN.CHECKPOINT_BACKEND {cfg.TRAIN.CHECKPOINT_BACKEND!r}: only npz is ported; "
             "the card's machine has no orbax, and rank 0's npz serves every sharding")
-    if cfg.TENSORBOARD.ENABLE:
-        raise NotImplementedError("TENSORBOARD.ENABLE is not ported yet (ROADMAP A.9)")
 
 
 @contextlib.contextmanager
@@ -141,6 +139,11 @@ def _fit(cfg: Config, device, train_loader, val_loader) -> step_lib.TrainState:
     val_meter = ValGazeMeter(len(val_loader), cfg, device)
     epoch_timer = EpochTimer()
     profile = {"done": False}  # the TRAIN.PROFILE_* trace is taken once a call
+    writer = None
+    if cfg.TENSORBOARD.ENABLE and collectives.is_master_proc():
+        from csts_torch.utils.tensorboard import TensorboardWriter
+
+        writer = TensorboardWriter(cfg)
 
     _PREEMPTED.clear()
     previous = _install_preemption_handler()
@@ -151,7 +154,7 @@ def _fit(cfg: Config, device, train_loader, val_loader) -> step_lib.TrainState:
             train_loader.set_epoch(cur_epoch, start_iter=epoch_start_iter)
             epoch_timer.epoch_tic()
             stopped_at = _train_epoch(train_loader, state, train_step, train_meter, cur_epoch,
-                                      cfg, device, profile, start_iter=epoch_start_iter)
+                                      cfg, device, profile, writer, start_iter=epoch_start_iter)
             epoch_timer.epoch_toc()
             if stopped_at is not None:
                 cu.save_checkpoint(cfg.OUTPUT_DIR, state, cur_epoch - 1, cfg,
@@ -176,15 +179,18 @@ def _fit(cfg: Config, device, train_loader, val_loader) -> step_lib.TrainState:
     finally:
         if previous is not None:
             signal.signal(signal.SIGTERM, previous)
+        if writer is not None:
+            writer.close()
     logger.info("Training finished!")
     return state
 
 
 def _train_epoch(train_loader, state, train_step, meter, cur_epoch: int, cfg, device,
-                 profile: dict, start_iter: int = 0) -> Optional[int]:
+                 profile: dict, writer=None, start_iter: int = 0) -> Optional[int]:
     """One epoch from iteration ``start_iter``. Returns the next iteration to
     run when the epoch was preempted, else None. ``profile["done"]`` marks
-    the TRAIN.PROFILE_* window as taken."""
+    the TRAIN.PROFILE_* window as taken; ``writer`` (rank 0's
+    TENSORBOARD.ENABLE) takes each iteration's scalars."""
     meter.iter_tic()
     data_size = len(train_loader)
     dataset_name = cfg.TRAIN.DATASET
@@ -212,6 +218,13 @@ def _train_epoch(train_loader, state, train_step, meter, cur_epoch: int, cfg, de
             f1, recall, precision, threshold = metrics.best_f1(sums, dataset_name)
             meter.update_stats(f1, recall, precision, threshold, loss, lr,
                                mb_size=batch["labels"].shape[0] * collectives.world_size())
+            if writer is not None:
+                scalars = {"Train/loss": loss, "Train/lr": lr, "Train/F1": f1,
+                           "Train/Recall": recall, "Train/Precision": precision}
+                if "egonce_loss" in stats:
+                    scalars["Train/kldiv_loss"] = float(stats["kldiv_loss"])
+                    scalars["Train/nce_loss"] = float(stats["egonce_loss"])
+                writer.add_scalars(scalars, global_step=data_size * cur_epoch + cur_iter)
             if "egonce_loss" in stats and (cur_iter + 1) % cfg.LOG_PERIOD == 0:
                 logger.info("Iter %d: kld_loss %.4f, egonce_loss %.4f, loss %.4f", cur_iter + 1,
                             float(stats["kldiv_loss"]), float(stats["egonce_loss"]), loss)

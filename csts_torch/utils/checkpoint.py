@@ -152,8 +152,10 @@ def _float_leaf(arr: np.ndarray) -> np.ndarray:
 
 
 def _check_shapes(path: str, lay, leaves, offset: int, named) -> None:
+    from csts_torch.parallel import mesh
+
     for i, ((jpath, leaf), arr) in enumerate(zip(lay, leaves)):
-        shape = tuple(named[leaf.name].shape)
+        shape = mesh.whole_shape(named[leaf.name])
         want = tuple(shape[j] for j in leaf.perm) if leaf.perm else shape
         if tuple(arr.shape) != want:
             raise ValueError(f"{path} leaf {offset + i} ({jpath}): shape {arr.shape}, "

@@ -1508,3 +1508,63 @@ def test_small_classifier_through_kernels(gen, cls, crop):
     top2 = want.topk(2, dim=-1).values
     decided = (top2[:, 0] - top2[:, 1]) > 2 * err
     assert bool((logits.argmax(-1) == want.argmax(-1))[decided].all())
+
+
+@pytest.mark.parametrize("axis", ["pipe", "model", "seq"])
+def test_model_axes_two_ranks_share_the_card(gen, tmp_path, axis):
+    """``small_cfg`` at 6 video blocks on two gloo ranks sharing the card
+    under a mesh of ``axis`` = 2 (``tests/torch_axes_workers.py``), against
+    one process on the card from the same weights, batch and masks: the
+    fp32 eval logits within 1e-4 of max(1, the largest |logit|) (the kernels
+    sum in other orders at other batch sizes), one training step at
+    chip_smoke's whole-step bars (loss 1e-5 relative, each gradient 1e-3 of
+    its norm plus 1e-6 of the whole gradient's, the params within 2·lr),
+    and each rank's forward and step launching the kernels."""
+    import numpy as np
+
+    from chip_smoke import STEP_GRAD_FLOOR, STEP_GRAD_RTOL, STEP_LOSS_RTOL
+    from csts_torch.models.csts import CSTS, build_spec, init_params
+    from csts_torch.ops import sample_drop_masks
+    from csts_torch.train import step as step_lib
+    from test_torch_multiproc import run_ranks
+    from torch_axes_workers import axes_cfg, axes_worker, whole_grads, whole_params
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = axes_cfg(4)
+    spec = build_spec(cfg)
+    model = CSTS(spec)
+    init_params(model, torch.Generator().manual_seed(5))
+    sd = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    rng = np.random.default_rng(6)
+    hm = rng.uniform(0.0, 1.0, (4, 8, 8, 8)).astype(np.float32)
+    batch = {"video": torch.from_numpy(rng.standard_normal((4, 8, 32, 32, 3), np.float32)),
+             "audio": torch.from_numpy(rng.standard_normal((4, 8, 32, 32, 1), np.float32)),
+             "labels_hm": torch.from_numpy(hm / hm.sum(axis=(2, 3), keepdims=True))}
+    drop = sample_drop_masks(spec.video_blocks, 4, torch.Generator().manual_seed(9))
+    torch.save({"sd": sd, "batch": batch, "drop": drop}, tmp_path / "inputs.pt")
+    cbatch = {k: v.cuda() for k, v in batch.items()}
+    cdrop = [None if m is None else tuple(x.cuda() for x in m) for m in drop]
+    model = model.cuda().eval()
+    with torch.inference_mode():
+        want_logits = model(cbatch["video"], cbatch["audio"]).cpu()
+    one = step_lib.create_train_state(cfg, spec, state_dict=sd, device="cuda")
+    stats, _ = step_lib.make_train_step(cfg, spec, 10)(one, cbatch, None, drop=cdrop)
+    want = {"loss": float(stats["loss"]), "grads": whole_grads(one.model),
+            "params": whole_params(one.model), "lr": float(stats["lr"])}
+    run_ranks(axes_worker, str(tmp_path / "inputs.pt"), str(tmp_path), {axis: 2}, "cuda",
+              timeout=300)
+    norm = lambda t: float(torch.linalg.vector_norm(t))  # noqa: E731
+    total = float(np.sqrt(sum(norm(g) ** 2 for g in want["grads"].values())))
+    for r in range(2):
+        got = torch.load(tmp_path / f"rank{r}.pt")
+        err = float((got["logits"] - want_logits).abs().max())
+        assert err <= 1e-4 * max(1.0, float(want_logits.abs().max())), (r, err)
+        assert abs(got["stats"]["loss"] - want["loss"]) <= STEP_LOSS_RTOL * abs(want["loss"])
+        for n, w in want["grads"].items():
+            assert norm(got["grads"][n] - w) <= STEP_GRAD_RTOL * norm(w) + STEP_GRAD_FLOOR * total, n
+        for n, w in want["params"].items():
+            assert float((got["params"][n] - w).abs().max()) <= 2 * want["lr"], n
+        for key in ("launches_forward", "launches_step"):
+            assert got[key]["attention"] > 0, (key, got[key])
+        assert got["launches_step"]["attention_bwd"] > 0 and got["launches_step"]["mlp_tail_train"] > 0
+        assert got["counts"].get(axis, 0) > 0, got["counts"]

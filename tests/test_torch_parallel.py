@@ -237,7 +237,7 @@ def test_loader_stripes_match_gaze_loader(shuffle, drop_last):
 
 def test_mesh_helpers(monkeypatch, tmp_path):
     """Without a group: one rank, the whole batch, the model unwrapped. The
-    model/seq/pipe axes raise naming ROADMAP A.8, and more local ranks than
+    model/seq/pipe axes must divide the run's ranks, and more local ranks than
     visible cards raise. ``init_from_cfg`` starts a one-rank gloo group on
     the CPU (run_net's path) and a step wraps the model in DDP there."""
     cfg = presets.small_cfg(4)
@@ -251,10 +251,14 @@ def test_mesh_helpers(monkeypatch, tmp_path):
     monkeypatch.undo()
     assert mesh.local_rows(4) == (0, 4) and collectives.world_size() == 1
     assert collectives.gather_objects("x") == ["x"] and not collectives.any_rank(False)
+    # the model axis is ported (tests/test_torch_model_axes.py): the guard
+    # is now that the axes divide the run's ranks
     cfg.PARALLEL.MODEL = 2
-    with pytest.raises(NotImplementedError, match="A.8"):
+    with pytest.raises(ValueError, match="divide"):
         mesh.check_axes(cfg)
-    cfg.PARALLEL.MODEL = 1
+    cfg.NUM_DEVICES = 2
+    mesh.check_axes(cfg)
+    cfg.PARALLEL.MODEL, cfg.NUM_DEVICES = 1, 1
     assert mesh.init_from_cfg(cfg, "cpu") == torch.device("cpu")
     try:
         assert dist.get_backend() == "gloo" and collectives.world_size() == 1
