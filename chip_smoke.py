@@ -188,7 +188,13 @@ Phases (any failure exits non-zero; nothing is caught):
      the plain predictor at buckets 1 and 8 (eager, capture, replay), the
      preprocessing CLI's ``check`` and ``splits`` over a synthetic split,
      whether an ffmpeg binary is present, and the TENSORBOARD.ENABLE
-     records of phase 7's second run.
+     records of phase 7's second run; 11e, the axes composed: SEQ=2 x
+     PIPE=2 (the forward and the step, the pipelined run on the stripes)
+     and DATA=2 x MODEL=2 under SOLVER.ZERO1 (the step, each rank's moment
+     share, rank 0's npz loaded into one process) on four gloo ranks
+     sharing the card, SOLVER.FSDP under PIPE=2 and under SEQ=2 on two
+     gloo ranks whose data axis is a one-rank NCCL group each, every
+     layout against one process, its launches and ms a rank.
 Every process the run starts is audited (``ProcessAudit``): a thread reads
 this process's descendants from ``/proc`` twice a second, and each phase
 ends with a ``phase X: processes after: n`` line naming those alive. At the
@@ -2648,10 +2654,10 @@ def _par_eval(rank: int, cfgs: list, device: str) -> dict:
 EVAL_METRICS = ("f1", "recall", "precision", "threshold", "auc")
 
 
-PAR_TASKS = {"train": _par_train, "timed": _par_timed, "eval": _par_eval}  # + phase 11's "axes"
+PAR_TASKS = {"train": _par_train, "timed": _par_timed, "eval": _par_eval}  # + phase 11's
 
 
-def _par_rank(rank: int, port: int, tasks: list, out: str, device: str) -> None:
+def _par_rank(rank: int, init: str, world: int, tasks: list, out: str, device: str) -> None:
     """One spawned rank: joins the gloo group on the card, runs ``tasks``
     ([(name, args)]) in order, saves {name: result} for the parent. A fatal
     signal prints the rank's Python stack (``faulthandler``)."""
@@ -2663,7 +2669,7 @@ def _par_rank(rank: int, port: int, tasks: list, out: str, device: str) -> None:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     torch.distributed.init_process_group(
-        "gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=PAR_WORLD, rank=rank,
+        "gloo", init_method=init, world_size=world, rank=rank,
         timeout=datetime.timedelta(seconds=300))
     try:
         res = {}
@@ -2677,24 +2683,27 @@ def _par_rank(rank: int, port: int, tasks: list, out: str, device: str) -> None:
     torch.save(res, os.path.join(out, f"rank{rank}.pt"))
 
 
-def spawn_ranks(tasks: list, out: str, device: str, timeout: float = 900.0) -> list:
-    """Runs ``tasks`` on PAR_WORLD spawned ranks; a rank that raises or a
-    group past ``timeout`` seconds fails the phase (the ranks are killed)."""
-    ctx = torch.multiprocessing.start_processes(
-        _par_rank, args=(mesh.free_port(), tasks, out, device), nprocs=PAR_WORLD, join=False,
-        start_method="spawn")
-    deadline = time.monotonic() + timeout
-    try:
-        while not ctx.join(timeout=1):
-            assert time.monotonic() < deadline, f"the ranks ran past {timeout} s"
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.kill()
-            p.join(10)
-        left = procs.wait_gone([p.pid for p in ctx.processes], AUDIT_GRACE_S)
-        assert not left, f"ranks alive after the kill: {left}"
-    return [torch.load(os.path.join(out, f"rank{r}.pt")) for r in range(PAR_WORLD)]
+def spawn_ranks(tasks: list, out: str, device: str, timeout: float = 900.0,
+                world: int = PAR_WORLD) -> list:
+    """Runs ``tasks`` on ``world`` spawned ranks meeting through a store
+    file (``mesh.rendezvous``); a rank that raises or a group past
+    ``timeout`` seconds fails the phase (the ranks are killed)."""
+    with mesh.rendezvous() as init:
+        ctx = torch.multiprocessing.start_processes(
+            _par_rank, args=(init, world, tasks, out, device), nprocs=world, join=False,
+            start_method="spawn")
+        deadline = time.monotonic() + timeout
+        try:
+            while not ctx.join(timeout=1):
+                assert time.monotonic() < deadline, f"the ranks ran past {timeout} s"
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join(10)
+            left = procs.wait_gone([p.pid for p in ctx.processes], AUDIT_GRACE_S)
+            assert not left, f"ranks alive after the kill: {left}"
+    return [torch.load(os.path.join(out, f"rank{r}.pt")) for r in range(world)]
 
 
 def _par_eval_cfgs(root: str, rng: np.random.Generator) -> list:
@@ -3569,6 +3578,7 @@ AX_TIMED = 3  # timed forwards and steps a rank, after the checked ones
 AX_FWD_KERNELS = ("attention", "mlp_tail", "block", "pool_block", "decoder_block",
                   "t2_upsample")
 AX_STEP_KERNELS = ("attention", "attention_bwd", "mlp_tail_train", "t2_upsample")
+AX_PIPE_BLOCKS = 8  # the flagship's pipelined run: v4-v11 (v12 and v13 differ in dim_out)
 
 
 def _ax_events_ms(fn, n: int) -> list:
@@ -3587,38 +3597,56 @@ def _ax_events_ms(fn, n: int) -> list:
 def _ax_pipe_blocks(model, batch: int) -> int:
     """How many video blocks the installed pipe axis runs as a pipeline at
     ``batch`` (the runs ``CSTS.forward`` finds)."""
-    n = 0
-    for vs, ve in model.spec.video_groups:
-        i = vs
-        while i < ve:
-            k = model._pipelined_run_len(i, ve, batch, None)
-            n, i = n + k, i + max(k, 1)
-    return n
+    from csts_torch.parallel import pipeline
+
+    S = pipeline.pipe_size()
+    if S is None or batch % pipeline.effective_microbatches(S):
+        return 0
+    return sum(n for _, n in model.pipe_runs())
 
 
-def _ax_step(cfg, sd: dict, batch: dict, drop: list, timed: int) -> dict:
-    """One fp32 step of ``make_train_step`` from ``sd`` with the global
-    masks: the stats, every gradient and the params after it (whole, on the
-    host), the training kernels' launches, then ``timed`` more steps' ms."""
+def _ax_step(cfg, sd: dict, batch: dict, drop: list, timed: int, save: str = None,
+             ref: str = None) -> dict:
+    """One fp32 step of ``make_train_step`` from ``sd`` on this rank's data
+    stripe of ``batch`` with the global masks: the stats, every gradient and
+    the params after it (whole, on the host; with ``ref``, the path of the
+    one process's, only their ``_step_errors`` against it, so that no rank
+    ships a copy of the model), the training kernels' launches, what the
+    rank holds (its moments' parameters, the split leaves and the shapes of
+    their moments, whether every parameter is a DTensor), with ``save`` the
+    TrainState saved there (rank 0 writes the npz), then ``timed`` more
+    steps' ms."""
     spec = build_spec(cfg)
     state = train_lib.create_train_state(cfg, spec, state_dict=sd, device="cuda")
     step = train_lib.make_train_step(cfg, spec, STEPS_PER_EPOCH)
-    batch = {k: v.cuda() for k, v in batch.items()}
+    lo, rows = mesh.local_rows(batch["video"].shape[0])
+    batch = {k: v[lo:lo + rows].cuda() for k, v in batch.items()}
     drop = [None if m is None else tuple(x.cuda() for x in m) for m in drop]
     reset_launches()
     st, _ = step(state, batch, None, drop=drop)
     launches = {n: WRAPPERS[n].launches for n in AX_STEP_KERNELS}
+    named = dict(state.model.named_parameters())
+    opt = state.optimizer.local
+    split = {n: p for n, p in named.items() if getattr(p, "model_split", None) is not None}
     res = {"stats": [{k: float(v) for k, v in st.items()}], "launches": launches,
+           "rows": (lo, rows),
            "grads": {n: collectives.whole(p.grad, like=p).detach().float().cpu()
-                     for n, p in state.model.named_parameters()},
+                     for n, p in named.items()},
            "params": {n: collectives.whole(p.detach(), like=p).float().cpu()
-                      for n, p in state.model.named_parameters()},
-           "split": sum(getattr(p, "model_split", None) is not None
-                        for p in state.model.parameters()),
-           "split_moments": sum(
-               tuple(state.optimizer.local.state[p]["exp_avg"].shape) == tuple(p.shape)
-               for p in state.model.parameters()
-               if getattr(p, "model_split", None) is not None)}
+                      for n, p in named.items()},
+           "split": len(split),
+           # the split leaves whose moments this rank keeps, and how many of
+           # those moments are split as their leaves are
+           "split_kept": sum("exp_avg" in opt.state.get(p, {}) for p in split.values()),
+           "split_moments": sum(tuple(opt.state[p]["exp_avg"].shape) == tuple(p.shape)
+                                for p in split.values() if "exp_avg" in opt.state.get(p, {})),
+           "moments_of": sorted(n for n, p in named.items() if "exp_avg" in opt.state.get(p, {})),
+           "all_dtensor": all(isinstance(p, collectives.DTensor) for p in named.values())}
+    if ref is not None:
+        res["errors"] = _step_errors(res["stats"], res.pop("grads"), res.pop("params"),
+                                     torch.load(ref), sum(s_["lr"] for s_ in res["stats"]))
+    if save is not None:
+        res["npz"] = cu.save_checkpoint(save, state, 0, cfg)
     res["ms"] = _ax_events_ms(lambda: step(state, batch, None, drop=drop), timed)
     return res
 
@@ -3643,7 +3671,7 @@ def _ax_forward(sd: dict, video, audio, m) -> dict:
             "pipe_blocks": _ax_pipe_blocks(model, video.shape[0])}
 
 
-def _ax_task(rank: int, inputs: str, device: str) -> dict:
+def _ax_task(rank: int, inputs: str, ref: str, device: str) -> dict:
     """Phase 11 on one rank of ``spawn_ranks``' group: for each axis, a mesh
     of that axis at 2 installed, the forward and the step; {axis: result}."""
     d = torch.load(inputs)
@@ -3651,7 +3679,7 @@ def _ax_task(rank: int, inputs: str, device: str) -> dict:
     for axis in AX_AXES:
         with mesh.use(mesh.make_mesh(**{AX_KW[axis]: 2})) as m:
             fwd = _ax_forward(d["sd"], d["video"], d["audio"], m)
-            step = _ax_step(_par_cfg(), d["sd"], d["batch"], d["drop"], AX_TIMED)
+            step = _ax_step(_par_cfg(), d["sd"], d["batch"], d["drop"], AX_TIMED, ref=ref)
             res[axis] = {"forward": fwd, "step": step, "coords": dict(m.coords),
                          "counts": dict(mesh.COUNTS)}
             mesh.COUNTS.clear()
@@ -3661,12 +3689,212 @@ def _ax_task(rank: int, inputs: str, device: str) -> dict:
 
 PAR_TASKS["axes"] = _ax_task
 
+# --- 11e: the axes composed (four ranks sharing the card) ---------------------
+#
+# SEQ=2 x PIPE=2 (the forward and the step on stripes inside the stages) and
+# DATA=2 x MODEL=2 under SOLVER.ZERO1 (the step, each rank's moment share,
+# rank 0's npz) on four gloo ranks; SOLVER.FSDP under PIPE=2 and under SEQ=2
+# on two gloo ranks whose data axis is a one-rank NCCL group each (gloo
+# cannot run DTensor's collectives on CUDA tensors, and NCCL refuses two
+# ranks on one device in one group).
+
+AX_WORLD = 4
+AX_COMPOSED = {"seq_pipe": ({"seq": 2, "pipe": 2}, "ddp"), "data_model_zero1": ({"model": 2},
+                                                                                "zero1")}
+AX_FSDP = {"pipe_fsdp": {"pipe": 2}, "seq_fsdp": {"seq": 2}}
+
+
+def _ax_mesh(axes: dict):
+    return mesh.make_mesh(**{AX_KW[a]: n for a, n in axes.items()})
+
+
+def _ax_compose_task(rank: int, inputs: str, ref: str, root: str, device: str) -> dict:
+    """11e on one of AX_WORLD ranks: under each of AX_COMPOSED's meshes the
+    step (ZeRO-1's saving its TrainState under ``root``), and under SEQ x
+    PIPE the forward too."""
+    d = torch.load(inputs)
+    res = {}
+    for tag, (axes, mode) in AX_COMPOSED.items():
+        with mesh.use(_ax_mesh(axes)) as m:
+            out = {"coords": dict(m.coords)}
+            if tag == "seq_pipe":
+                out["forward"] = _ax_forward(d["sd"], d["video"], d["audio"], m)
+            out["step"] = _ax_step(_par_cfg(mode), d["sd"], d["batch"], d["drop"], AX_TIMED,
+                                   save=os.path.join(root, tag) if mode == "zero1" else None,
+                                   ref=ref)
+            out["counts"] = dict(mesh.COUNTS)
+            mesh.COUNTS.clear()
+            res[tag] = out
+        torch.cuda.empty_cache()
+    return res
+
+
+def _ax_fsdp_task(rank: int, inputs: str, ref: str, device: str) -> dict:
+    """11e's FSDP layouts on one of two ranks: the data axis of each mesh
+    (one rank) replaced by a one-rank NCCL group of this rank's own, over
+    which FSDP2 shards and gathers; the step under each of AX_FSDP."""
+    import torch.distributed as dist
+
+    d = torch.load(inputs)
+    nccl = [dist.new_group([r], backend="nccl") for r in range(dist.get_world_size())]
+    res = {}
+    for tag, axes in AX_FSDP.items():
+        m = _ax_mesh(axes)
+        m.groups[mesh.DATA_AXIS] = nccl[rank]
+        with mesh.use(m):
+            res[tag] = {"coords": dict(m.coords), "backend": dist.get_backend(nccl[rank]),
+                        "step": _ax_step(_par_cfg("fsdp"), d["sd"], d["batch"], d["drop"],
+                                         AX_TIMED, ref=ref),
+                        "counts": dict(mesh.COUNTS)}
+            mesh.COUNTS.clear()
+        torch.cuda.empty_cache()
+    return res
+
+
+PAR_TASKS["axes_compose"] = _ax_compose_task
+PAR_TASKS["axes_fsdp"] = _ax_fsdp_task
+
+
+def _moment_errors(first: dict, second: dict, grads: dict) -> dict:
+    """A TrainState's moments after one Adam step against the one process's
+    clipped gradients g (first = 0.1·g, second = 0.001·g²), each at phase
+    6's gradient bar carried through (relative norm STEP_GRAD_RTOL plus
+    STEP_GRAD_FLOOR of the whole gradient's norm; for the second moment
+    times 0.001·2·max|g|): the worst share of its bar."""
+    norm = lambda t: float(torch.linalg.vector_norm(t))  # noqa: E731
+    total = float(np.sqrt(sum(norm(g) ** 2 for g in grads.values())))
+    worst = {"first": 0.0, "second": 0.0}
+    for n, g in grads.items():
+        gbar = STEP_GRAD_RTOL * norm(g) + STEP_GRAD_FLOOR * total
+        worst["first"] = max(worst["first"], norm(first[n].float() - 0.1 * g) / (0.1 * gbar))
+        bar2 = 0.001 * 2 * float(g.abs().max()) * gbar + 1e-30
+        worst["second"] = max(worst["second"], norm(second[n].float() - 0.001 * g * g) / bar2)
+    return worst
+
+
+def axes_composed(root: str, path: str, ref_path: str, one_fwd: dict, one_step: dict,
+                  franks: list) -> dict:
+    """11e: the composed layouts on four ranks against one process, the
+    ZeRO-1 npz loaded into one process; ``franks``: each of two ranks'
+    results of the FSDP layouts (run after 11a-c in their group), against
+    one process."""
+    from csts_torch.parallel import pipeline
+    from csts_torch.tools import check_line, heatmap_check
+
+    res = {}
+    t0 = time.perf_counter()
+    ranks = [rk["axes_compose"] for rk in spawn_ranks([("axes_compose", (path, ref_path, root))],
+                                                      root, "cuda", world=AX_WORLD)]
+    res["ranks_s"] = time.perf_counter() - t0
+    mb = pipeline.effective_microbatches(2)
+    for tag, (axes, mode) in AX_COMPOSED.items():
+        out = res[tag] = {"ranks": []}
+        for r, rk in enumerate(ranks):
+            got, step = rk[tag], rk[tag]["step"]
+            err = step["errors"]
+            _check_step_errors(f"11e {tag} rank {r}", err)
+            for axis in axes:
+                assert got["counts"].get(axis, 0) > 0, (tag, r, got["counts"])
+            row = {"coords": got["coords"], "errors": err, "launches_step": step["launches"],
+                   "step_ms": step["ms"], "collectives": got["counts"], "rows": step["rows"]}
+            line = (f"phase axes 11e {tag} rank {r} {got['coords']}: fp32 step rows "
+                    f"{step['rows']} of {PAR_BATCH} vs one process: loss rel err "
+                    f"{err['loss_rel_err']:.3g}, worst gradient bar share "
+                    f"{err['grad_bar_share_worst']:.3g} ({err['grad_bar_worst_param']}), params "
+                    f"max|Δ| {err['param_max_abs_err']:.3g} (bar {err['param_bar']:.3g})")
+            if tag == "seq_pipe":
+                fwd = got["forward"]
+                chk = heatmap_check(fwd["logits"], one_fwd["logits"])
+                assert chk["ok"], (tag, r, chk)
+                n_pipe = fwd["pipe_blocks"]
+                assert n_pipe == AX_PIPE_BLOCKS, n_pipe
+                plan_f = _ax_plan("seq_pipe", one_fwd["launches"], n_pipe, n_pipe // 2, mb)
+                plan_s = _ax_plan("seq_pipe", one_step["launches"], n_pipe, n_pipe // 2, mb)
+                assert fwd["launches"] == plan_f, (tag, r, fwd["launches"], plan_f)
+                assert step["launches"] == plan_s, (tag, r, step["launches"], plan_s)
+                row.update(check=chk, launches_forward=fwd["launches"], plan_forward=plan_f,
+                           plan_step=plan_s, forward_ms=fwd["ms"])
+                line += (f"; forward bf16 batch {AX_EVAL_BATCH} vs one process: "
+                         f"{check_line(chk)}; launches forward {fwd['launches']} step "
+                         f"{step['launches']} (plan met: {n_pipe} pipelined blocks, "
+                         f"{n_pipe // 2} a stage, M={mb}, K1 and the tail on each stripe)")
+            else:
+                partner = next(o[tag]["step"] for o in ranks
+                               if o[tag]["coords"]["model"] == got["coords"]["model"]
+                               and o[tag]["coords"]["data"] != got["coords"]["data"])
+                mine, theirs = set(step["moments_of"]), set(partner["moments_of"])
+                assert mine and not mine & theirs and mine | theirs == set(one_step["grads"]), tag
+                assert step["split"] > 0 and step["split_moments"] == step["split_kept"], step
+                assert step["split_kept"] + partner["split_kept"] == step["split"], tag
+                row.update(moments_held=len(mine), split_leaves=step["split"],
+                           split_moments_held=step["split_moments"])
+                line += (f"; ZeRO-1 moments of {len(mine)} of {len(one_step['grads'])} parameters "
+                         f"(the data partner {len(theirs)}, disjoint), {step['split']} split "
+                         f"leaves, {step['split_moments']} of whose moments it keeps, split")
+            line += f"; collectives {got['counts']}"
+            out["ranks"].append(row)
+            log(line)
+            log(f"phase axes 11e {tag} rank {r} timing (four ranks sharing one card over "
+                f"gloo, not a scaling figure): "
+                + (f"forward ms {[round(x, 2) for x in got['forward']['ms']]}, "
+                   if tag == "seq_pipe" else "")
+                + f"step ms {[round(x, 2) for x in step['ms']]} (CUDA events) ({CARD})")
+    # rank 0's ZeRO-1 npz: the one-process TrainState, whole
+    npz = ranks[0]["data_model_zero1"]["step"]["npz"]
+    assert all(rk["data_model_zero1"]["step"].get("npz") == npz for rk in ranks)
+    cfg = _par_cfg()
+    state = train_lib.create_train_state(cfg, build_spec(cfg), state_dict=torch.load(path)["sd"],
+                                         device="cuda")
+    cu.load_checkpoint(npz, state)
+    params = {n: p.detach().float().cpu() for n, p in state.model.named_parameters()}
+    count, first, second = state.optimizer.moments()
+    first, second = ({n: t.float().cpu() for n, t in d.items()} for d in (first, second))
+    lr = ranks[0]["data_model_zero1"]["step"]["stats"][0]["lr"]
+    perr = max(float((params[n] - p).abs().max()) for n, p in one_step["params"].items())
+    merr = _moment_errors(first, second, one_step["grads"])
+    assert state.step == 1 and count == 1, (state.step, count)
+    assert perr <= 2 * lr and merr["first"] <= 1.0 and merr["second"] <= 1.0, (perr, merr)
+    res["zero1_npz"] = {"path_leaves": len(np.load(npz).files), "param_max_abs_err": perr,
+                        "param_bar": 2 * lr, "moment_bar_share_worst": merr}
+    log(f"phase axes 11e data_model_zero1 npz: rank 0's TrainState ({res['zero1_npz']['path_leaves']}"
+        f" leaves) loaded into one process on the card: step {state.step}, Adam count {count}, "
+        f"params max|Δ| {perr:.3g} vs the one-process step (bar {2 * lr:.3g}), moments' worst "
+        f"bar share first {merr['first']:.3g} second {merr['second']:.3g}")
+    del state, params, first, second
+    torch.cuda.empty_cache()
+
+    for tag, axes in AX_FSDP.items():
+        out = res[tag] = {"ranks": []}
+        for r, rk in enumerate(franks):
+            got, step = rk[tag], rk[tag]["step"]
+            err = step["errors"]
+            _check_step_errors(f"11e {tag} rank {r}", err)
+            assert step["all_dtensor"], (tag, r)
+            for axis in axes:
+                assert got["counts"].get(axis, 0) > 0, (tag, r, got["counts"])
+            out["ranks"].append({"coords": got["coords"], "errors": err,
+                                 "launches_step": step["launches"], "step_ms": step["ms"],
+                                 "collectives": got["counts"], "data_backend": got["backend"]})
+            log(f"phase axes 11e {tag} rank {r} {got['coords']}: SOLVER.FSDP over a one-rank "
+                f"{got['backend']} data group, the {'/'.join(axes)} axis over gloo: fp32 step vs "
+                f"one process: loss rel err {err['loss_rel_err']:.3g}, worst gradient bar share "
+                f"{err['grad_bar_share_worst']:.3g} ({err['grad_bar_worst_param']}), params "
+                f"max|Δ| {err['param_max_abs_err']:.3g} (bar {err['param_bar']:.3g}); every "
+                f"parameter a DTensor after the step; launches {step['launches']}; collectives "
+                f"{got['counts']}")
+            log(f"phase axes 11e {tag} rank {r} timing (two ranks sharing one card, not a "
+                f"scaling figure): step ms {[round(x, 2) for x in step['ms']]} (CUDA events) "
+                f"({CARD})")
+    return res
+
 
 def _ax_plan(axis: str, one: dict, n_pipe: int, per_stage: int, microbatches: int) -> dict:
     """Each kernel's launches a rank: one process's, except under the pipe
-    axis, where each of the ``n_pipe`` pipelined blocks' launches leave and
-    the rank's own ``per_stage`` blocks run once a microbatch."""
-    if axis != "pipe":
+    axis (``axis`` names it, alone or with others), where each of the
+    ``n_pipe`` pipelined blocks' launches leave and the rank's own
+    ``per_stage`` blocks run once a microbatch (on the seq axis's stripes
+    too: a stripe's block launches K1 and its tail once)."""
+    if "pipe" not in axis:
         return dict(one)
     per_block = {"attention": 1, "mlp_tail": 1, "attention_bwd": 1, "mlp_tail_train": 1}
     return {n: c - per_block.get(n, 0) * (n_pipe - per_stage * microbatches)
@@ -3708,10 +3936,13 @@ def axes_phase(rng: np.random.Generator) -> dict:
             f"{_ms(float(np.median(one_step['ms'])))} ms (CUDA events, medians of {AX_TIMED}); "
             f"launches forward {one_fwd['launches']}, step {one_step['launches']} ({CARD})")
         t0 = time.perf_counter()
-        ranks = [rk["axes"] for rk in spawn_ranks([("axes", (path,))], root, "cuda")]
+        # 11e's FSDP layouts run in the same two-rank group, after 11a-c
+        ref_path = os.path.join(root, "ref.pt")
+        torch.save({k: one_step[k] for k in ("stats", "grads", "params")}, ref_path)
+        both = spawn_ranks([("axes", (path, ref_path)), ("axes_fsdp", (path, ref_path))], root,
+                           "cuda")
+        ranks, fsdp_ranks = [rk["axes"] for rk in both], [rk["axes_fsdp"] for rk in both]
         res["ranks_s"] = time.perf_counter() - t0
-        ref = {"stats": one_step["stats"], "grads": one_step["grads"],
-               "params": one_step["params"]}
         for tag, axis in zip("abc", AX_AXES):
             out = res[axis] = {"ranks": []}
             for r, rk in enumerate(ranks):
@@ -3719,8 +3950,7 @@ def axes_phase(rng: np.random.Generator) -> dict:
                 fwd, step = got["forward"], got["step"]
                 chk = heatmap_check(fwd["logits"], one_fwd["logits"])
                 assert chk["ok"], (axis, r, chk)
-                err = _step_errors(step["stats"], step["grads"], step["params"], ref,
-                                   sum(s["lr"] for s in step["stats"]))
+                err = step["errors"]
                 _check_step_errors(f"{axis} rank {r}", err)
                 n_pipe = fwd["pipe_blocks"] if axis == "pipe" else 0
                 per_stage, mb = n_pipe // 2, pipeline.effective_microbatches(2)
@@ -3730,7 +3960,7 @@ def axes_phase(rng: np.random.Generator) -> dict:
                 assert step["launches"] == plan_s, (axis, r, step["launches"], plan_s)
                 assert got["counts"].get(axis, 0) > 0, (axis, r, got["counts"])
                 if axis == "pipe":
-                    assert n_pipe == 8, n_pipe  # v4-v11: v12 and v13 differ in dim_out
+                    assert n_pipe == AX_PIPE_BLOCKS, n_pipe
                 if axis == "model":
                     assert step["split"] > 0 and step["split_moments"] == step["split"], step
                 out["ranks"].append({
@@ -3754,6 +3984,10 @@ def axes_phase(rng: np.random.Generator) -> dict:
                     f"card, not a scaling figure): forward ms {[round(x, 2) for x in fwd['ms']]}"
                     f", step ms {[round(x, 2) for x in step['ms']]} (CUDA events) ({CARD})")
         res["d"] = axes_one_process(root, inputs)
+        t0 = time.perf_counter()
+        res["e"] = axes_composed(root, path, ref_path, one_fwd, one_step, fsdp_ranks)
+        res["e"]["s"] = time.perf_counter() - t0
+        log(f"phase axes 11e: {res['e']['s']:.2f} s")
     res["s"] = time.perf_counter() - t_phase
     log(f"phase axes: {res['s']:.2f} s")
     return res

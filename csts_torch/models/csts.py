@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -456,19 +456,40 @@ class CSTS(nn.Module):
         n = ((j - lo) // S) * S
         return n if n >= 2 else 0
 
-    def _pipelined_blocks(self, lo: int, n: int, x: torch.Tensor, thw: THW, drop):
+    def pipe_runs(self) -> List[Tuple[int, int]]:
+        """(first, count) of each video block run the installed pipe axis
+        pipelines at a batch its microbatches divide (``forward``'s runs)."""
+        S = pipeline.pipe_size()
+        if S is None:
+            return []
+        runs = []
+        for vs, ve in self.spec.video_groups:
+            i = vs
+            while i < ve:
+                n = self._pipelined_run_len(i, ve, pipeline.effective_microbatches(S), None)
+                if n:
+                    runs.append((i, n))
+                i += max(n, 1)
+        return runs
+
+    def _pipelined_blocks(self, lo: int, n: int, x: torch.Tensor, thw: THW, drop,
+                          striped: bool):
         """Video blocks [lo, lo + n) through ``pipeline.pipeline_blocks``:
-        microbatch m takes the rows m, m + M, ... of each block's masks."""
+        microbatch m takes the rows m, m + M, ... of each block's masks. On
+        the seq axis's stripes (``striped``) each block is a ``_seq_block``
+        (its input gathered whole, its stripe's rows computed; the run keeps
+        the token count, so the output stays striped)."""
         M = pipeline.effective_microbatches(pipeline.pipe_size())
 
         def apply_one(j, z, m):
             d = drop[lo + j]
             if d is not None:
                 d = tuple(t[m::M] for t in d)
+            if striped:
+                return self._seq_block(self.blocks[lo + j], z, thw, d)[0]
             return self._encoder_block(self.blocks[lo + j], z, thw, d)[0]
 
-        return pipeline.pipeline_blocks(apply_one, n, x,
-                                        lambda j: list(self.blocks[lo + j].parameters()))
+        return pipeline.pipeline_blocks(apply_one, self.blocks[lo:lo + n], x)
 
     def forward(self, video: torch.Tensor, audio: torch.Tensor, return_embed: bool = False,
                 drop=None, return_spatial_attn: bool = False,
@@ -533,7 +554,7 @@ class CSTS(nn.Module):
             while i < ve:
                 n_pipe = self._pipelined_run_len(i, ve, x.shape[0], capture)
                 if n_pipe:
-                    x = self._pipelined_blocks(i, n_pipe, x, thw, drop)
+                    x = self._pipelined_blocks(i, n_pipe, x, thw, drop, x_seq)
                     i += n_pipe
                     continue
                 if x_seq:

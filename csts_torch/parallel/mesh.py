@@ -37,7 +37,9 @@ import collections
 import contextlib
 import dataclasses
 import itertools
-import socket
+import os
+import shutil
+import tempfile
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -59,11 +61,17 @@ AXES = (DATA_AXIS, PIPE_AXIS, SEQ_AXIS, MODEL_AXIS)
 COUNTS: collections.Counter = collections.Counter()
 
 
-def free_port() -> int:
-    """A free TCP port on the loopback interface."""
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+@contextlib.contextmanager
+def rendezvous():
+    """A ``file://`` init method for the ranks of one host: a store file in
+    a fresh temporary directory, removed on exit. No port is chosen, so two
+    groups started at once cannot meet on one (a port freed by one process
+    and bound later by another could be taken in between)."""
+    d = tempfile.mkdtemp(prefix="csts-group-")
+    try:
+        yield "file://" + os.path.join(d, "store")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
 
 
 @dataclasses.dataclass
@@ -176,17 +184,12 @@ def make_mesh(num_devices: Optional[int] = None, model_parallel: int = 1,
 
 def check_axes(cfg: Config) -> None:
     """The axes divide the run's ranks (the ``finalize`` guard over
-    NUM_SHARDS × NUM_DEVICES processes). The seq axis does not compose with
-    the pipe axis here."""
+    NUM_SHARDS × NUM_DEVICES processes). Any of them compose."""
     p = cfg.PARALLEL
     world = cfg.NUM_SHARDS * cfg.NUM_DEVICES
     if world % (p.MODEL * p.SEQ * p.PIPE):
         raise ValueError(f"{world} ranks do not divide into PARALLEL.MODEL/SEQ/PIPE "
                          f"{p.MODEL}/{p.SEQ}/{p.PIPE}")
-    if p.SEQ > 1 and p.PIPE > 1:
-        raise NotImplementedError(
-            f"PARALLEL.SEQ {p.SEQ} with PIPE {p.PIPE}: the pipelined run takes whole tokens; "
-            "the seq axis composes with the data and model axes in the port")
 
 
 def mesh_from_cfg(cfg: Config) -> Mesh:
@@ -205,10 +208,10 @@ def init_from_cfg(cfg: Config, device, local_rank: int = 0,
     """Starts the default group of ``NUM_SHARDS × NUM_DEVICES`` processes as
     rank ``SHARD_ID · NUM_DEVICES + local_rank`` and returns this rank's
     device (on CUDA the card ``local_rank``, made current). ``init_method``
-    is the rendezvous (``tcp://host:port``); a one-shard group without one
-    meets on a free loopback port. With model, seq or pipe axes the run's
-    mesh is installed (:func:`mesh_from_cfg`). Raises when the group does
-    not start."""
+    is the rendezvous (``tcp://host:port``, or ``file://path`` on one host);
+    a group of one rank needs none (an in-memory store). With model, seq or
+    pipe axes the run's mesh is installed (:func:`mesh_from_cfg`). Raises
+    when the group does not start."""
     check_axes(cfg)
     world = cfg.NUM_SHARDS * cfg.NUM_DEVICES
     rank = cfg.SHARD_ID * cfg.NUM_DEVICES + local_rank
@@ -222,12 +225,15 @@ def init_from_cfg(cfg: Config, device, local_rank: int = 0,
         backend = "nccl"
     else:
         backend = "gloo"
+    meet = {"init_method": init_method}
     if init_method is None:
         if cfg.NUM_SHARDS > 1:
             raise ValueError("several shards need --init-method tcp://host:port")
-        init_method = f"tcp://127.0.0.1:{free_port()}"
-    dist.init_process_group(backend, init_method=init_method, world_size=world, rank=rank,
-                            device_id=device if backend == "nccl" else None)
+        if world > 1:
+            raise ValueError(f"{world} ranks need an init_method (run_net makes one)")
+        meet = {"store": dist.HashStore()}
+    dist.init_process_group(backend, world_size=world, rank=rank,
+                            device_id=device if backend == "nccl" else None, **meet)
     p = cfg.PARALLEL
     if p.MODEL * p.SEQ * p.PIPE > 1:
         set_current(mesh_from_cfg(cfg))
@@ -250,7 +256,9 @@ def wrap_for_training(model: nn.Module, cfg: Config) -> nn.Module:
     ``model``), or under SOLVER.FSDP ``model`` itself with each transformer
     block and then the whole model sharded by FSDP2's ``fully_shard`` (in
     place: the parameters become DTensors, whole again inside each block's
-    forward). Under an installed mesh the model axis first splits the
+    forward; the blocks of the pipe axis's pipelined runs stay in the
+    model's group, whole from the model's forward to the end of its
+    backward). Under an installed mesh the model axis first splits the
     Megatron pairs in place (:func:`split_model`; FSDP then shards the parts
     again over the data axis's group), and a data axis of one rank takes no
     DDP. Without a group, ``model``."""
@@ -262,10 +270,7 @@ def wrap_for_training(model: nn.Module, cfg: Config) -> nn.Module:
         split_model(model, m)
     axes = m is not None and any(m.size(a) > 1 for a in (PIPE_AXIS, SEQ_AXIS, MODEL_AXIS))
     if cfg.SOLVER.FSDP:
-        if m is not None and (m.size(PIPE_AXIS) > 1 or m.size(SEQ_AXIS) > 1):
-            raise NotImplementedError("SOLVER.FSDP with the seq or pipe axis is not ported: "
-                                      "FSDP composes with the data and model axes")
-        from torch.distributed.fsdp import fully_shard
+        from torch.distributed.fsdp import fully_shard, register_fsdp_forward_method
 
         from csts_torch.models.mvit import MultiScaleBlock
 
@@ -280,9 +285,19 @@ def wrap_for_training(model: nn.Module, cfg: Config) -> nn.Module:
         # the split's mark
         split = {n: p.model_split for n, p in model.named_parameters()
                  if getattr(p, "model_split", None) is not None}
+        # the pipelined runs' blocks stay in the root's group: the root
+        # gathers them before the forward and reduce-scatters their gradients
+        # after the whole backward, so a stage's own backward (a nested
+        # autograd.grad, parallel/pipeline.py) differentiates the unsharded
+        # tensors it computed with and fires no FSDP hook
+        piped = {id(model.blocks[j]) for lo, n in getattr(model, "pipe_runs", list)()
+                 for j in range(lo, lo + n)}
         for mod in list(model.modules()):
-            if isinstance(mod, MultiScaleBlock):
+            if isinstance(mod, MultiScaleBlock) and id(mod) not in piped:
                 fully_shard(mod, **kw)
+                if m is not None and m.size(SEQ_AXIS) > 1:
+                    # a stripe's block runs forward_rows (models/csts.py _seq_block)
+                    register_fsdp_forward_method(mod, "forward_rows")
         fully_shard(model, **kw)
         for n, p in model.named_parameters():
             if n in split:
@@ -456,29 +471,37 @@ def module_params(module: nn.Module, prefixes: Tuple[str, ...] = ("",)) -> list:
 
 
 @torch.no_grad()
+def sum_partial(axis: str) -> None:
+    """Sums over ``axis`` the gradients its ranks computed in part since the
+    last call (a missing gradient counts as zeros; under FSDP each rank's
+    shard, which the axis's ranks hold alike), as one flat all-reduce."""
+    items = list(_PARTIAL.pop(axis, {}).values())
+    if not items:
+        return
+    params = [it if isinstance(it, torch.Tensor) else it[0].get_parameter(it[1])
+              for it in items]
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    grads = [collectives.local(p.grad) for p in params]
+    flat = all_reduce(torch.cat([g.reshape(-1) for g in grads]), axis)
+    off = 0
+    for g in grads:
+        g.copy_(flat[off:off + g.numel()].view_as(g))
+        off += g.numel()
+
+
 def sync_grads() -> None:
-    """Sums, over each axis, the gradients its ranks computed in part since
-    the last call (a missing gradient counts as zeros; under FSDP each
-    rank's shard, which the axis's ranks hold alike), as one flat
-    all-reduce an axis; every rank of an axis calls it in the same order.
-    The model axis goes first: a pipe stage marks only its own blocks'
-    shared pool weights, so their heads' parts are summed within the stage
-    before the pipe axis sums the stages."""
+    """:func:`sum_partial` over the model, seq and pipe axes, in that order;
+    every rank of an axis calls it in the same order. A pipe stage marks
+    only its own blocks on the model and seq axes (the heads' parts of the
+    shared pool weights, the stripes' parts of every weight), and those
+    groups hold the ranks of one stage: so the stage's parts are summed
+    within it before the pipe axis sums the stages. Summed the other way,
+    a stage's rank would keep its own stripe's part of the other stage's
+    blocks."""
     for axis in (MODEL_AXIS, SEQ_AXIS, PIPE_AXIS):
-        items = list(_PARTIAL.pop(axis, {}).values())
-        if not items:
-            continue
-        params = [it if isinstance(it, torch.Tensor) else it[0].get_parameter(it[1])
-                  for it in items]
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        grads = [collectives.local(p.grad) for p in params]
-        flat = all_reduce(torch.cat([g.reshape(-1) for g in grads]), axis)
-        off = 0
-        for g in grads:
-            g.copy_(flat[off:off + g.numel()].view_as(g))
-            off += g.numel()
+        sum_partial(axis)
 
 
 def split_model(model: nn.Module, m: Optional[Mesh] = None) -> nn.Module:

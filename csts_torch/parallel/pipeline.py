@@ -23,6 +23,19 @@ input gradients are summed over the pipe axis, so every rank has the
 gradient of the run's input (the transpose of JAX's replicated input).
 Each rank's gradients of the run's parameters are those of its own stage:
 ``mesh.sync_grads`` sums them over the pipe axis.
+
+The other axes compose (JAX's pipeline is a partial-manual ``shard_map``
+over ``pipe`` with the seq and model shardings left to GSPMD). On the seq
+axis's stripes each stage's blocks run on its rank's stripe, the exchange
+carries the stripes between the stages of one seq coordinate (the pipe
+group of every coordinate is its own), and the result stays striped; the
+seq collectives inside a stage's blocks, and those in the nested backward,
+run in one order on the ranks of a seq group, which hold one stage. Under
+FSDP2 the run's blocks belong to the model's own group (``mesh.
+wrap_for_training``): their parameters are whole from the model's forward
+to the end of its backward, the stage differentiates those unsharded
+tensors, and FSDP's reduce-scatter of their gradients follows the outer
+backward, so no FSDP hook fires inside the nested one.
 """
 
 from __future__ import annotations
@@ -30,6 +43,7 @@ from __future__ import annotations
 from typing import Callable, List, Optional, Sequence
 
 import torch
+from torch import nn
 
 from csts_torch.parallel import mesh
 
@@ -136,14 +150,20 @@ class _Pipeline(torch.autograd.Function):
         return (dx, None, None, None, None, None, *pgrads, *rest)
 
 
-def pipeline_blocks(apply_one: Callable[[int, torch.Tensor, int], torch.Tensor], L: int,
-                    x: torch.Tensor, params_of: Callable[[int], Sequence[torch.Tensor]],
+def pipeline_blocks(apply_one: Callable[[int, torch.Tensor, int], torch.Tensor],
+                    blocks: Sequence[nn.Module], x: torch.Tensor,
                     microbatches: Optional[int] = None) -> torch.Tensor:
-    """Runs L shape-preserving blocks as an S-stage pipeline over the
-    installed pipe axis. ``apply_one(j, z, m)`` applies block j of the run
-    to microbatch m's activations ``z``; ``params_of(j)`` lists block j's
-    parameters. L must divide by S and the batch by M; the result is
-    the whole (B, ...) output on every rank."""
+    """Runs the L = len(``blocks``) shape-preserving blocks as an S-stage
+    pipeline over the installed pipe axis. ``apply_one(j, z, m)`` applies
+    block j of the run to microbatch m's activations ``z``; the stage's
+    backward returns the gradients of the parameters ``blocks[j]`` holds
+    now (under FSDP2 the unsharded ones it computes with), and
+    ``mesh.sync_grads`` sums them over the pipe axis by (module, name),
+    which follows FSDP2's swaps. L must divide by S and the batch by M; the
+    result is the whole (B, ...) output on every rank (under the seq axis,
+    every rank's stripe, which the exchange carries between the stages of
+    one seq coordinate)."""
+    L = len(blocks)
     S = pipe_size()
     assert S is not None, "pipeline_blocks needs an installed mesh with a pipe axis"
     assert L % S == 0, f"block stack of {L} does not divide over pipe={S}"
@@ -152,9 +172,9 @@ def pipeline_blocks(apply_one: Callable[[int, torch.Tensor, int], torch.Tensor],
     assert B % M == 0, f"batch {B} does not divide into {M} microbatches"
     s, per = mesh.axis_index(mesh.PIPE_AXIS), L // S
     stage = _stage_fn(apply_one, s * per, per)
-    mine = [p for j in range(s * per, (s + 1) * per) for p in params_of(j)]
-    everyone = [p for j in range(L) for p in params_of(j)]
-    mesh.note_partial(mesh.PIPE_AXIS, everyone)
+    mine = [p for b in blocks[s * per:(s + 1) * per] for p in b.parameters()]
+    everyone = [p for b in blocks for p in b.parameters()]
+    mesh.note_partial(mesh.PIPE_AXIS, [it for b in blocks for it in mesh.module_params(b)])
     if torch.is_grad_enabled() and (x.requires_grad or any(p.requires_grad for p in mine)):
         mine_ids = {id(p) for p in mine}
         others = [p for p in everyone if id(p) not in mine_ids]

@@ -16,7 +16,8 @@ raises with no CUDA.
 Several processes: ``NUM_DEVICES`` ranks a shard (one a card, spawned
 here; the CPU with ``--device cpu``, over gloo) times ``--num-shards``
 shards, each started with its ``--shard-id`` and the same ``--init-method
-tcp://host:port``:
+tcp://host:port`` (one shard's ranks meet through a ``file://`` store in a
+temporary directory unless one is given):
 
     python -m csts_torch.tools.run_net --cfg X.yaml --num-shards 2 --shard-id 0 \\
         --init-method tcp://10.0.0.1:29500 NUM_DEVICES 8 ...
@@ -29,6 +30,7 @@ and no loader worker (``GazeLoader.close``), outlives the call.
 from __future__ import annotations
 
 import argparse
+import contextlib
 from typing import Optional, Sequence
 
 import torch
@@ -100,20 +102,20 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                            "cards visible")
     if local == 1:
         return _rank_main(0, cfg, device, args.init_method)
-    init_method = args.init_method
-    if init_method is None and cfg.NUM_SHARDS == 1:
-        init_method = f"tcp://127.0.0.1:{mesh.free_port()}"
-    ctx = torch.multiprocessing.start_processes(
-        _rank_main, args=(cfg, device, init_method), nprocs=local, join=False,
-        start_method="spawn")
-    try:
-        while not ctx.join():  # raises when a rank fails, after stopping the others
-            pass
-    finally:  # this process raised or was interrupted: no rank outlives it
-        for p in ctx.processes:
-            if p.is_alive():
-                p.kill()
-            p.join()
+    meet = (mesh.rendezvous() if args.init_method is None and cfg.NUM_SHARDS == 1
+            else contextlib.nullcontext(args.init_method))
+    with meet as init_method:
+        ctx = torch.multiprocessing.start_processes(
+            _rank_main, args=(cfg, device, init_method), nprocs=local, join=False,
+            start_method="spawn")
+        try:
+            while not ctx.join():  # raises when a rank fails, after stopping the others
+                pass
+        finally:  # this process raised or was interrupted: no rank outlives it
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join()
     return {}
 
 

@@ -47,7 +47,7 @@ from torch import nn
 from torch.distributed.optim import ZeroRedundancyOptimizer
 
 from csts_torch.config import Config
-from csts_torch.parallel import collectives
+from csts_torch.parallel import collectives, mesh
 
 # the reference's no_weight_decay() names, and the audio branch's twins
 POS_EMBED_NAMES = {
@@ -173,11 +173,13 @@ class Optimizer:
         return float(self.opt.param_groups[0]["lr"])
 
     def _states(self) -> Optional[Dict[str, dict]]:
-        """Each parameter's whole optimizer state by name; under ZeRO-1 on
-        rank 0 only (None elsewhere): every rank calls it, and each
-        parameter's moments come from the rank that keeps them as tensor
-        broadcasts (ZeroRedundancyOptimizer's own consolidation pickles
-        every rank's state through the group)."""
+        """Each parameter's optimizer state by name (a model-axis part's
+        state still split); under ZeRO-1 on the ranks of data index 0 only
+        (None elsewhere): every rank calls it, and each parameter's moments
+        come from the data rank that keeps them as tensor broadcasts over
+        the data group (ZeroRedundancyOptimizer's own consolidation pickles
+        every rank's state through the group). Each model-axis coordinate
+        has such a rank, so the parts can be gathered whole there."""
         if not isinstance(self.opt, ZeroRedundancyOptimizer):
             return {name: self.opt.state.get(p, {}) for name, p in self.named.items()}
         params = self.params
@@ -190,7 +192,7 @@ class Optimizer:
         meta = {}
         for r, part in enumerate(collectives.gather_objects(mine)):
             meta.update({i: (r, m) for i, m in part.items()})
-        master = collectives.is_master_proc()
+        keeper = collectives.rank() == 0
         states = []
         for i, p in enumerate(params):
             r, m = meta[i]
@@ -203,9 +205,9 @@ class Optimizer:
                        else torch.empty(v[0], dtype=v[1], device=p.device))
                 torch.distributed.broadcast(buf, group=collectives.data_group(), group_src=r)
                 state[k] = buf
-            if master:
+            if keeper:
                 states.append(state)
-        if not master:
+        if not keeper:
             return None
         by_param = {id(p): st for p, st in zip(params, states)}
         return {name: by_param[id(p)] for name, p in self.named.items()}
@@ -225,7 +227,7 @@ class Optimizer:
         for name, p in self.named.items():
             state = {k: collectives.whole(v, like=p) if torch.is_tensor(v) and v.dim() else v
                      for k, v in states[name].items()}
-            zeros = lambda dtype=p.dtype: torch.zeros(p.shape, dtype=dtype)  # noqa: E731
+            zeros = lambda dtype=p.dtype: torch.zeros(mesh.whole_shape(p), dtype=dtype)  # noqa: E731
             if self.method == "sgd":
                 buf = state.get("momentum_buffer")
                 first[name] = buf if buf is not None else zeros()
@@ -236,6 +238,8 @@ class Optimizer:
             else:
                 first[name] = zeros(torch.bfloat16 if bf16_mu else p.dtype)
                 second[name] = zeros()
+        if isinstance(self.opt, ZeroRedundancyOptimizer) and not collectives.is_master_proc():
+            return None  # a data rank 0 at another place on the model, seq or pipe axis
         return count, first, second
 
     def load_moments(self, count: int, first: Dict[str, torch.Tensor],

@@ -1311,7 +1311,7 @@ def _group_op(name: str, rank: int) -> None:
     torch.cuda.synchronize()
 
 
-def group_worker(rank: int, backend: str, port: int, out: str) -> None:
+def group_worker(rank: int, backend: str, init: str, out: str) -> None:
     """One of two ranks on device 0: what ``backend`` does at
     ``init_process_group`` and with each of GROUP_OPS on CUDA tensors, in its
     own words, to ``out/{backend}{rank}.json``."""
@@ -1324,7 +1324,7 @@ def group_worker(rank: int, backend: str, port: int, out: str) -> None:
     res = {}
     try:
         dist.init_process_group(
-            backend, init_method=f"tcp://127.0.0.1:{port}", world_size=2, rank=rank,
+            backend, init_method=init, world_size=2, rank=rank,
             timeout=datetime.timedelta(seconds=30),
             device_id=torch.device("cuda", 0) if backend == "nccl" else None)
     except Exception as exc:  # noqa: BLE001 — the test reads what the backend says
@@ -1353,15 +1353,13 @@ def test_two_ranks_on_one_card_need_gloo(gen, tmp_path):
     import json
     import time
 
-    from csts_torch.parallel.mesh import free_port
-
     got = {}
     for backend in ("nccl", "gloo"):
         out = tmp_path / backend
         out.mkdir()
         ctx = torch.multiprocessing.start_processes(
-            group_worker, args=(backend, free_port(), str(out)), nprocs=2, join=False,
-            start_method="spawn")
+            group_worker, args=(backend, f"file://{out / 'store'}", str(out)), nprocs=2,
+            join=False, start_method="spawn")
         deadline = time.monotonic() + 90
         try:
             while not ctx.join(timeout=1):
@@ -1520,6 +1518,17 @@ def test_model_axes_two_ranks_share_the_card(gen, tmp_path, axis):
     chip_smoke's whole-step bars (loss 1e-5 relative, each gradient 1e-3 of
     its norm plus 1e-6 of the whole gradient's, the params within 2·lr),
     and each rank's forward and step launching the kernels."""
+    _axes_share_the_card(tmp_path, {axis: 2}, 2)
+
+
+def test_seq_with_pipe_four_ranks_share_the_card(gen, tmp_path):
+    """The same at sp2 x pp2 on four gloo ranks sharing the card: the
+    pipelined run's stages on the seq axis's stripes (K1 and B7 on each
+    stripe's rows inside the stages' nested backward)."""
+    _axes_share_the_card(tmp_path, {"seq": 2, "pipe": 2}, 4)
+
+
+def _axes_share_the_card(tmp_path, axes: dict, world: int) -> None:
     import numpy as np
 
     from chip_smoke import STEP_GRAD_FLOOR, STEP_GRAD_RTOL, STEP_LOSS_RTOL
@@ -1551,11 +1560,11 @@ def test_model_axes_two_ranks_share_the_card(gen, tmp_path, axis):
     stats, _ = step_lib.make_train_step(cfg, spec, 10)(one, cbatch, None, drop=cdrop)
     want = {"loss": float(stats["loss"]), "grads": whole_grads(one.model),
             "params": whole_params(one.model), "lr": float(stats["lr"])}
-    run_ranks(axes_worker, str(tmp_path / "inputs.pt"), str(tmp_path), {axis: 2}, "cuda",
-              timeout=300)
+    run_ranks(axes_worker, str(tmp_path / "inputs.pt"), str(tmp_path), axes, "cuda",
+              world=world, timeout=300)
     norm = lambda t: float(torch.linalg.vector_norm(t))  # noqa: E731
     total = float(np.sqrt(sum(norm(g) ** 2 for g in want["grads"].values())))
-    for r in range(2):
+    for r in range(world):
         got = torch.load(tmp_path / f"rank{r}.pt")
         err = float((got["logits"] - want_logits).abs().max())
         assert err <= 1e-4 * max(1.0, float(want_logits.abs().max())), (r, err)
@@ -1567,4 +1576,4 @@ def test_model_axes_two_ranks_share_the_card(gen, tmp_path, axis):
         for key in ("launches_forward", "launches_step"):
             assert got[key]["attention"] > 0, (key, got[key])
         assert got["launches_step"]["attention_bwd"] > 0 and got["launches_step"]["mlp_tail_train"] > 0
-        assert got["counts"].get(axis, 0) > 0, got["counts"]
+        assert all(got["counts"].get(axis, 0) > 0 for axis in axes), got["counts"]

@@ -92,7 +92,8 @@ def _one_process(cfg, spec, sd, tbatch, drop) -> dict:
     state = tstep.create_train_state(cfg, spec, state_dict=sd, device="cpu")
     stats, _ = tstep.make_train_step(cfg, spec, steps_per_epoch=10)(state, tbatch, None, drop=drop)
     return {"logits": logits, "stats": {k: float(v) for k, v in stats.items()},
-            "grads": whole_grads(state.model), "params": whole_params(state.model)}
+            "grads": whole_grads(state.model), "params": whole_params(state.model),
+            "moments": state.optimizer.moments(), "step": state.step, "lr": state.optimizer.lr}
 
 
 @pytest.fixture(scope="module")
@@ -115,10 +116,14 @@ def runs(tmp_path_factory):
 
 def test_parallel_cfg_builds_mesh():
     """The ranks' layout on (data, pipe, seq, model) is JAX's ``make_mesh``
-    over 8 CPU devices (device ids in the place of ranks); PIPE_MICROBATCHES
-    reaches the schedule through ``mesh_from_cfg``; the guards."""
+    over 8 CPU devices (device ids in the place of ranks), the seq and pipe
+    axes together included; PIPE_MICROBATCHES reaches the schedule through
+    ``mesh_from_cfg``; the guards, which accept every composition of the
+    axes that divides the ranks."""
     for kw in ({"pipe_parallel": 2, "model_parallel": 2}, {"seq_parallel": 2},
-               {"seq_parallel": 2, "model_parallel": 2}, {"pipe_parallel": 4}):
+               {"seq_parallel": 2, "model_parallel": 2}, {"pipe_parallel": 4},
+               {"seq_parallel": 2, "pipe_parallel": 2},
+               {"seq_parallel": 2, "pipe_parallel": 2, "model_parallel": 2}):
         shape, grid = mesh.layout(8, **kw)
         jm = jmesh.make_mesh(num_devices=8, **kw)
         want = np.vectorize(lambda dev: dev.id)(jm.devices)
@@ -146,9 +151,11 @@ def test_parallel_cfg_builds_mesh():
         mesh.check_axes(cfg)
     cfg.PARALLEL.PIPE, cfg.PARALLEL.SEQ = 1, 2
     mesh.check_axes(cfg)
+    # the seq axis composes with the pipe axis (tests/test_torch_axes_compose.py)
     cfg.PARALLEL.PIPE, cfg.PARALLEL.MODEL = 2, 1
-    with pytest.raises(NotImplementedError, match="seq axis"):
-        mesh.check_axes(cfg)
+    mesh.check_axes(cfg)
+    cfg.PARALLEL.MODEL = 2
+    mesh.check_axes(cfg)
 
 
 def test_schedule_matches_sequential_loop(tmp_path):

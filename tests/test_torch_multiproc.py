@@ -18,7 +18,7 @@ against one process, through the port's own entry points.
   and clips whose two views straddle the ranks' stripes.
 * ``run_net --num-shards 2 --device cpu``: two OS processes train, then test.
 
-Each group meets on its own free port with a 60 s collective timeout, and
+Each group meets through its own store file with a 60 s collective timeout, and
 ``run_ranks`` kills its ranks after its own limit, so nothing can hang the
 lane. The workers live in this module, which imports no JAX, so the spawned
 ranks start fast; ``tests/test_torch_parallel.py`` uses them against JAX.
@@ -59,10 +59,10 @@ torch.set_num_threads(2)
 # ----------------------------------------------------------------------------------
 
 
-def _rank(rank: int, fn, world: int, port: int, args) -> None:
+def _rank(rank: int, fn, world: int, init: str, args) -> None:
     torch.set_num_threads(2)
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world,
-                            rank=rank, timeout=datetime.timedelta(seconds=60))
+    dist.init_process_group("gloo", init_method=init, world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=60))
     try:
         fn(rank, *args)
     finally:
@@ -72,20 +72,23 @@ def _rank(rank: int, fn, world: int, port: int, args) -> None:
 def run_ranks(fn, *args, world: int = WORLD, timeout: float = 240.0) -> None:
     """``fn(rank, *args)`` in ``world`` spawned processes joined in one gloo
     group; raises what a rank raised, and kills the ranks past ``timeout``
-    seconds. ``fn`` is a module-level function; results go through files."""
-    ctx = torch.multiprocessing.start_processes(
-        _rank, args=(fn, world, mesh.free_port(), args), nprocs=world, join=False,
-        start_method="spawn")
-    deadline = time.monotonic() + timeout
-    try:
-        while not ctx.join(timeout=2):
-            if time.monotonic() > deadline:
-                raise TimeoutError(f"{fn.__name__} ran past {timeout} s")
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.kill()
-            p.join(10)
+    seconds. ``fn`` is a module-level function; results go through files.
+    The ranks meet through a store file of their own (``mesh.rendezvous``),
+    never a port that another group could take."""
+    with mesh.rendezvous() as init:
+        ctx = torch.multiprocessing.start_processes(
+            _rank, args=(fn, world, init, args), nprocs=world, join=False,
+            start_method="spawn")
+        deadline = time.monotonic() + timeout
+        try:
+            while not ctx.join(timeout=2):
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"{fn.__name__} ran past {timeout} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join(10)
 
 
 def stripe(batch: dict, rank: int, world: int = WORLD) -> dict:
@@ -453,7 +456,7 @@ def test_run_net_two_shards_on_the_cpu(train_split, tmp_path):
         "TEST:\n  BATCH_SIZE: 4\n  NUM_ENSEMBLE_VIEWS: 1\n  NUM_SPATIAL_CROPS: 1\n"
         "DATA_LOADER:\n  NUM_WORKERS: 0\nLOG_PERIOD: 1\n")
     out = str(tmp_path / "run")
-    init = f"tcp://127.0.0.1:{mesh.free_port()}"
+    init = f"file://{tmp_path / 'store'}"  # a store file of this test's own
     env = {**os.environ, "PYTHONPATH": ROOT, "OMP_NUM_THREADS": "2"}
     procs = [subprocess.Popen(
         [sys.executable, "-m", "csts_torch.tools.run_net", "--device", "cpu", "--cfg",

@@ -62,6 +62,44 @@ def axes_worker(rank: int, inputs: str, out: str, axes: dict, device: str = "cpu
         torch.cuda.set_device(0)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+    res = layout_run(rank, d, axes, device, solver)
+    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+
+
+# the layouts composed on four ranks (tests/test_torch_axes_compose.py):
+# name -> (axes, SOLVER.* overrides); the data axis is the rest of the group
+LAYOUTS = {
+    "sp2xpp2": ({"seq": 2, "pipe": 2}, {}),
+    "dp2xpp2_fsdp": ({"pipe": 2}, {"FSDP": True}),
+    "dp2xsp2_fsdp": ({"seq": 2}, {"FSDP": True}),
+    "dp2xtp2_zero1": ({"model": 2}, {"ZERO1": True}),
+    "dp2xpp2_zero1": ({"pipe": 2}, {"ZERO1": True}),
+}
+
+
+def compose_worker(rank: int, inputs: str, out: str, layouts: list, device: str = "cpu"
+                   ) -> None:
+    """:func:`layout_run` under each of ``layouts`` (names of
+    :data:`LAYOUTS`, or (axes, solver) pairs) one after another in one
+    group, each saving its npz TrainState under ``out/<name>``; this rank's
+    results to ``out/compose<rank>.pt``."""
+    d = torch.load(inputs)
+    res = {}
+    for name in layouts:
+        axes, solver = LAYOUTS[name] if isinstance(name, str) else name
+        tag = name if isinstance(name, str) else "x".join(f"{a}{n}" for a, n in axes.items())
+        res[tag] = layout_run(rank, d, axes, device, solver, os.path.join(out, tag))
+    torch.save(res, os.path.join(out, f"compose{rank}.pt"))
+
+
+def layout_run(rank: int, d: dict, axes: dict, device: str, solver: dict = None,
+               save: str = None) -> dict:
+    """The body of :func:`axes_worker` on the loaded inputs ``d``; with
+    ``save``, the step's TrainState saved there as an npz (rank 0 writes;
+    every rank gathers), and what each rank holds of the parameters and
+    the moments."""
+    from csts_torch.utils import checkpoint as tcu
+
     cfg = axes_cfg(d["batch"]["video"].shape[0])
     for k, v in (solver or {}).items():
         setattr(cfg.SOLVER, k, v)
@@ -100,15 +138,48 @@ def axes_worker(rank: int, inputs: str, out: str, axes: dict, device: str = "cpu
         opt = state.optimizer.local
         for n, p in state.model.named_parameters():
             how = getattr(p, "model_split", None)
-            if how is not None:
-                st = opt.state[p]
-                res["split"][n] = (how, tuple(p.shape), tuple(st["exp_avg"].shape),
-                                   tuple(st["exp_avg_sq"].shape))
+            if how is not None:  # under ZeRO-1, None where another data rank keeps it
+                st = opt.state.get(p, {})
+                res["split"][n] = (how, tuple(p.shape), *(
+                    tuple(st[k].shape) if k in st else None for k in ("exp_avg", "exp_avg_sq")))
         res["dtensor"] = any(isinstance(p, collectives.DTensor)
                              for p in state.model.parameters())
         res["pipe_plan"] = {"S": pipeline.pipe_size(),
                             "M": pipeline.effective_microbatches(pipeline.pipe_size() or 1)}
-    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+        params = list(state.model.parameters())
+        res["all_dtensor"] = all(isinstance(p, collectives.DTensor) for p in params)
+        res["held"] = (sum(collectives.local(p).numel() for p in params)
+                       / sum(p.numel() for p in params))
+        res["moments_of"] = sorted(n for n, p in state.model.named_parameters()
+                                   if "exp_avg" in opt.state.get(p, {}))
+        if save is not None:
+            res["npz"] = tcu.save_checkpoint(save, state, 0, cfg)
+        del state
+    return res
+
+
+def sync_order_worker(rank: int, out: str) -> None:
+    """sp2 x pp2 on four ranks: two one-tensor "blocks", one a stage; this
+    rank's gradient of its own stage's block is its stripe's part (10·stage
+    + seq index + 1), marked on the seq axis, and both blocks are marked on
+    the pipe axis, as ``models/csts.py`` marks a pipelined run on stripes.
+    Summed by ``sync_grads`` (seq, then pipe) and by the pipe axis first."""
+    res = {}
+    with mesh.use(mesh.make_mesh(seq_parallel=2, pipe_parallel=2)) as m:
+        s, q = m.index(mesh.PIPE_AXIS), m.index(mesh.SEQ_AXIS)
+        res["stage"] = s
+        for order in ("seq_then_pipe", "pipe_then_seq"):
+            ws = [torch.nn.Parameter(torch.zeros(3)) for _ in range(2)]
+            ws[s].grad = torch.full((3,), float(10 * s + q + 1))
+            mesh.note_partial(mesh.SEQ_AXIS, [ws[s]])
+            mesh.note_partial(mesh.PIPE_AXIS, ws)
+            if order == "seq_then_pipe":
+                mesh.sync_grads()
+            else:
+                mesh.sum_partial(mesh.PIPE_AXIS)
+                mesh.sum_partial(mesh.SEQ_AXIS)
+            res[order] = [w.grad.clone() for w in ws]
+    torch.save(res, os.path.join(out, f"sync{rank}.pt"))
 
 
 def schedule_worker(rank: int, out: str) -> None:
@@ -122,6 +193,9 @@ def schedule_worker(rank: int, out: str) -> None:
     ws = [torch.nn.Parameter(torch.randn(D, D, generator=g) * 0.1) for _ in range(L)]
     bs = [torch.nn.Parameter(torch.randn(D, generator=g) * 0.1) for _ in range(L)]
     x0 = torch.randn(B, 4, D, generator=g)
+    blocks = [torch.nn.Module() for _ in range(L)]
+    for blk, w, b in zip(blocks, ws, bs):
+        blk.w, blk.b = w, b
 
     def apply_one(j, z, m):
         return torch.tanh(z @ ws[j] + bs[j])
@@ -135,8 +209,7 @@ def schedule_worker(rank: int, out: str) -> None:
     with mesh.use(mesh.make_mesh(pipe_parallel=S)):
         for M in (S, 2 * S):
             x = x0.clone().requires_grad_()
-            y = pipeline.pipeline_blocks(apply_one, L, x, lambda j: [ws[j], bs[j]],
-                                         microbatches=M)
+            y = pipeline.pipeline_blocks(apply_one, blocks, x, microbatches=M)
             (y ** 2).sum().backward()
             mesh.sync_grads()
             res[M] = {"y": y.detach().clone(), "dx": x.grad.clone(),
@@ -153,7 +226,7 @@ def schedule_worker(rank: int, out: str) -> None:
         consts = torch.randn(8, generator=torch.Generator().manual_seed(5))
         with torch.no_grad():
             res["index"] = pipeline.pipeline_blocks(
-                lambda j, z, m: z + consts[m], S, torch.zeros(8, 4), lambda j: [],
-                microbatches=4)
+                lambda j, z, m: z + consts[m], [torch.nn.Module() for _ in range(S)],
+                torch.zeros(8, 4), microbatches=4)
         res["consts"] = consts
     torch.save(res, os.path.join(out, f"schedule{rank}.pt"))
