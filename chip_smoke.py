@@ -110,7 +110,15 @@ Phases (any failure exits non-zero; nothing is caught):
      npz's JAX layout (3P+4 leaves shaped as ``param_leaf_names``); a second
      uninterrupted run, bit-equal to the first, then the preemption drill
      (SIGTERM injected after 3 iterations, an iter-tagged save, auto-resume
-     to the end), bit-equal to the run; the max-pool backward in its fixed
+     to the end), bit-equal to the run; 7c: the second run saves each epoch
+     through TRAIN.CHECKPOINT_BACKEND "orbax" (``utils/orbax_ckpt.py``:
+     steps 6 and 12; per save the seconds ``save`` blocked, the seconds
+     until the step committed, the bytes on disk, the steps that ran during
+     the write), its step 6 resumed, SIGTERM injected after 3 iterations of
+     epoch 2 (step 9), resumed to step 12, bit-equal to the run; step 12
+     restored into the drill's final state (every value spoiled first)
+     equal to the run's ``state_leaves`` leaf for leaf, and the npz save of
+     that state timed beside it; the max-pool backward in its fixed
      order against CUDA's own (atomics) at the trainer's shapes, in turns;
      beside it the raw step
      with ACT_CHECKPOINT on and off at batch 8 and with accum_steps 2 of 8
@@ -191,7 +199,9 @@ Phases (any failure exits non-zero; nothing is caught):
      records of phase 7's second run; 11e, the axes composed: SEQ=2 x
      PIPE=2 (the forward and the step, the pipelined run on the stripes)
      and DATA=2 x MODEL=2 under SOLVER.ZERO1 (the step, each rank's moment
-     share, rank 0's npz loaded into one process) on four gloo ranks
+     share, rank 0's npz loaded into one process; 7c: the orbax backend's
+     step beside it, each rank's bytes, restored into one process and into
+     DATA=2 on two ranks, each equal to the npz) on four gloo ranks
      sharing the card, SOLVER.FSDP under PIPE=2 and under SEQ=2 on two
      gloo ranks whose data axis is a one-rank NCCL group each, every
      layout against one process, its launches and ms a rank.
@@ -209,7 +219,7 @@ It prints the ``kernels`` JSON line, the card line and, last, the result line.
 phase 7 alone under ``torch.use_deterministic_algorithms(True, warn_only=True)``,
 printing the ops it names (``determinism_probe``). ``python3 chip_smoke.py
 --parallel`` is the build and phase 8 alone, ``--axes`` the build and phase
-11 alone.
+11 alone, ``--trainer`` the build and phase 7 alone.
 Per-shape details go to ``chiprun_out/chip_smoke.json``.
 """
 
@@ -221,6 +231,7 @@ import dataclasses
 import datetime
 import json
 import os
+import shutil
 import sys
 import tempfile
 import threading
@@ -257,6 +268,7 @@ from csts_torch.tools.profile_forward import (FAMILIES, PORT_FAMILIES, WINDOWS, 
 from csts_torch.train import step as train_lib  # noqa: E402
 from csts_torch.train.losses import frame_softmax  # noqa: E402
 from csts_torch.utils import checkpoint as cu  # noqa: E402
+from csts_torch.utils import orbax_ckpt  # noqa: E402
 from csts_torch.utils import procs  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, bf16 tensor-core
@@ -1952,6 +1964,8 @@ PYTH_CROP = 224          # the video .pyth's crop: its spatial position embeddin
 # drill's runs, whose loop is not: each worker start costs the fork server's
 # imports, and the drill runs train() three more times
 DRILL_WORKERS = 2
+# 7c: the trainer through TRAIN.CHECKPOINT_BACKEND "orbax", a save each epoch
+ORBAX_ARGS = ["TRAIN.CHECKPOINT_BACKEND", "orbax", "TRAIN.CHECKPOINT_PERIOD", "1"]
 ACCUM_BATCH = 16         # accum_steps 2 of 8 against one pass of 16
 
 
@@ -2093,11 +2107,14 @@ def trainer_phase(rng: np.random.Generator) -> dict:
         out["setup_s"] = time.perf_counter() - t0
 
         # what the run did: each step's entry time, CUDA events and launches,
-        # the consumer's waits inside training epochs, the saves and loads
-        seen = {"steps": [], "waits": [], "epochs": [], "saves": [], "loads": [], "in_train": False}
+        # the consumer's waits inside training epochs, the saves and loads,
+        # the orbax backend's saves (7c) and the times their steps committed
+        seen = {"steps": [], "waits": [], "epochs": [], "saves": [], "loads": [], "in_train": False,
+                "orbax": [], "commits": {}}
         make_step, next_batch = train_lib.make_train_step, loader_lib.DevicePrefetcher.__next__
         train_epoch, save, load = trainer_lib._train_epoch, cu.save_checkpoint, cu.load_checkpoint
         load_params, train_fn = cu.load_params_npz, trainer_lib.train
+        ck_save, ck_commit = orbax_ckpt.OrbaxCheckpointer.save, orbax_ckpt.OrbaxCheckpointer._commit
 
         def recording_step(*a, **k):
             step = make_step(*a, **k)
@@ -2148,11 +2165,25 @@ def trainer_phase(rng: np.random.Generator) -> dict:
             seen["saves"].append((time.perf_counter() - t, path))
             return path
 
+        def timed_ck_save(self, state, step):
+            t = time.perf_counter()
+            self.wait()  # the previous save, which ``save`` would wait for first
+            t0 = time.perf_counter()
+            ck_save(self, state, step)
+            seen["orbax"].append({"step": step, "dir": self.step_dir(step), "t0": t0,
+                                  "previous_s": t0 - t,
+                                  "blocked_s": time.perf_counter() - t0, **self.last_save})
+
+        def timed_commit(self, step, future):
+            ck_commit(self, step, future)
+            seen["commits"].setdefault(self.step_dir(step), time.perf_counter())
+
         def measured_train(cfg, device=None):
             torch.cuda.reset_peak_memory_stats()
             state = train_fn(cfg, device)
             seen["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
             seen["final"] = cu.state_leaves(state)  # the JAX layout, on the host
+            seen["state"] = state
             return state
 
         runs = {}
@@ -2163,6 +2194,8 @@ def trainer_phase(rng: np.random.Generator) -> dict:
             cu.save_checkpoint, cu.load_checkpoint = timed_save, timed(load, "loads")
             cu.load_params_npz = timed(load_params, "loads")
             trainer_lib.train = measured_train
+            orbax_ckpt.OrbaxCheckpointer.save = timed_ck_save
+            orbax_ckpt.OrbaxCheckpointer._commit = timed_commit
             # the run: train, then test the npz it wrote (the yaml's 8 workers)
             a_out = os.path.join(root, "run_a")
             reset_launches()
@@ -2171,14 +2204,18 @@ def trainer_phase(rng: np.random.Generator) -> dict:
             out["run_s"] = time.perf_counter() - t
             launches = {name: WRAPPERS[name].launches for name in COUNTED}
             runs["a"] = {k: list(v) if isinstance(v, list) else v for k, v in seen.items()}
+            seen.pop("state")
             for key in ("steps", "waits", "epochs"):
                 seen[key] = []
             # a second uninterrupted run: the spread between two runs; it also
-            # writes rank 0's TENSORBOARD.ENABLE scalars (11d)
+            # writes rank 0's TENSORBOARD.ENABLE scalars (11d) and, through the
+            # orbax backend, an async checkpoint each epoch (7c: steps 6, 12)
             b_out = os.path.join(root, "run_b")
             run_net.main(_run_net_args(split, pyths, b_out, DRILL_WORKERS, False)
-                         + ["TENSORBOARD.ENABLE", "True"])
+                         + ["TENSORBOARD.ENABLE", "True"] + ORBAX_ARGS)
             runs["b"] = seen.pop("final")
+            runs["b_steps"] = [(t, st.elapsed_time(en)) for t, st, en, _ in seen["steps"]]
+            seen.pop("state")
             out["tensorboard"] = _tensorboard_records(os.path.join(b_out, "runs-csts"))
             # the drill: SIGTERM injected mid-epoch, then auto-resume to the end
             c_out = os.path.join(root, "run_c")
@@ -2187,15 +2224,38 @@ def trainer_phase(rng: np.random.Generator) -> dict:
                 run_net.main(_run_net_args(split, pyths, c_out, DRILL_WORKERS, False))
             finally:
                 trainer_lib._PREEMPT_AFTER_ITERS = None
+            seen.pop("state")
             mid = cu.get_last_checkpoint(c_out)
             mid_meta = cu.checkpoint_meta(mid)
             run_net.main(_run_net_args(split, pyths, c_out, DRILL_WORKERS, False))
             runs["c"] = seen.pop("final")
+            seen.pop("state")
             assert cu.get_last_checkpoint(c_out) == mid  # the drill's runs save nothing else
+            # 7c's drill: run b's step 6 resumed, SIGTERM injected after 3
+            # iterations of epoch 2 (step 9), resumed again to step 12; no
+            # validation in these two runs (it moves no state)
+            d_out = os.path.join(root, "run_d")
+            shutil.copytree(os.path.join(b_out, orbax_ckpt.CHECKPOINT_DIR, "6"),
+                            os.path.join(d_out, orbax_ckpt.CHECKPOINT_DIR, "6"))
+            d_args = (_run_net_args(split, pyths, d_out, DRILL_WORKERS, False) + ORBAX_ARGS
+                      + ["TRAIN.EVAL_PERIOD", str(TRAINER_EPOCHS + 1)])
+            trainer_lib._PREEMPT_AFTER_ITERS = PREEMPT_AFTER
+            try:
+                run_net.main(d_args)
+            finally:
+                trainer_lib._PREEMPT_AFTER_ITERS = None
+            seen.pop("state")
+            runs["d_mid"] = orbax_ckpt.committed_steps(d_out)
+            run_net.main(d_args)
+            runs["d"] = seen.pop("final")
+            runs["d_steps"] = orbax_ckpt.committed_steps(d_out)
+            runs["d_state"] = seen.pop("state")
         finally:
             train_lib.make_train_step, loader_lib.DevicePrefetcher.__next__ = make_step, next_batch
             trainer_lib._train_epoch, trainer_lib.train = train_epoch, train_fn
             cu.save_checkpoint, cu.load_checkpoint, cu.load_params_npz = save, load, load_params
+            orbax_ckpt.OrbaxCheckpointer.save = ck_save
+            orbax_ckpt.OrbaxCheckpointer._commit = ck_commit
 
         # the run's loop: step times, the loader's wait share, launches
         ra = runs["a"]
@@ -2265,7 +2325,7 @@ def trainer_phase(rng: np.random.Generator) -> dict:
 
         # the drill against the run, held to the spread of two uninterrupted runs
         ga = _groups(final_a, p)
-        spread = _diff(ga, _groups(runs.pop("b"), p))
+        spread = _diff(ga, _groups(runs["b"], p))
         drill = _diff(ga, _groups(runs.pop("c"), p))
         out.update(spread=spread, drill=drill, preempt_meta={k: v for k, v in mid_meta.items()
                                                              if k != "cfg"},
@@ -2285,9 +2345,93 @@ def trainer_phase(rng: np.random.Generator) -> dict:
             # must the drill, resumed from its mid-epoch npz
             assert spread[g]["max"] == 0.0, ("two uninterrupted runs differ", g, spread[g])
             assert drill[g]["max"] == 0.0, ("the drill differs from the run", g, drill[g])
+        out["orbax"] = orbax_checks(root, seen, runs, b_out, p)
         del ga, final_a, runs
     torch.cuda.empty_cache()
     out.update(trainer_extras(rng))
+    return out
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, n)) for n in os.listdir(path))
+
+
+def orbax_checks(root: str, seen: dict, runs: dict, b_out: str, p: int) -> dict:
+    """7c (a), TRAIN.CHECKPOINT_BACKEND "orbax" in one process: run b's two
+    async saves (steps 6 and 12: the seconds the trainer was blocked in
+    ``save``, the seconds until the step committed, the bytes on disk, the
+    steps that ran while it was written); the drill (run b's step 6 resumed,
+    stopped at step 9, resumed to step 12) bit-equal to the run; step 12
+    restored into the drill's final state, every value of it spoiled first,
+    equal to run b's ``state_leaves`` leaf for leaf; the npz save of that
+    same state timed beside the orbax figures."""
+    out: dict = {"saves": []}
+    steps = runs.pop("b_steps")
+    saves = [r for r in seen["orbax"] if r["dir"].startswith(b_out)]
+    assert [r["step"] for r in saves] == [TRAINER_TRAIN_ROWS // 8 * (e + 1)
+                                         for e in range(TRAINER_EPOCHS)], saves
+    for r in saves:
+        commit_s = seen["commits"][r["dir"]] - r["t0"]
+        over = [ms for t, ms in steps if r["t0"] <= t < seen["commits"][r["dir"]]]
+        rest = [ms for t, ms in steps if not r["t0"] <= t < seen["commits"][r["dir"]]]
+        row = {"step": r["step"], "blocked_s": r["blocked_s"], "previous_s": r["previous_s"],
+               "commit_s": commit_s,
+               "staged_bytes": r["bytes"], "pieces": r["pieces"],
+               "disk_bytes": _dir_bytes(r["dir"]), "files": sorted(os.listdir(r["dir"])),
+               "overlapped_steps_ms": over, "other_steps_ms": rest}
+        out["saves"].append(row)
+        log(f"phase trainer 7c run b save of step {r['step']}: blocked {r['blocked_s']:.3f} s "
+            f"(staged {r['bytes'] / 1e9:.3f} GB in {r['pieces']} pieces to pinned host memory; "
+            f"before it, {r['previous_s']:.3f} s waiting for the previous save to commit), "
+            f"committed {commit_s:.3f} s after the save began, {row['disk_bytes'] / 1e9:.3f} GB "
+            f"on disk ({row['files']}); steps that ran during the write: {len(over)}"
+            + (f" (median {np.median(over):.2f} ms)" if over else "")
+            + f", the run's other steps median {np.median(rest):.2f} ms (CUDA events; {CARD})")
+    want = runs.pop("b")
+    assert runs["d_mid"] == [6, 9] and runs["d_steps"] == [6, 9, 12], (runs["d_mid"],
+                                                                       runs["d_steps"])
+    differ = [i for i, (a, b) in enumerate(zip(runs.pop("d"), want)) if not np.array_equal(a, b)]
+    out["drill_leaves_differing"] = differ
+    log(f"phase trainer 7c drill: run b's step 6 resumed, SIGTERM injected after "
+        f"{PREEMPT_AFTER} iterations of epoch 2: committed {runs['d_mid']}, resumed to "
+        f"{runs['d_steps']}; the final state against run b's: {len(differ)} of {len(want)} "
+        f"leaves differ")
+    assert not differ, ("the orbax drill differs from the run", differ[:5])
+
+    # step 12 restored into the drill's final state with every value spoiled
+    # (NaN, step and counts 0, lr NaN), then the npz of it
+    state = runs.pop("d_state")
+    with torch.no_grad():
+        for loc in cu.local_state(state).values():
+            for _, t in loc.pieces:
+                t.fill_(float("nan") if t.is_floating_point() else 0)
+    state.step = 0
+    state.optimizer.set_count(0)
+    state.optimizer.set_lr(float("nan"))
+    ck = orbax_ckpt.OrbaxCheckpointer(b_out)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _, step = ck.restore(state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    ck.close()
+    leaves = cu.state_leaves(state)
+    assert step == 12 and len(leaves) == len(want) == 3 * p + 4, (step, len(leaves))
+    for i, (got, w) in enumerate(zip(leaves, want)):
+        assert got.dtype == w.dtype and np.array_equal(got, w), ("restored leaf differs", i)
+    t = time.perf_counter()
+    npz = cu.save_checkpoint(os.path.join(root, "npz_same"), state, 1)
+    npz_s = time.perf_counter() - t
+    npz_gb = os.path.getsize(npz) / 1e9
+    out.update(restore_s=restore_s, npz_save_s=npz_s, npz_gb=npz_gb, restored_leaves=len(leaves))
+    log(f"phase trainer 7c restore: step 12 into a spoiled state in {restore_s:.3f} s, "
+        f"state_leaves equal to run b's leaf for leaf ({len(leaves)} leaves); the npz save "
+        f"of the same state {npz_s:.3f} s for {npz_gb:.3f} GB, against orbax's blocked "
+        + " / ".join(f"{r['blocked_s']:.3f}" for r in out["saves"]) + " s and committed after "
+        + " / ".join(f"{r['commit_s']:.3f}" for r in out["saves"]) + f" s ({CARD})")
+
+    del state, leaves, want
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3647,8 +3791,67 @@ def _ax_step(cfg, sd: dict, batch: dict, drop: list, timed: int, save: str = Non
                                      torch.load(ref), sum(s_["lr"] for s_ in res["stats"]))
     if save is not None:
         res["npz"] = cu.save_checkpoint(save, state, 0, cfg)
+        res["orbax"] = _ax_orbax_save(save, state)
     res["ms"] = _ax_events_ms(lambda: step(state, batch, None, drop=drop), timed)
     return res
+
+
+def _ax_orbax_save(out: str, state) -> dict:
+    """7c (b) on one rank: the TrainState saved as step 1 through the
+    orbax backend beside its npz (every rank writes its own pieces): the
+    seconds ``save`` blocked and until ``close`` returned, what this rank
+    staged and the bytes of its own file."""
+    import torch.distributed as dist
+
+    ck = orbax_ckpt.OrbaxCheckpointer(out)
+    t = time.perf_counter()
+    ck.save(state, 1)
+    blocked = time.perf_counter() - t
+    ck.close()
+    mine = os.path.join(ck.step_dir(1), f"__{dist.get_rank()}_0.distcp")
+    return {"out": out, "dir": ck.step_dir(1), "blocked_s": blocked,
+            "close_s": time.perf_counter() - t, "staged_bytes": ck.last_save["bytes"],
+            "file_bytes": os.path.getsize(mine) if os.path.exists(mine) else 0}
+
+
+def _ax_orbax_task(rank: int, inputs: str, src: str, npz: str, device: str) -> dict:
+    """7c (b) on one of two ranks: DATA=2 under ZeRO-1 (no other axis), the
+    state made from the inputs' weights (before the step) restored from the
+    DATA=2 x MODEL=2 run's orbax step with ``collectives.whole`` refused (no
+    rank gathers), then gathered; rank 0 holds it against that run's npz
+    leaf for leaf."""
+    cfg = _par_cfg("zero1")
+    state = train_lib.create_train_state(cfg, build_spec(cfg), state_dict=torch.load(inputs)["sd"],
+                                         device=device)
+    ck = orbax_ckpt.OrbaxCheckpointer(src)
+    whole, collectives.whole = collectives.whole, _refuse_whole
+    t = time.perf_counter()
+    try:
+        _, step = ck.restore(state)
+    finally:
+        collectives.whole = whole
+    restore_s = time.perf_counter() - t
+    ck.close()
+    leaves = cu.state_leaves(state)
+    res = {"step": step, "restore_s": restore_s}
+    if rank == 0:
+        res["equal"] = _leaves_equal(leaves, npz)
+    return res
+
+
+def _refuse_whole(*a, **k):
+    raise AssertionError("a whole tensor was gathered during a direct-to-shard restore")
+
+
+def _leaves_equal(leaves: list, npz: str) -> int:
+    """The count of ``leaves`` (``state_leaves``), each equal to the npz's
+    (dtype and values)."""
+    with np.load(npz) as blob:
+        want = [blob[k] for k in sorted(blob.files)]
+    assert len(leaves) == len(want), (len(leaves), len(want))
+    for i, (got, w) in enumerate(zip(leaves, want)):
+        assert got.dtype == w.dtype and np.array_equal(got, w), i
+    return len(leaves)
 
 
 def _ax_forward(sd: dict, video, audio, m) -> dict:
@@ -3753,6 +3956,7 @@ def _ax_fsdp_task(rank: int, inputs: str, ref: str, device: str) -> dict:
 
 PAR_TASKS["axes_compose"] = _ax_compose_task
 PAR_TASKS["axes_fsdp"] = _ax_fsdp_task
+PAR_TASKS["axes_orbax"] = _ax_orbax_task
 
 
 def _moment_errors(first: dict, second: dict, grads: dict) -> dict:
@@ -3772,20 +3976,17 @@ def _moment_errors(first: dict, second: dict, grads: dict) -> dict:
     return worst
 
 
-def axes_composed(root: str, path: str, ref_path: str, one_fwd: dict, one_step: dict,
-                  franks: list) -> dict:
-    """11e: the composed layouts on four ranks against one process, the
-    ZeRO-1 npz loaded into one process; ``franks``: each of two ranks'
-    results of the FSDP layouts (run after 11a-c in their group), against
-    one process."""
+def axes_composed(path: str, one_fwd: dict, one_step: dict, ranks: list, franks: list,
+                  oranks: list) -> dict:
+    """11e: the composed layouts on four ranks (``ranks``) against one
+    process, the ZeRO-1 npz loaded into one process; ``franks``: each of two
+    ranks' results of the FSDP layouts (run after 11a-c in their group),
+    against one process; 7c (b): the ZeRO-1 state's orbax step, each rank's
+    bytes, restored into one process and (``oranks``) into DATA=2."""
     from csts_torch.parallel import pipeline
     from csts_torch.tools import check_line, heatmap_check
 
     res = {}
-    t0 = time.perf_counter()
-    ranks = [rk["axes_compose"] for rk in spawn_ranks([("axes_compose", (path, ref_path, root))],
-                                                      root, "cuda", world=AX_WORLD)]
-    res["ranks_s"] = time.perf_counter() - t0
     mb = pipeline.effective_microbatches(2)
     for tag, (axes, mode) in AX_COMPOSED.items():
         out = res[tag] = {"ranks": []}
@@ -3862,6 +4063,7 @@ def axes_composed(root: str, path: str, ref_path: str, one_fwd: dict, one_step: 
         f"bar share first {merr['first']:.3g} second {merr['second']:.3g}")
     del state, params, first, second
     torch.cuda.empty_cache()
+    res["orbax"] = _ax_orbax_checks(path, ranks, oranks, npz)
 
     for tag, axes in AX_FSDP.items():
         out = res[tag] = {"ranks": []}
@@ -3885,6 +4087,51 @@ def axes_composed(root: str, path: str, ref_path: str, one_fwd: dict, one_step: 
             log(f"phase axes 11e {tag} rank {r} timing (two ranks sharing one card, not a "
                 f"scaling figure): step ms {[round(x, 2) for x in step['ms']]} (CUDA events) "
                 f"({CARD})")
+    return res
+
+
+def _ax_orbax_checks(path: str, ranks: list, oranks: list, npz: str) -> dict:
+    """7c (b): DATA=2 x MODEL=2 under ZeRO-1 saved through the orbax backend
+    on four ranks: each rank's bytes (none the whole state); the step
+    restored into one process on the card and into DATA=2 on two ranks
+    (``oranks``), each equal to rank 0's npz of the same state leaf for
+    leaf."""
+    saves = [rk["data_model_zero1"]["step"]["orbax"] for rk in ranks]
+    step_dir = saves[0]["dir"]
+    files = {n: os.path.getsize(os.path.join(step_dir, n)) for n in os.listdir(step_dir)}
+    total = sum(b for n, b in files.items() if n.endswith(".distcp"))
+    mine = [sv["file_bytes"] for sv in saves]
+    assert all(0 < b < total for b in mine), (mine, total)
+    cfg = _par_cfg("zero1")
+    state = train_lib.create_train_state(cfg, build_spec(cfg), state_dict=torch.load(path)["sd"],
+                                         device="cuda")
+    ck = orbax_ckpt.OrbaxCheckpointer(saves[0]["out"])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _, step = ck.restore(state)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t
+    ck.close()
+    n_one = _leaves_equal(cu.state_leaves(state), npz)
+    assert step == 1 and all(o["step"] == 1 for o in oranks), (step, oranks)
+    n_two = oranks[0]["equal"]
+    res = {"files": files, "rank_bytes": mine, "total_bytes": total,
+           "staged_bytes": [sv["staged_bytes"] for sv in saves],
+           "blocked_s": [sv["blocked_s"] for sv in saves],
+           "close_s": [sv["close_s"] for sv in saves], "one_process_restore_s": one_s,
+           "data2_restore_s": [o["restore_s"] for o in oranks], "leaves": n_one}
+    def seq(values, scale=1.0):
+        return ", ".join(f"{v / scale:.3f}" for v in values)
+
+    log(f"phase axes 11e data_model_zero1 orbax (7c b): each rank wrote its own pieces, ranks "
+        f"0-3 {seq(mine, 1e9)} GB of {total / 1e9:.3f} GB on disk (staged "
+        f"{seq(res['staged_bytes'], 1e9)} GB; save blocked {seq(res['blocked_s'])} s, closed "
+        f"after {seq(res['close_s'])} s); restored into one process on the card in "
+        f"{one_s:.3f} s and into DATA=2 under ZeRO-1 on two ranks in "
+        f"{seq(res['data2_restore_s'])} s with collectives.whole refused, each equal to rank "
+        f"0's npz leaf for leaf ({n_one} and {n_two} leaves) ({CARD})")
+    del state
+    torch.cuda.empty_cache()
     return res
 
 
@@ -3935,11 +4182,18 @@ def axes_phase(rng: np.random.Generator) -> dict:
             f"{_ms(float(np.median(one_fwd['ms'])))} ms, fp32 step batch {PAR_BATCH} "
             f"{_ms(float(np.median(one_step['ms'])))} ms (CUDA events, medians of {AX_TIMED}); "
             f"launches forward {one_fwd['launches']}, step {one_step['launches']} ({CARD})")
-        t0 = time.perf_counter()
-        # 11e's FSDP layouts run in the same two-rank group, after 11a-c
         ref_path = os.path.join(root, "ref.pt")
         torch.save({k: one_step[k] for k in ("stats", "grads", "params")}, ref_path)
-        both = spawn_ranks([("axes", (path, ref_path)), ("axes_fsdp", (path, ref_path))], root,
+        # 11e's four ranks first: their ZeRO-1 state's orbax step is restored
+        # in the two-rank group (7c b), which then runs 11a-c and 11e's FSDP
+        t0 = time.perf_counter()
+        four = [rk["axes_compose"] for rk in spawn_ranks(
+            [("axes_compose", (path, ref_path, root))], root, "cuda", world=AX_WORLD)]
+        res["four_ranks_s"] = time.perf_counter() - t0
+        zero1 = four[0]["data_model_zero1"]["step"]
+        t0 = time.perf_counter()
+        both = spawn_ranks([("axes_orbax", (path, zero1["orbax"]["out"], zero1["npz"])),
+                            ("axes", (path, ref_path)), ("axes_fsdp", (path, ref_path))], root,
                            "cuda")
         ranks, fsdp_ranks = [rk["axes"] for rk in both], [rk["axes_fsdp"] for rk in both]
         res["ranks_s"] = time.perf_counter() - t0
@@ -3985,9 +4239,11 @@ def axes_phase(rng: np.random.Generator) -> dict:
                     f", step ms {[round(x, 2) for x in step['ms']]} (CUDA events) ({CARD})")
         res["d"] = axes_one_process(root, inputs)
         t0 = time.perf_counter()
-        res["e"] = axes_composed(root, path, ref_path, one_fwd, one_step, fsdp_ranks)
-        res["e"]["s"] = time.perf_counter() - t0
-        log(f"phase axes 11e: {res['e']['s']:.2f} s")
+        res["e"] = axes_composed(path, one_fwd, one_step, four, fsdp_ranks,
+                                 [rk["axes_orbax"] for rk in both])
+        res["e"]["ranks_s"] = res.pop("four_ranks_s")
+        res["e"]["s"] = res["e"]["ranks_s"] + time.perf_counter() - t0
+        log(f"phase axes 11e: {res['e']['s']:.2f} s (its four ranks and checks)")
     res["s"] = time.perf_counter() - t_phase
     log(f"phase axes: {res['s']:.2f} s")
     return res
@@ -3998,7 +4254,6 @@ def axes_one_process(root: str, inputs: dict) -> dict:
     at buckets 1 and 8 (eager, capture, replay: bit-equal); the
     preprocessing CLI's ``splits`` and ``check`` over a synthetic split;
     whether an ffmpeg binary is present."""
-    import shutil
     import subprocess
 
     from csts_torch.data.synthetic import write_dataset
@@ -4066,6 +4321,29 @@ def axes_only(t_start: float, audit: ProcessAudit) -> int:
     return 0
 
 
+def trainer_only(t_start: float, audit: ProcessAudit) -> int:
+    """``--trainer``: the build, then phase 7 (7c included) alone (its JSON
+    to ``chiprun_out/chip_smoke_trainer.json``), then the card and result
+    lines."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"phase build: {time.perf_counter() - t_start:.2f} s")
+    audit.at("trainer")
+    t0 = time.perf_counter()
+    res = trainer_phase(np.random.default_rng(SEED))
+    log(f"phase trainer total: {time.perf_counter() - t0:.2f} s")
+    res["processes"] = close_run(audit)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_trainer.json"), "w") as f:
+        json.dump({"card": CARD, "trainer": res}, f, indent=1, default=str)
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(CARD)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def parallel_only(t_start: float, audit: ProcessAudit) -> int:
     """``--parallel``: the build, then phase 8 alone (its JSON to
     ``chiprun_out/chip_smoke_parallel.json``), then the card and result
@@ -4108,6 +4386,8 @@ def main() -> int:
         return parallel_only(t0, audit)
     if sys.argv[1:] == ["--axes"]:
         return axes_only(t0, audit)
+    if sys.argv[1:] == ["--trainer"]:
+        return trainer_only(t0, audit)
     log(f"phase build: {time.perf_counter() - t0:.2f} s for {sorted(logs)}")
     for name, text in logs.items():
         for line in text.splitlines():

@@ -10,9 +10,14 @@ device prefetcher (``csts_tpu/data/loader.py``; reference
 * Worker processes are forked from a fork server (``forkserver``:
   DATA_LOADER.NUM_WORKERS of them; 0 loads in the calling process), never
   from the calling process, whose CUDA context and threads a fork would
-  copy; the server imports the main module once, where ``spawn`` imports it
-  in every worker. Each worker receives the dataset's arguments and builds
-  its index itself (``AVGazeDataset.__getstate__``). Batches come back as
+  copy. The server imports torch and this module once, when it starts
+  (``set_forkserver_preload``), so a worker it forks starts with them, where
+  ``spawn`` imports them in every worker. (Python 3.12's server never
+  imports ``__main__``, its default preload: it is not handed the main
+  module's path. Each worker then imported torch itself: a loader's first
+  batch waited ~3 s on a CPU-only host, ~20 s on an H100's host.) Each
+  worker receives the dataset's arguments and builds its index itself
+  (``AVGazeDataset.__getstate__``). Batches come back as
   tensors, pinned when DATA_LOADER.PIN_MEMORY holds and the device is CUDA.
   The workers outlive an epoch (``persistent_workers``), so a trainer's
   epochs and validations start none, and they ignore SIGTERM: a
@@ -40,6 +45,7 @@ device prefetcher (``csts_tpu/data/loader.py``; reference
 from __future__ import annotations
 
 import atexit
+import multiprocessing
 import multiprocessing.util  # noqa: F401 — its exit handler registers first, runs last
 import queue
 import signal
@@ -56,6 +62,7 @@ from csts_torch.data.datasets import AVGazeDataset, build_dataset
 from csts_torch.parallel import collectives
 
 BATCH_KEYS = ("video", "audio", "labels", "labels_hm")
+FORKSERVER_PRELOAD = ["torch", __name__]  # what the workers' fork server imports once
 HOST_KEYS = ("index",)  # what the prefetcher leaves on the host
 
 
@@ -202,6 +209,8 @@ def construct_loader(cfg: Config, split: str, device: Optional[torch.device] = N
     dataset = build_dataset(dataset_name, cfg, split)
     seed = cfg.RNG_SEED + seed_offset
     workers = cfg.DATA_LOADER.NUM_WORKERS
+    if workers > 0:  # read when the fork server starts (the first loader's)
+        multiprocessing.get_context("forkserver").set_forkserver_preload(FORKSERVER_PRELOAD)
     return GazeLoader(
         SeededItems(dataset, seed),
         batch_sampler=EpochBatches(len(dataset), batch_size, train, seed, drop_last=train,

@@ -2,7 +2,8 @@
 ``tools/test_avgaze_net.py:21-141``).
 
 Loads the checkpoint (an npz TrainState, its EMA weights with TEST.USE_EMA,
-a reference ``.pyth`` or a ``torch.save``d state dict),
+a reference ``.pyth`` or a ``torch.save``d state dict; with none of those,
+the orbax backend's latest step in OUTPUT_DIR),
 streams the test split through the eval step (the model's eval forward and
 the per-frame softmax; on CUDA the hand-written kernels, by ``block_route``),
 accumulates the whole-test-set adaptive F1 and AUC, and emits the

@@ -11,8 +11,11 @@ flags, same lines):
   rest counted as optimizer/EMA state;
 * a reference ``.pyth`` (read with ``weights_only=True``): the state dict's
   modules and shapes;
-* an orbax run directory raises: orbax is not ported (the card's machine has
-  none), and the port's trainer writes npz.
+* a step directory of the port's orbax backend
+  (``OUTPUT_DIR/checkpoints_orbax/<step>``, ``utils/orbax_ckpt.py``): the
+  step, each key with its global shape and dtype, and the bytes each
+  rank's file holds; any other directory (the JAX package's orbax format,
+  which the port does not read) raises.
 """
 
 from __future__ import annotations
@@ -133,6 +136,31 @@ def inspect_pyth(path: str, full=False):
         print(f"  {mod:30s} {p / 1e6:9.2f}M params  {_human(b)}")
 
 
+def inspect_orbax_step(path: str):
+    """A step directory the port's orbax backend committed (DCP's format)."""
+    from torch.distributed.checkpoint import FileSystemReader
+
+    from csts_torch.utils import orbax_ckpt
+
+    with open(os.path.join(path, orbax_ckpt.COMMIT)) as f:
+        commit = json.load(f)
+    md = FileSystemReader(path).read_metadata()
+    print(f"step {commit['step']} ({commit['format']}, written by {commit['ranks']} rank(s))")
+    total = 0
+    by_group = defaultdict(int)
+    for key, meta in sorted(md.state_dict_metadata.items()):  # every value a tensor
+        n = int(np.prod(meta.size)) * meta.properties.dtype.itemsize
+        total += n
+        by_group[key.split(".")[0]] += n
+        dtype = str(meta.properties.dtype).replace("torch.", "")
+        print(f"  {key:70s} {str(tuple(meta.size)):20s} {dtype:10s} {_human(n)}")
+    print(f"{len(md.state_dict_metadata)} keys, {_human(total)} total: "
+          + ", ".join(f"{g} {_human(b)}" for g, b in sorted(by_group.items())))
+    for name in sorted(n for n in os.listdir(path) if n.endswith(".distcp")):
+        rank = name[2:].split("_")[0]
+        print(f"  rank {rank}: {name} {_human(os.path.getsize(os.path.join(path, name)))}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("path")
@@ -141,9 +169,15 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     if os.path.isdir(args.path):
-        raise NotImplementedError(
-            f"{args.path} is a directory (an orbax run?): orbax checkpoints are not ported, "
-            "the card's machine has no orbax; the port's trainer writes npz")
+        from csts_torch.utils import orbax_ckpt
+
+        if not os.path.isfile(os.path.join(args.path, orbax_ckpt.COMMIT)):
+            raise NotImplementedError(
+                f"{args.path} is not a step the port's orbax backend committed (no "
+                f"{orbax_ckpt.COMMIT}): the JAX package's orbax format is not read by the "
+                "port; give OUTPUT_DIR/checkpoints_orbax/<step>")
+        inspect_orbax_step(args.path)
+        return
     if args.path.endswith((".pyth", ".pkl", ".pt")):
         inspect_pyth(args.path, full=args.full)
     else:

@@ -25,7 +25,9 @@ moments in the parameters' dtype); the second moment stays fp32.
 
 :class:`Optimizer` also reads and writes the moments and counts by parameter
 name (``moments``, ``load_moments``), which the npz checkpoints of
-``utils/checkpoint.py`` hold in the JAX package's layout.
+``utils/checkpoint.py`` hold in the JAX package's layout, and gives the
+moments this rank keeps as they lie (``local_moments``, ``set_count``) to
+the orbax backend (``utils/orbax_ckpt.py``), with no collective.
 
 With a process group (``parallel/mesh.py``): SOLVER.ZERO1 is
 ``ZeroRedundancyOptimizer`` over the same torch optimizer and groups (each
@@ -249,7 +251,6 @@ class Optimizer:
         the state's dtype: under ZeRO-1 the moments of this rank's share,
         under FSDP this rank's shard of each."""
         bf16_mu = isinstance(self.local, AdamWBF16Mu)
-        fused = bool(self.local.defaults.get("fused"))
         owned = {id(p) for group in self.local.param_groups for p in group["params"]}
 
         def like(p, value, dtype=None):
@@ -263,11 +264,62 @@ class Optimizer:
                 if self.local.defaults.get("momentum", 0.0):
                     state["momentum_buffer"] = like(p, first[name])
                 continue
-            # fused AdamW keeps its step on the parameter's device
-            state["step"] = torch.tensor(float(count), dtype=torch.float32,
-                                         device=p.device if fused else "cpu")
+            state["step"] = self._step_tensor(p, count)
             state["exp_avg"] = like(p, first[name], torch.bfloat16 if bf16_mu else None)
             state["exp_avg_sq"] = like(p, second[name])
+
+    def _kinds(self) -> Tuple[str, ...]:
+        if self.method != "sgd":
+            return ("exp_avg", "exp_avg_sq")
+        return ("momentum_buffer",) if self.local.defaults.get("momentum", 0.0) else ()
+
+    def _step_tensor(self, p: torch.Tensor, count: int) -> torch.Tensor:
+        # fused AdamW keeps its step on the parameter's device
+        fused = bool(self.local.defaults.get("fused"))
+        return torch.tensor(float(count), dtype=torch.float32,
+                            device=p.device if fused else "cpu")
+
+    def local_moments(self, create: bool = False
+                      ) -> Tuple[int, Dict[str, Dict[str, torch.Tensor]]]:
+        """(count, {kind: {name: tensor}}): the moments this rank keeps, as
+        they lie, with no collective (``moments``' local counterpart).
+        Kinds: ``exp_avg`` and ``exp_avg_sq`` for AdamW/Adam,
+        ``momentum_buffer`` for SGD with momentum. Under ZeRO-1 the
+        parameters of this rank's share of ``ZeroRedundancyOptimizer``'s
+        partition (which follows the world size), under FSDP2 DTensors, and
+        a model-axis part's moments split as it is. A moment not made yet
+        reads as zeros (bf16 for AdamW's first moment under
+        SOLVER.BF16_MOMENTS), or with ``create`` is made so, in place, for a
+        load to fill."""
+        bf16_mu = isinstance(self.local, AdamWBF16Mu)
+        owned = {id(p) for group in self.local.param_groups for p in group["params"]}
+        count, out = 0, {k: {} for k in self._kinds()}
+        for name, p in self.named.items():
+            if id(p) not in owned:
+                continue
+            state = self.local.state[p] if create else self.local.state.get(p, {})
+            if "step" in state:
+                count = int(state["step"])
+            for kind in out:
+                t = state.get(kind)
+                if t is None:
+                    dtype = torch.bfloat16 if bf16_mu and kind == "exp_avg" else p.dtype
+                    t = torch.zeros_like(p.detach(), dtype=dtype)
+                    if create:
+                        state[kind] = t
+                out[kind][name] = t
+            if create and self.method != "sgd" and "step" not in state:
+                state["step"] = self._step_tensor(p, 0)
+        return count, out
+
+    def set_count(self, count: int) -> None:
+        """Adam's count on every parameter this rank keeps moments of."""
+        if self.method == "sgd":
+            return
+        for group in self.local.param_groups:
+            for p in group["params"]:
+                if p in self.local.state and "step" in self.local.state[p]:
+                    self.local.state[p]["step"] = self._step_tensor(p, count)
 
     def set_lr(self, lr: float) -> None:
         for group in self.opt.param_groups:

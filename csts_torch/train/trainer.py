@@ -10,12 +10,22 @@ the checkpoint and validation periods (the EMA weights are validated when
 SOLVER.EMA_DECAY > 0). It runs on CUDA unless ``device`` names another
 device, and raises with no CUDA and no device given.
 
-Preemption: SIGTERM sets a flag; the iteration loop saves an iter-tagged npz
-within one step and returns, and auto-resume continues that epoch at that
-iteration. The stochastic-depth masks of iteration i of epoch e come from a
-``torch.Generator`` seeded from (RNG_SEED, e, i), and the loader's order and
-draws are keyed the same way, so a resumed run replays the uninterrupted
-one. ``_PREEMPT_AFTER_ITERS`` injects the signal after that many iterations
+Checkpoints (TRAIN.CHECKPOINT_BACKEND): "npz" writes the JAX package's
+npz TrainState (``utils/checkpoint.py``: rank 0, every rank gathering the
+whole state); "orbax" saves through ``utils/orbax_ckpt.py`` asynchronously,
+each rank its own pieces, keyed by global iteration (an epoch boundary
+``(epoch + 1) · steps_per_epoch``, a preemption ``epoch · steps_per_epoch +
+iteration``), and with TRAIN.AUTO_RESUME its latest committed step wins
+over the npz chain, restored into the state after ``mesh.wrap_for_training``
+(each rank straight into its own layout). ``train`` returns, on success,
+error or preemption, only once the last save has committed.
+
+Preemption: SIGTERM sets a flag; the iteration loop saves an iter-tagged
+checkpoint within one step and returns, and auto-resume continues that
+epoch at that iteration. The stochastic-depth masks of iteration i of epoch
+e come from a ``torch.Generator`` seeded from (RNG_SEED, e, i), and the
+loader's order and draws are keyed the same way, so a resumed run replays
+the uninterrupted one. ``_PREEMPT_AFTER_ITERS`` injects the signal after that many iterations
 of the first trained epoch (drills and tests).
 
 Several processes: when the caller has started a process group
@@ -23,7 +33,7 @@ Several processes: when the caller has started a process group
 loads its stripe of every global batch, steps through DDP (or ZeRO-1 /
 FSDP under SOLVER.ZERO1 / SOLVER.FSDP), and the train and val records are
 the global batch's (the metrics' sums added over the ranks before the
-division), logged by rank 0. Rank 0 writes each checkpoint. SIGTERM may
+division), logged by rank 0. Rank 0 writes each npz. SIGTERM may
 reach one rank first: every iteration the ranks agree on the stop flag
 (one MAX all-reduce), so all save and stop at the same iteration and none
 waits in a collective the others left.
@@ -81,10 +91,9 @@ def drop_generator(seed: int, epoch: int, iteration: int) -> torch.Generator:
 
 
 def _check_options(cfg: Config) -> None:
-    if cfg.TRAIN.CHECKPOINT_BACKEND != "npz":
-        raise NotImplementedError(
-            f"TRAIN.CHECKPOINT_BACKEND {cfg.TRAIN.CHECKPOINT_BACKEND!r}: only npz is ported; "
-            "the card's machine has no orbax, and rank 0's npz serves every sharding")
+    if cfg.TRAIN.CHECKPOINT_BACKEND not in ("npz", "orbax"):
+        raise ValueError(f"TRAIN.CHECKPOINT_BACKEND {cfg.TRAIN.CHECKPOINT_BACKEND!r}: "
+                         "npz or orbax")
 
 
 @contextlib.contextmanager
@@ -129,9 +138,47 @@ def _fit(cfg: Config, device, train_loader, val_loader) -> step_lib.TrainState:
     """``train``'s body over its two loaders."""
     spec = build_spec(cfg)
     steps_per_epoch = max(len(train_loader), 1)
+    # the state comes wrapped for the process group (mesh.wrap_for_training),
+    # so the orbax backend restores each rank's pieces straight into its
+    # own layout; the npz chain (and .pyth fine-tune init) loads whole files
     state = step_lib.create_train_state(
         cfg, spec, torch.Generator().manual_seed(cfg.RNG_SEED), device=device)
-    start_epoch, start_iter = cu.load_train_checkpoint(cfg, state)
+    ckpt = None
+    if cfg.TRAIN.CHECKPOINT_BACKEND == "orbax":
+        from csts_torch.utils import orbax_ckpt
+
+        ckpt = orbax_ckpt.OrbaxCheckpointer(cfg.OUTPUT_DIR)
+    try:
+        return _fit_state(cfg, device, train_loader, val_loader, spec, steps_per_epoch, state,
+                          ckpt)
+    finally:
+        if ckpt is not None:
+            ckpt.close()  # waits: no write outlives train(), and a failed one raises
+
+
+def _save(cfg, ckpt, state, epoch: int, steps_per_epoch: int,
+          iter_idx: Optional[int] = None) -> None:
+    """Checkpoints ``state`` after ``epoch`` (the last completed one) and
+    ``iter_idx`` iterations of the next: an npz, or through the orbax
+    backend an async save keyed by global iteration."""
+    if ckpt is None:
+        cu.save_checkpoint(cfg.OUTPUT_DIR, state, epoch, cfg, iter_idx=iter_idx)
+    else:
+        ckpt.save(state, (epoch + 1) * steps_per_epoch + (iter_idx or 0))
+
+
+def _fit_state(cfg: Config, device, train_loader, val_loader, spec, steps_per_epoch: int,
+               state: step_lib.TrainState, ckpt) -> step_lib.TrainState:
+    """``_fit`` from the made state, with the orbax checkpointer ``ckpt``
+    (None: npz)."""
+    resume_step = ckpt.latest_step() if ckpt is not None and cfg.TRAIN.AUTO_RESUME else None
+    if resume_step is None:
+        start_epoch, start_iter = cu.load_train_checkpoint(cfg, state)
+    else:
+        # boundary saves land on epoch multiples (start_iter 0), preemption
+        # saves mid-epoch
+        ckpt.restore(state, resume_step)
+        start_epoch, start_iter = divmod(resume_step, steps_per_epoch)
     train_step = step_lib.make_train_step(cfg, spec, steps_per_epoch,
                                           accum_steps=cfg.TRAIN.GRAD_ACCUM_STEPS)
     eval_step = step_lib.make_eval_step(cfg, spec)
@@ -157,8 +204,7 @@ def _fit(cfg: Config, device, train_loader, val_loader) -> step_lib.TrainState:
                                       cfg, device, profile, writer, start_iter=epoch_start_iter)
             epoch_timer.epoch_toc()
             if stopped_at is not None:
-                cu.save_checkpoint(cfg.OUTPUT_DIR, state, cur_epoch - 1, cfg,
-                                   iter_idx=stopped_at)
+                _save(cfg, ckpt, state, cur_epoch - 1, steps_per_epoch, iter_idx=stopped_at)
                 logger.info("Preemption checkpoint saved (epoch %d, iter %d); exiting.",
                             cur_epoch + 1, stopped_at)
                 break
@@ -167,15 +213,17 @@ def _fit(cfg: Config, device, train_loader, val_loader) -> step_lib.TrainState:
                         epoch_timer.last_epoch_time() / max(len(train_loader), 1))
             saved = (cur_epoch + 1) % cfg.TRAIN.CHECKPOINT_PERIOD == 0
             if saved:
-                cu.save_checkpoint(cfg.OUTPUT_DIR, state, cur_epoch, cfg)
+                _save(cfg, ckpt, state, cur_epoch, steps_per_epoch)
             if (cur_epoch + 1) % cfg.TRAIN.EVAL_PERIOD == 0:
                 _eval_epoch(val_loader, state, eval_step, val_meter, cur_epoch, cfg, device)
             if collectives.any_rank(_PREEMPTED.is_set()):
                 # preempted on the epoch's last iteration: exit at the boundary
                 if not saved:
-                    cu.save_checkpoint(cfg.OUTPUT_DIR, state, cur_epoch, cfg)
+                    _save(cfg, ckpt, state, cur_epoch, steps_per_epoch)
                 logger.info("Preemption checkpoint saved (epoch %d); exiting.", cur_epoch + 1)
                 break
+        if ckpt is not None:
+            ckpt.wait()
     finally:
         if previous is not None:
             signal.signal(signal.SIGTERM, previous)

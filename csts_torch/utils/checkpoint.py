@@ -20,6 +20,11 @@ shapes and order), the leaves are, in order:
 The moments convert with the params' own transposes; Adam's count is
 ``torch.optim.AdamW``'s per-parameter ``step``.
 
+``local_state`` gives this rank's part of a TrainState ungathered (the
+pieces of each tensor it holds, at their offsets in the whole tensor), and
+``load_local_state`` completes a load into it: the orbax backend's
+(``utils/orbax_ckpt.py``) description of the state.
+
 With a process group rank 0 writes the same archive whatever the sharding
 (ZeRO-1's moments consolidated there, FSDP's shards gathered whole), the
 other ranks wait at a barrier, and every rank reads a file after one. Under SOLVER.BF16_MOMENTS
@@ -31,6 +36,7 @@ value exactly and loads into either package.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -119,6 +125,95 @@ def state_leaves(state) -> Optional[List[np.ndarray]]:
     if ema is not None:
         leaves += _jax_leaves(ema, lay)
     return leaves
+
+
+@dataclasses.dataclass
+class Local:
+    """This rank's part of one tensor of a TrainState, ungathered: ``pieces``
+    are views of the live storage, each with its offsets in the whole
+    tensor of ``shape``."""
+
+    shape: Tuple[int, ...]
+    pieces: List[Tuple[Tuple[int, ...], torch.Tensor]]
+
+
+def _pieces(t: torch.Tensor, like: torch.Tensor) -> Local:
+    """``t`` (a parameter, or a state of the parameter ``like``) as its
+    pieces of the whole tensor: an FSDP2 shard (a DTensor) sits at its
+    offset along the model-axis part it shards; a part of the model axis's
+    split (``like.model_split``) at this rank's place on that axis, as one
+    box, or for "qkv" as up to three boxes, one each of Q, K and V."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    from csts_torch.parallel import mesh
+
+    local = collectives.local(t)
+    half = tuple(t.shape)  # the model-axis part's shape (a DTensor's global shape)
+    offsets = [0] * local.dim()
+    if isinstance(t, collectives.DTensor):
+        _, offsets = compute_local_shape_and_global_offset(t.shape, t.device_mesh, t.placements)
+        offsets = list(offsets)
+    how = getattr(like, "model_split", None)
+    if how is None:
+        return Local(half, [(tuple(offsets), local)])
+    w, r = mesh.axis_size(mesh.MODEL_AXIS), mesh.axis_index(mesh.MODEL_AXIS)
+    shape = list(half)
+    if how != "qkv":
+        shape[how] *= w
+        offsets[how] += r * half[how]
+        return Local(tuple(shape), [(tuple(offsets), local)])
+    # the part's rows are c rows of each of Q, K, V (split_heads): part row
+    # j is whole row (j // c)·C + r·c + j % c
+    c = half[0] // 3
+    shape[0] *= w
+    pieces, lo, n = [], offsets[0], local.shape[0]
+    while n > 0:
+        g, j = divmod(lo, c)
+        take = min(n, c - j)
+        at = list(offsets)
+        at[0] = g * shape[0] // 3 + r * c + j
+        pieces.append((tuple(at), local.narrow(0, lo - offsets[0], take)))
+        lo, n = lo + take, n - take
+    # an empty FSDP2 shard is one empty piece
+    return Local(tuple(shape), pieces or [(tuple(offsets), local)])
+
+
+def _scalar(value, dtype) -> Local:
+    return Local((), [((), torch.tensor(value, dtype=dtype))])
+
+
+def local_state(state, create: bool = False) -> Dict[str, Local]:
+    """This rank's part of the port's ``train.step.TrainState``, without a
+    gather: {key: :class:`Local`} under ``model.<name>``, ``ema.<name>``,
+    ``optimizer.<exp_avg|exp_avg_sq|momentum_buffer>.<name>`` (the moments
+    this rank keeps: under ZeRO-1 its share), ``optimizer.count``,
+    ``optimizer.lr`` and ``step``, by the port's parameter names. The
+    tensors' pieces are views of the state's own storage, so a load into
+    them loads the state (then :func:`load_local_state` sets the scalars);
+    ``create`` makes the moments of a state that has taken no step yet (else
+    they read as zeros). A bf16 first moment stays bf16."""
+    named = dict(state.model.named_parameters())
+    out = {f"model.{n}": _pieces(p.detach(), p) for n, p in named.items()}
+    opt = state.optimizer
+    count, moments = opt.local_moments(create)
+    for kind, by_name in moments.items():
+        for n, t in by_name.items():
+            out[f"optimizer.{kind}.{n}"] = _pieces(t, named[n])
+    out["optimizer.count"] = _scalar(count, torch.int64)
+    out["optimizer.lr"] = _scalar(opt.lr, torch.float64)
+    out["step"] = _scalar(state.step, torch.int64)
+    if state.ema is not None:
+        out.update({f"ema.{n}": _pieces(t, named[n]) for n, t in state.ema.items()})
+    return out
+
+
+def load_local_state(state, local: Dict[str, Local]) -> None:
+    """:func:`local_state`'s inverse, once its pieces have been loaded in
+    place: the step, the learning rate and Adam's count."""
+    scalar = lambda key: local[key].pieces[0][1].item()  # noqa: E731
+    state.step = int(scalar("step"))
+    state.optimizer.set_lr(float(scalar("optimizer.lr")))
+    state.optimizer.set_count(int(scalar("optimizer.count")))
 
 
 def save_checkpoint(output_dir: str, state, epoch: int, cfg=None,
@@ -318,7 +413,10 @@ def resolve_test_checkpoint(cfg) -> Optional[str]:
 def load_test_checkpoint(cfg, model: nn.Module,
                          init: Optional[Callable[[], None]] = None) -> Optional[str]:
     """Loads the test chain's first source into ``model`` and returns its
-    path; with no source it logs the random initialisation and returns None.
+    path; after the files, the latest committed step of the orbax backend in
+    OUTPUT_DIR (``utils/orbax_ckpt.py``: a run of that backend writes no
+    npz), its EMA weights with TEST.USE_EMA where it has them; with no source
+    it logs the random initialisation and returns None.
 
     An ``.npz`` gives its params, or with TEST.USE_EMA its EMA weights where
     it has them (a warning where it has none), whichever link of the chain
@@ -329,6 +427,21 @@ def load_test_checkpoint(cfg, model: nn.Module,
     warning."""
     path = resolve_test_checkpoint(cfg)
     if path is None:
+        from csts_torch.utils import orbax_ckpt
+
+        if orbax_ckpt.has_checkpoint(cfg.OUTPUT_DIR):
+            # a run of the orbax backend writes no npz: its latest step
+            ck = orbax_ckpt.OrbaxCheckpointer(cfg.OUTPUT_DIR)
+            try:
+                step, ema = ck.restore_params(model, use_ema=cfg.TEST.USE_EMA)
+            finally:
+                ck.close()
+            if cfg.TEST.USE_EMA and not ema:
+                logger.warning("TEST.USE_EMA requested but step %d has no EMA weights; "
+                               "evaluating raw params.", step)
+            logger.info("Testing with orbax checkpoint at step %d%s.", step,
+                        " (its EMA weights)" if ema else "")
+            return ck.step_dir(step)
         logger.info("Testing with random initialization (no checkpoint found).")
         if init is not None:
             init()

@@ -14,7 +14,8 @@ gradients, and the three autograd Functions against autograd of their plain
 versions; ``small_cfg``'s eval loop
 (``csts_torch.eval.tester.test``: loader, prefetcher, metrics) through the
 kernels against the same loop through the plain twins, and the AUC's
-tie order on the card against the CPU's; ``small_cfg``'s step on two gloo
+tie order on the card against the CPU's; the orbax checkpointer's round
+trip on CUDA tensors; ``small_cfg``'s step on two gloo
 ranks sharing the card (DDP, the kernels in each rank) against one process,
 and what NCCL and gloo do with two ranks on one card.
 
@@ -1078,6 +1079,43 @@ def test_small_trainer_kernels_vs_plain(gen, tmp_path, monkeypatch):
     cu.load_checkpoint(path, fresh)
     for a, b in zip(cu.state_leaves(fresh), cu.state_leaves(states[0])):
         assert np.array_equal(a, b)
+
+
+def test_orbax_round_trip_on_the_card(gen, tmp_path):
+    """TRAIN.CHECKPOINT_BACKEND "orbax"'s checkpointer on CUDA tensors:
+    ``small_cfg`` (BF16_MOMENTS, EMA) after a step through the kernels,
+    saved (staged to pinned host memory, written on DCP's thread), then
+    restored into a fresh state on the card and into one on the CPU: both
+    equal to the saved state's ``state_leaves``, the first moment bf16."""
+    import numpy as np
+
+    from csts_torch import presets
+    from csts_torch.models.csts import build_spec
+    from csts_torch.train import step as step_lib
+    from csts_torch.utils import checkpoint as cu
+    from csts_torch.utils import orbax_ckpt
+    from test_torch_multiproc import _random_batch
+
+    cfg = presets.small_cfg(2)
+    cfg.SOLVER.BF16_MOMENTS = True
+    cfg.SOLVER.EMA_DECAY = 0.9
+    spec = build_spec(cfg)
+    state = step_lib.create_train_state(cfg, spec, torch.Generator().manual_seed(0),
+                                        device="cuda")
+    batch = {k: v.cuda() for k, v in _random_batch(2, cfg).items()}
+    step_lib.make_train_step(cfg, spec, 10)(state, batch, torch.Generator().manual_seed(1))
+    ck = orbax_ckpt.OrbaxCheckpointer(str(tmp_path))
+    ck.save(state, 1)
+    ck.close()
+    want = cu.state_leaves(state)
+    for device in ("cuda", "cpu"):
+        fresh = step_lib.create_train_state(cfg, spec, torch.Generator().manual_seed(7),
+                                            device=device)
+        assert orbax_ckpt.OrbaxCheckpointer(str(tmp_path)).restore(fresh)[1] == 1
+        first = fresh.optimizer.local.state[next(fresh.model.parameters())]["exp_avg"]
+        assert first.dtype == torch.bfloat16 and first.device.type == device
+        for i, (a, b) in enumerate(zip(cu.state_leaves(fresh), want)):
+            assert a.dtype == b.dtype and np.array_equal(a, b), (device, i)
 
 
 # ----------------------------------------------------------------------------------

@@ -99,7 +99,7 @@ def test_tester_matches_jax(fixture, tmp_path, views, dataset):
 
 def test_run_net_scores_the_split(fixture, tmp_path, monkeypatch):
     """The CLI with a YAML and overrides: CUDA unless --device is given, an
-    error for a training option not ported, several shards refused without
+    error for a checkpoint backend that does not exist, several shards refused without
     a rendezvous (``--init-method``), the tester's stats for TEST.ENABLE."""
     _, tcfg = _cfgs(fixture, tmp_path)
     yaml_path = tmp_path / "cfg.yaml"
@@ -122,9 +122,12 @@ def test_run_net_scores_the_split(fixture, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         run_net.main(args)
-    with pytest.raises(NotImplementedError, match="no orbax"):
+    # the orbax backend is ported (tests/test_torch_orbax_ckpt.py); a backend
+    # that is neither it nor npz is refused before anything is built
+    with pytest.raises(ValueError, match="npz or orbax"):
         run_net.main(["--device", "cpu", "--cfg", str(yaml_path),
-                      "TRAIN.CHECKPOINT_BACKEND", "orbax", "OUTPUT_DIR", str(tmp_path / "t")])
+                      "TRAIN.CHECKPOINT_BACKEND", "tensorstore", "OUTPUT_DIR",
+                      str(tmp_path / "t")])
     with pytest.raises(ValueError, match="init-method"):
         run_net.main(["--device", "cpu", "--num-shards", "2"] + args)
     got = run_net.main(["--device", "cpu"] + args)

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX package,
-nor OpenCV, nor PIL, nor matplotlib (the card's machine has none of them),
-nor PyYAML, and it never drops to the CPU without being asked to."""
+nor OpenCV, nor PIL, nor matplotlib, nor orbax or tensorstore (the card's
+machine has none of them), nor PyYAML, and it never drops to the CPU
+without being asked to."""
 
 import ast
 import os
@@ -26,7 +27,7 @@ PORT_FILES = sorted(
     for d, _, files in os.walk(os.path.join(REPO, "csts_torch"))
     for f in files if f.endswith(".py")
 ) + [os.path.join(REPO, "chip_smoke.py")]
-FORBIDDEN = ("jax", "jaxlib", "csts_tpu", "cv2", "PIL", "matplotlib")
+FORBIDDEN = ("jax", "jaxlib", "csts_tpu", "cv2", "PIL", "matplotlib", "orbax", "tensorstore")
 # the model and host modules of the classifier slice, which the walk must reach
 NEW_MODULES = (
     "csts_torch.models.build", "csts_torch.models.mvit_classifier", "csts_torch.models.batchnorm",

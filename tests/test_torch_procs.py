@@ -142,6 +142,24 @@ def test_close_stops_the_workers(split, tmp_path):
     loader.close()
 
 
+def test_workers_fork_from_a_server_that_imported_torch(split, tmp_path):
+    """The workers' fork server imported torch and the loader once, when it
+    started (its command line names them: ``loader.FORKSERVER_PRELOAD``),
+    so a worker it forks does not import them itself. Python 3.12's server
+    never imports ``__main__``, its default preload, and each worker took
+    ~3 s on a CPU-only host (~20 s on an H100's host) to import torch."""
+    with loader_lib.construct_loader(_cfg(split, tmp_path), "test") as loader:
+        next(iter(loader))
+        servers = set()
+        for w in loader._iterator._workers:
+            with open(f"/proc/{w.pid}/stat") as f:
+                servers.add(int(f.read().rsplit(")", 1)[1].split()[1]))  # the parent
+    assert len(servers) == 1
+    cmd = procs.cmdline(servers.pop())
+    assert "multiprocessing.forkserver import main" in cmd, cmd
+    assert repr(loader_lib.FORKSERVER_PRELOAD) in cmd, cmd
+
+
 def test_close_kills_a_stuck_worker(split, tmp_path, monkeypatch):
     """A worker that cannot take its stop message (stopped here with
     SIGSTOP; SIGTERM, which ``terminate()`` sends, would not move it

@@ -49,6 +49,7 @@ from csts_torch.train import step as tstep
 from csts_torch.train import trainer as ttrainer
 from csts_torch.train.optimizer import construct_optimizer
 from csts_torch.utils import checkpoint as tcu
+from csts_torch.utils import orbax_ckpt
 from test_torch_train import _jax_drop_masks
 
 torch.set_num_threads(2)
@@ -422,22 +423,87 @@ def test_trainer_tracks_jax(split, tmp_path, monkeypatch):
             np.testing.assert_allclose(got, want, atol=2e-3 * scale, rtol=0, err_msg=str(i))
 
 
+def test_orbax_preemption_tracks_jax(split, tmp_path, monkeypatch):
+    """Both ``train()``s with TRAIN.CHECKPOINT_BACKEND "orbax" from one
+    JAX-written init npz, stopped after the first iteration and resumed:
+    both commit the same global steps (1 at the stop, 2 and 4 at the epoch
+    boundaries), and the params of the latest step, restored by each
+    package's own backend, agree within ``test_trainer_tracks_jax``'s bar
+    (2·Σlr), the step and Adam's count equal."""
+    from csts_tpu.utils import orbax_ckpt as jorbax
+
+    jcfg, tcfg = _train_cfgs(split, tmp_path)
+    jspec = jcsts.build_spec(jcfg)
+    state, _ = jstep.create_train_state(jcfg, jspec, jax.random.PRNGKey(0))
+    init = jcu.save_checkpoint(str(tmp_path / "init"), _np(state), 0, jcfg)
+    for c in (jcfg, tcfg):
+        c.TRAIN.CHECKPOINT_FILE_PATH = init
+        c.TRAIN.CHECKPOINT_BACKEND = "orbax"
+    lrs = []
+    update = tmeters.TrainGazeMeter.update_stats
+
+    def record(self, f1, r, p, th, loss, lr, mb_size):
+        lrs.append(lr)
+        return update(self, f1, r, p, th, loss, lr, mb_size)
+
+    monkeypatch.setattr(tmeters.TrainGazeMeter, "update_stats", record)
+    for mod, run in ((jtrainer, lambda: jtrainer.train(jcfg)),
+                     (ttrainer, lambda: ttrainer.train(tcfg, device="cpu"))):
+        monkeypatch.setattr(mod, "_PREEMPT_AFTER_ITERS", 1)
+        run()
+        monkeypatch.setattr(mod, "_PREEMPT_AFTER_ITERS", None)
+        run()
+    jdir = os.path.join(jcfg.OUTPUT_DIR, "checkpoints_orbax")
+    assert sorted(int(n) for n in os.listdir(jdir) if n.isdigit()) == [1, 2, 4]
+    assert orbax_ckpt.committed_steps(tcfg.OUTPUT_DIR) == [1, 2, 4]
+    assert len(lrs) == 4
+    template, _ = jstep.create_train_state(jcfg, jspec, jax.random.PRNGKey(1))
+    ck = jorbax.OrbaxCheckpointer(jcfg.OUTPUT_DIR)
+    jstate, jstep_ = ck.restore(template)
+    ck.close()
+    port = tstep.create_train_state(tcfg, build_spec(tcfg), device="cpu")
+    assert orbax_ckpt.OrbaxCheckpointer(tcfg.OUTPUT_DIR).restore(port)[1] == jstep_ == 4
+    want = _np(jax.tree_util.tree_leaves(jstate.params))
+    got = tcu.state_leaves(port)
+    p = len(want)
+    assert int(got[p]) == int(jstate.step) == 4 and int(got[p + 2]) == 4
+    for i, w in enumerate(want):
+        np.testing.assert_allclose(got[i], w, atol=2 * sum(lrs), rtol=0, err_msg=str(i))
+
+
 def _final(out_dir):
     path = tcu.get_last_checkpoint(out_dir)
     assert path.endswith("checkpoint_epoch_00002.npz")
     return np.load(path)
 
 
-@pytest.mark.parametrize("how", ["injected", "sigterm"])
+@pytest.mark.parametrize("how", ["injected", "sigterm", "orbax"])
 def test_preempted_run_resumes_bit_equal(split, tmp_path, monkeypatch, how):
     """Drop-path 0.2 and EMA on: a run stopped after the first iteration of
     the first epoch (by ``_PREEMPT_AFTER_ITERS``, or by a SIGTERM the process sends
     itself mid-step) saves an iter-tagged npz, and a second ``train()``
     resumes it there; the final npz equals an uninterrupted run's bit for
-    bit, leaf by leaf."""
+    bit, leaf by leaf. Under TRAIN.CHECKPOINT_BACKEND "orbax" (injected)
+    the stop saves global step 1, the resumed run restores it and saves
+    steps 2 and 4, and its final state equals the uninterrupted run's npz
+    bit for bit."""
     _, whole = _train_cfgs(split, tmp_path / "whole", drop=0.2, ema=0.9)
     _, cut = _train_cfgs(split, tmp_path / "cut", drop=0.2, ema=0.9)
     ttrainer.train(whole, device="cpu")
+    if how == "orbax":
+        cut.TRAIN.CHECKPOINT_BACKEND = "orbax"
+        monkeypatch.setattr(ttrainer, "_PREEMPT_AFTER_ITERS", 1)
+        assert ttrainer.train(cut, device="cpu").step == 1
+        assert orbax_ckpt.committed_steps(cut.OUTPUT_DIR) == [1]
+        monkeypatch.setattr(ttrainer, "_PREEMPT_AFTER_ITERS", None)
+        final = tcu.state_leaves(ttrainer.train(cut, device="cpu"))
+        assert orbax_ckpt.committed_steps(cut.OUTPUT_DIR) == [1, 2, 4]
+        assert not os.path.exists(tcu.checkpoint_dir(cut.OUTPUT_DIR))
+        a = _final(whole.OUTPUT_DIR)
+        assert len(final) == len(a.files)
+        for i, got in enumerate(final):
+            np.testing.assert_array_equal(got, a[f"leaf_{i:05d}"], err_msg=str(i))
+        return
     if how == "injected":
         monkeypatch.setattr(ttrainer, "_PREEMPT_AFTER_ITERS", 1)
         ttrainer.train(cut, device="cpu")
@@ -477,8 +543,12 @@ def test_trainer_refuses_what_is_not_ported(split, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         ttrainer.train(cfg)
+    # the orbax backend is ported (tests/test_torch_orbax_ckpt.py); a backend
+    # that is neither raises before anything is built
     cfg.TRAIN.CHECKPOINT_BACKEND = "orbax"
-    with pytest.raises(NotImplementedError, match="no orbax"):
+    ttrainer._check_options(cfg)
+    cfg.TRAIN.CHECKPOINT_BACKEND = "tensorstore"
+    with pytest.raises(ValueError, match="npz or orbax"):
         ttrainer.train(cfg, device="cpu")
     cfg.TRAIN.CHECKPOINT_BACKEND = "npz"
     # TENSORBOARD.ENABLE is ported (tests/test_torch_tensorboard.py)
