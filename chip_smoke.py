@@ -93,8 +93,25 @@ Phases (any failure exits non-zero; nothing is caught):
      run twice at each shape (the two runs bit-equal);
      one fp32 step at batch 2 (TF32 off) through the kernels and through the
      plain twins from the same weights, masks and batch (loss and every
-     parameter's gradient compared); one bf16 batch-8 step with the plain
-     attention twin in place of K1+B8, timed beside the kernels' step;
+     parameter's gradient compared; the same step under the switches of
+     5b(b) beside it); one bf16 batch-8 step with the plain attention twin
+     in place of K1+B8 (TRAIN_ATTN off), timed beside the kernels' step;
+ 5b. the JAX package's kernel switches (``switches_phase``, at the
+     flagship's width, TF32 off): (a) K1 (v4 unmasked: K1 forward and B8;
+     the spatial fusion's masked shape: K1 and the plain recompute), K2 (v4
+     and the first dim-change site) and B3 (v0) differentiated on the card
+     through their wrappers at batch 1 in fp32, against autograd of their
+     plain twins at the JAX suite's gradient bars (``GRAD_BARS``), and B4,
+     B5, the eval K3 and B9a refusing a gradient ("inference-only"); (b)
+     phase 6's fp32 step at batch 2 (its weights, masks and batch) with
+     TRAIN_DECODER on (B5 at d2-d4 in the step, its backward the composite
+     recompute) and with TRAIN_ATTN off, each against the same step through
+     the plain twins at the whole-step bars, launches against
+     ``train_plan`` (``mvit.train_route``); (c) the card's A/B of JAX's four
+     training routes (TRAIN_ATTN off, off with TRAIN_DECODER, on, on with
+     TRAIN_DECODER) at batch 8 in bf16: ms/step by CUDA events in turns,
+     device busy ms of a traced step, peak memory, launches a step against
+     ``train_plan``;
   7. the training entry point: ``csts_torch.tools.run_net.main`` with
      ``--cfg configs/Ego4D/CSTS_Ego4D_Gaze_Forecast.yaml`` (read by the
      port's own YAML reader) at full width, bf16 over fp32 masters, batch 8,
@@ -219,7 +236,10 @@ It prints the ``kernels`` JSON line, the card line and, last, the result line.
 phase 7 alone under ``torch.use_deterministic_algorithms(True, warn_only=True)``,
 printing the ops it names (``determinism_probe``). ``python3 chip_smoke.py
 --parallel`` is the build and phase 8 alone, ``--axes`` the build and phase
-11 alone, ``--trainer`` the build and phase 7 alone.
+11 alone, ``--trainer`` the build and phase 7 alone, ``--switches`` the build
+and phase 5b alone, ``--conditioning`` the build and phase 6b's fp32 step
+without its bars on six batches, under the default switches and 5b(b)'s
+(``conditioning_probe``).
 Per-shape details go to ``chiprun_out/chip_smoke.json``.
 """
 
@@ -621,17 +641,12 @@ COUNTED = {**ALL_KERNELS, **B9_KERNELS}
 RECORDED = {**COUNTED,
             "mlp_tail_train_bwd": dict(module=kb, attr="fused_mlp_tail_train_bwd")}
 WRAPPERS = {name: getattr(k["module"], k["attr"]) for name, k in RECORDED.items()}
-# the training route's autograd entries, and autograd of their plain twins
-TRAIN_ENTRIES = (
-    (ka, "attention_train",
-     lambda q, k, v, scale, mask=None: ka.fused_attention_plain(q, k, v, scale, mask)),
-    (kb, "mlp_tail_train", lambda *a: kb.fused_mlp_tail_train_plain(*a)[0]),
-    (kup, "t2_upsample_train", kup.t2_upsample_plain),
-)
-# launches per training step on the flagship: K1 forward and B7 at all 26
-# blocks (16 video, 4 audio, 2 fusion, 4 decoder), B8 at the 25 without a
-# mask (the spatial fusion's backward is the plain recompute), K3 at d4's
-# skip and the stem skip; K2 and B3-B5 are eval only
+# launches per training step on the flagship under the default switches
+# (``train_plan`` derives them from ``mvit.train_route``; phase 5 holds the
+# two equal): K1 forward and B7 at all 26 blocks (16 video, 4 audio, 2
+# fusion, 4 decoder), B8 at the 25 without a mask (the spatial fusion's
+# backward is the plain recompute), K3 at d4's skip and the stem skip; K2,
+# B3 and B4 are eval only, B5 runs in training only under TRAIN_DECODER
 PER_STEP = {"attention": 26, "mlp_tail_train": 26, "attention_bwd": 25, "t2_upsample": 2,
             "mlp_tail": 0, "block": 0, "pool_block": 0, "decoder_block": 0, "hw2_upsample": 0}
 TRAIN_STEPS = 3
@@ -801,19 +816,19 @@ def recording(calls: dict):
 
 
 @contextlib.contextmanager
-def train_twins(attrs=tuple(attr for _, attr, _ in TRAIN_ENTRIES)):
-    """The training route's autograd entries named in ``attrs`` replaced by
-    autograd of their plain twins (the reference run)."""
-    saved = {}
+def train_switches(attn: bool = True, decoder: bool = False):
+    """The JAX package's training switches for the block: TRAIN_ATTN
+    (``ka.set_train_attention``) and TRAIN_DECODER
+    (``ka.set_train_decoder``), both restored on exit. The defaults are
+    the port's (TRAIN_ATTN on, TRAIN_DECODER off)."""
+    saved = ka.train_attention_enabled(), ka.train_decoder_enabled()
+    ka.set_train_attention(attn)
+    ka.set_train_decoder(decoder)
     try:
-        for module, attr, plain in TRAIN_ENTRIES:
-            if attr in attrs:
-                saved[(module, attr)] = getattr(module, attr)
-                setattr(module, attr, plain)
         yield
     finally:
-        for (module, attr), fn in saved.items():
-            setattr(module, attr, fn)
+        ka.set_train_attention(saved[0])
+        ka.set_train_decoder(saved[1])
 
 
 def reset_launches() -> None:
@@ -1123,20 +1138,24 @@ def train_path(rng: np.random.Generator) -> dict:
     step_ms = float(np.median([ms for ms, _ in steps]))
     log(f"phase train: {TRAIN_STEPS} steps, median {step_ms:.2f} ms/step = {bsz * 1e3 / step_ms:.2f} "
         f"train clips/s, peak memory {peak_gib:.2f} GiB ({CARD}); launches {launches}")
+    plan = train_plan(state.model)
+    assert plan == PER_STEP, f"train_route's plan {plan} is not PER_STEP {PER_STEP}"
     for name, per in PER_STEP.items():
         need = per * TRAIN_STEPS
         assert launches[name] == need, f"train {name}: {launches[name]} launches, expected {need}"
 
     profile = profile_forward(lambda: step(state, batch, gen), step_ms, log=log)
-    # the plain attention twin in place of K1 + B8, in turns with the kernels
+    # TRAIN_ATTN off (the plain attention core in place of K1 + B8), in turns
+    # with the kernels
     kern, plain = [ms for ms, _ in steps], []
     for _ in range(3):
-        with train_twins(("attention_train",)):
+        with train_switches(attn=False):
             plain += [ms for ms, _ in timed_steps(step, state, batch, gen, 4)[1:]]
         kern += [ms for ms, _ in timed_steps(step, state, batch, gen, 3)]
     plain_ms, kern_ms = float(np.median(plain)), float(np.median(kern))
-    log(f"phase train plain attention: median {plain_ms:.2f} ms/step with the plain attention "
-        f"twin ({', '.join(f'{x:.1f}' for x in plain)}) vs {kern_ms:.2f} through K1 + B8 "
+    log(f"phase train plain attention: median {plain_ms:.2f} ms/step with TRAIN_ATTN off, the "
+        f"plain attention core ({', '.join(f'{x:.1f}' for x in plain)}) vs {kern_ms:.2f} "
+        f"through K1 + B8 "
         f"({', '.join(f'{x:.1f}' for x in kern)}), in turns ({CARD})")
 
     # one more step records the inputs of every B7 forward, B7 backward and B8 call
@@ -1269,10 +1288,23 @@ def check_train_kernels(calls: dict) -> dict:
     return report
 
 
-def whole_step_check(rng: np.random.Generator) -> dict:
-    """Phase 6b: one fp32 step at batch 2 (TF32 off) through the kernels and
-    through the plain twins, from the same weights, masks and batch: the
-    loss and every parameter's gradient."""
+# the relative change of the inputs (video and audio) by which the plain
+# twins' step is moved against itself: how far the objective alone carries a
+# rounding-sized change into the gradients, beside the kernels' shares of the bar
+PERTURB = 1e-7
+
+
+def whole_step_check(rng: np.random.Generator, combos=(("default", {}),),
+                     check: bool = True) -> dict:
+    """Phase 6b (and 5b(b)): one fp32 step at batch 2 (TF32 off) through the
+    kernels under each of ``combos`` ((tag, ``train_switches`` arguments))
+    and through the plain twins (the kernels switched off, JAX's composite
+    route), from the same weights, masks and batch: the loss and every
+    parameter's gradient at the whole-step bars (asserted when ``check``),
+    and each kernel run's launches against ``train_plan`` under its
+    switches. Beside them the plain twins' step against itself with the
+    video and audio scaled by 1 + PERTURB (logged, not held to a bar).
+    Returns {tag: readings}."""
     cfg = flagship_train_cfg()
     cfg.TRAIN.MIXED_PRECISION = False
     cfg.TRAIN.BATCH_SIZE = 2
@@ -1282,42 +1314,323 @@ def whole_step_check(rng: np.random.Generator) -> dict:
     model = model.cuda().train()
     batch = make_train_batch(rng, 2, spec)
 
-    def loss_and_grads():
+    def loss_and_grads(scale: float = 1.0):
         model.zero_grad(set_to_none=True)
         drop = sample_drop_masks(spec.video_blocks, 2, torch.Generator().manual_seed(SEED + 2),
                                  "cuda")
-        loss, _, _ = train_lib.forward_loss(cfg, model, batch, drop)
+        inputs = dict(batch, video=batch["video"] * scale, audio=batch["audio"] * scale)
+        loss, _, _ = train_lib.forward_loss(cfg, model, inputs, drop)
         loss.backward()
         return float(loss.detach()), {n: p.grad.detach().clone() if p.grad is not None
                              else torch.zeros_like(p) for n, p in model.named_parameters()}
 
-    reset_launches()
-    loss_k, grads_k = loss_and_grads()
-    ran = {name: WRAPPERS[name].launches for name in ("attention", "mlp_tail_train",
-                                                      "attention_bwd", "t2_upsample")}
-    assert all(ran.values()), f"the fp32 step skipped a kernel: {ran}"
-    with train_twins():
+    with plain_twins():
         loss_p, grads_p = loss_and_grads()
+        _, grads_q = loss_and_grads(1.0 + PERTURB)
     norm = lambda t: float(torch.linalg.vector_norm(t.float()))  # noqa: E731
     total = float(np.sqrt(sum(norm(g) ** 2 for g in grads_p.values())))
     floor = STEP_GRAD_FLOOR * total
-    # each gradient's error as a share of its bar (fails above 1)
-    share = {n: norm(grads_k[n] - grads_p[n]) / (STEP_GRAD_RTOL * norm(grads_p[n]) + floor)
-             for n in grads_p}
-    rel = {n: rel_err(grads_k[n], grads_p[n]) for n in grads_p if norm(grads_p[n]) > floor}
-    worst = sorted(share.items(), key=lambda kv: -kv[1])[:5]
-    worst_rel = max(rel.values())
-    dloss = abs(loss_k - loss_p) / abs(loss_p)
-    log(f"phase train fp32 step: loss {loss_k:.8g} vs plain {loss_p:.8g} (relative {dloss:.3g}); "
-        f"{len(share)} gradients (whole norm {total:.4g}), worst relative norm {worst_rel:.3g} "
-        f"among the {len(rel)} above the floor; worst shares of the bar "
-        + ", ".join(f"{n} {e:.3g}" for n, e in worst))
-    assert dloss <= STEP_LOSS_RTOL, (loss_k, loss_p)
-    assert worst[0][1] <= 1.0, worst
-    del model, grads_k, grads_p
+
+    def worst_shares(grads) -> list:
+        # each gradient's error as a share of its bar (fails above 1)
+        share = {n: norm(grads[n] - grads_p[n]) / (STEP_GRAD_RTOL * norm(grads_p[n]) + floor)
+                 for n in grads_p}
+        return sorted(share.items(), key=lambda kv: -kv[1])[:5]
+
+    perturbed = worst_shares(grads_q)
+    del grads_q
+    log(f"phase train fp32 step: the plain twins' step against itself with the video and audio "
+        f"scaled by 1 + {PERTURB:g}: worst shares of the bar "
+        + ", ".join(f"{n} {e:.3g}" for n, e in perturbed))
+    out = {}
+    for tag, switches in combos:
+        with train_switches(**switches):
+            plan = train_plan(model)
+            reset_launches()
+            loss_k, grads_k = loss_and_grads()
+        launches = {name: WRAPPERS[name].launches for name in PER_STEP}
+        rel = {n: rel_err(grads_k[n], grads_p[n]) for n in grads_p if norm(grads_p[n]) > floor}
+        worst = worst_shares(grads_k)
+        worst_rel = max(rel.values())
+        dloss = abs(loss_k - loss_p) / abs(loss_p)
+        log(f"phase train fp32 step ({tag}): loss {loss_k:.8g} vs plain {loss_p:.8g} (relative "
+            f"{dloss:.3g}); {len(grads_p)} gradients (whole norm {total:.4g}), worst relative "
+            f"norm {worst_rel:.3g} among the {len(rel)} above the floor; worst shares of the bar "
+            + ", ".join(f"{n} {e:.3g}" for n, e in worst) + f"; launches {launches}")
+        assert launches == plan, f"the fp32 step ({tag}) launched {launches}, plan {plan}"
+        if check:
+            assert dloss <= STEP_LOSS_RTOL, (tag, loss_k, loss_p)
+            assert worst[0][1] <= 1.0, (tag, worst)
+        out[tag] = {"loss": loss_k, "loss_plain": loss_p, "loss_rel_err": dloss,
+                    "grad_norm": total, "grad_rel_err_max": worst_rel,
+                    "bar_share_worst": worst, "launches": launches,
+                    "plain_perturbed_bar_share_worst": perturbed}
+        del grads_k
+    del model, grads_p
     torch.cuda.empty_cache()
-    return {"loss": loss_k, "loss_plain": loss_p, "loss_rel_err": dloss,
-            "grad_norm": total, "grad_rel_err_max": worst_rel, "bar_share_worst": worst}
+    return out
+
+
+CONDITIONING_BATCHES = 6
+
+
+def conditioning_probe(t_start: float, audit: ProcessAudit) -> int:
+    """``--conditioning``: the build, then ``whole_step_check`` without its
+    bars on CONDITIONING_BATCHES batches (drawn from their own seeds), each
+    under the default switches, TRAIN_DECODER on and TRAIN_ATTN off, beside
+    the plain twins' step against itself with the inputs scaled by 1 +
+    PERTURB: whether a share of the whole-step bar above 1 follows the
+    kernels, a switch or the batch (ROADMAP C, the ill-conditioned
+    objective). JSON to ``chiprun_out/chip_smoke_conditioning.json``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"phase build: {time.perf_counter() - t_start:.2f} s")
+    audit.at("conditioning")
+    res = []
+    for i in range(CONDITIONING_BATCHES):
+        log(f"conditioning batch {i} (seed {SEED + 100 + i}):")
+        res.append(whole_step_check(np.random.default_rng(SEED + 100 + i),
+                                    (("default", {}),) + SWITCH_STEP_COMBOS, check=False))
+    processes = close_run(audit)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_conditioning.json"), "w") as f:
+        json.dump({"card": CARD, "batches": res, "processes": processes}, f, indent=1,
+                  default=str)
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(CARD)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+# --- phase 5b: the JAX package's kernel switches ----------------------------
+# The bars of the kernel-level gradients (5b(a)) are the JAX suite's, each
+# element |Δ| ≤ atol + rtol·|ref| against autograd of the plain twin: K1's
+# (tests/test_pallas_attention.py test_fused_gradients_match and
+# test_masked_gradients_use_composite_fallback) 1e-4 and 1e-4, K2's and B3's
+# (tests/test_fused_block.py test_mlp_tail_gradients and
+# test_fused_block_gradients) 1e-3 and 1e-3. K1's backward is B8 (or the
+# masked recompute), K2's and B3's recompute their plain twins.
+GRAD_BARS = {"attention": (1e-4, 1e-4), "mlp_tail": (1e-3, 1e-3), "block": (1e-3, 1e-3)}
+# 5b(b): the switch settings that change the training route, each one fp32 step
+SWITCH_STEP_COMBOS = (("train_decoder", {"decoder": True}), ("train_attn_off", {"attn": False}))
+# 5b(c): the card's A/B of the JAX package's four training routes (the
+# counterpart of the TPU table in csts_tpu/kernels/attention.py:52-57)
+SWITCH_ROUTES = (("train_attn_off", {"attn": False}),
+                 ("train_attn_off+train_decoder", {"attn": False, "decoder": True}),
+                 ("train_attn", {}), ("train_attn+train_decoder", {"decoder": True}))
+SWITCH_AB_ROUNDS, SWITCH_AB_STEPS = 3, 4
+GRAD_BATCH = 1
+
+
+def _video_site(spec, i: int):
+    """(thw, block spec) of the flagship's video block ``i``."""
+    from csts_torch.models.csts import _thw_after_blocks
+
+    return _thw_after_blocks(spec.patch_dims, spec.video_blocks[:i]), spec.video_blocks[i]
+
+
+def _linear(gen, n_out: int, n_in: int):
+    """An nn.Linear's weight and bias on the card, uniform in ±1/sqrt(n_in)."""
+    bound = n_in ** -0.5
+    w = (torch.rand(n_out, n_in, generator=gen, device="cuda") * 2 - 1) * bound
+    return w, (torch.rand(n_out, generator=gen, device="cuda") * 2 - 1) * bound
+
+
+def _tail_weights(gen, c: int, cout: int, hidden: int) -> list:
+    """LN2, fc1, fc2 and the dim-change proj (None, None when c == cout)."""
+    ln = [1 + 0.1 * torch.randn(c, generator=gen, device="cuda"),
+          0.1 * torch.randn(c, generator=gen, device="cuda")]
+    proj = list(_linear(gen, cout, c)) if c != cout else [None, None]
+    return ln + list(_linear(gen, hidden, c)) + list(_linear(gen, cout, hidden)) + proj
+
+
+def _grad_case(tag: str, name: str, fn, plain, args: list, wrt: list) -> dict:
+    """``fn(*args)`` under autograd on the card (the wrapper's Function:
+    the kernel forward and its backward) against autograd of ``plain`` on
+    the same fp32 inputs and one random output gradient: the output at the
+    kernel's fp32 bar, and the gradient of each argument at the indices
+    ``wrt`` at GRAD_BARS[name]; the launches of the kernel run counted."""
+    atol, rtol = GRAD_BARS[name]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+
+    def run(f):
+        leaves = [a.detach().requires_grad_(i in wrt) if isinstance(a, torch.Tensor) else a
+                  for i, a in enumerate(args)]
+        out = f(*leaves)
+        return out, leaves
+
+    reset_launches()
+    out, leaves = run(fn)
+    g = torch.randn(out.shape, generator=gen, device="cuda")
+    got = torch.autograd.grad(out, [leaves[i] for i in wrt], g)
+    torch.cuda.synchronize()
+    launches = {n: WRAPPERS[n].launches for n in ("attention", "attention_bwd", "mlp_tail",
+                                                  "block")}
+    ref_out, ref_leaves = run(plain)
+    ref = torch.autograd.grad(ref_out, [ref_leaves[i] for i in wrt], g)
+    out_err = _max_err(out, ref_out)
+    out_bar = FP32_ATOL[name] + FP32_RTOL[name] * float(ref_out.abs().max())
+    shares = [float(((a - b).abs() / (atol + rtol * b.abs())).max()) for a, b in zip(got, ref)]
+    errs = [_max_err(a, b) for a, b in zip(got, ref)]
+    log(f"  5b(a) {tag}: {name} out max|Δ| {out_err:.3g} (bar {out_bar:.3g}); gradients of "
+        f"{len(wrt)} inputs max|Δ| {max(errs):.3g}, worst share of the bar (atol {atol}, rtol "
+        f"{rtol}) {max(shares):.3g}; launches {launches}")
+    assert out_err <= out_bar, (tag, out_err, out_bar)
+    assert max(shares) <= 1.0, (tag, shares)
+    return {"case": tag, "kernel": name, "out_max_abs_err": out_err,
+            "grad_max_abs_err": errs, "bar_share": shares, "launches": launches}
+
+
+def kernel_grads_check() -> dict:
+    """5b(a): K1 (a v4 site unmasked: K1 forward, B8 backward; the spatial
+    fusion's masked shape: K1 forward, the plain recompute backward), K2 (a
+    v4 site and the first dim-change site) and B3 (v0) under autograd on the
+    card through ``ka.fused_attention``, ``kb.fused_mlp_tail`` and
+    ``kb.fused_block``, at batch GRAD_BATCH in fp32 (TF32 off), against
+    autograd of their plain twins; then B4, B5, the eval K3 and B9a refuse
+    an input that wants a gradient ("inference-only", as in JAX)."""
+    spec = build_spec(flagship_train_cfg())
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    b = GRAD_BATCH
+    rows = []
+
+    thw, v4 = _video_site(spec, 4)
+    lk = tmvit._lk(v4, thw)
+    n, hd, lq = v4.num_heads, v4.head_dim, int(np.prod(thw))
+    qkv = [torch.randn(b, n, length, hd, generator=gen, device="cuda")
+           for length in (lq, lk, lk)]
+    rows.append(_grad_case("v4 K1 unmasked", "attention", ka.fused_attention,
+                           ka.fused_attention_plain, qkv + [v4.scale], [0, 1, 2]))
+    assert rows[-1]["launches"]["attention"] == 1 and rows[-1]["launches"]["attention_bwd"] == 1
+    sf, (t, h, w) = spec.spatial_fusion, spec.fusion_thw
+    length = t * h * w + t
+    mask = torch.from_numpy(tmvit.build_inframe_mask(spec.fusion_thw, t)).cuda()
+    qkv = [torch.randn(b, sf.num_heads, length, sf.head_dim, generator=gen, device="cuda")
+           for _ in range(3)]
+    rows.append(_grad_case("spatial fusion K1 masked", "attention", ka.fused_attention,
+                           ka.fused_attention_plain, qkv + [sf.scale, mask], [0, 1, 2]))
+    assert rows[-1]["launches"]["attention"] == 1 and rows[-1]["launches"]["attention_bwd"] == 0
+
+    change = next(i for i, blk in enumerate(spec.video_blocks) if blk.dim != blk.dim_out)
+    for tag, i in (("v4", 4), (f"v{change} dim change", change)):
+        thw, blk = _video_site(spec, i)
+        x = torch.randn(b, int(np.prod(tmvit._static_pool_out(
+            thw, blk.kernel_q, blk.stride_q, blk.padding_q)) if blk.pool_q_on else np.prod(thw)),
+            blk.dim, generator=gen, device="cuda")
+        args = [x] + _tail_weights(gen, blk.dim, blk.dim_out, blk.hidden_dim)
+        wrt = [j for j, a in enumerate(args) if a is not None]
+        rows.append(_grad_case(f"{tag} K2", "mlp_tail", kb.fused_mlp_tail,
+                               kb.fused_mlp_tail_plain, args, wrt))
+        assert rows[-1]["launches"]["mlp_tail"] == 1
+
+    thw, v0 = _video_site(spec, 0)
+    assert tmvit.block_route(v0, None, thw) == "block", "v0 is not on B3's route"
+    lk = tmvit._lk(v0, thw)
+    x = torch.randn(b, int(np.prod(thw)), v0.dim, generator=gen, device="cuda")
+    kv = [torch.randn(b, v0.num_heads, lk, v0.head_dim, generator=gen, device="cuda")
+          for _ in range(2)]
+    ln1 = [1 + 0.1 * torch.randn(v0.dim, generator=gen, device="cuda"),
+           0.1 * torch.randn(v0.dim, generator=gen, device="cuda")]
+    args = ([x] + kv + [v0.scale] + ln1 + list(_linear(gen, v0.dim, v0.dim))
+            + list(_linear(gen, v0.dim, v0.dim))
+            + _tail_weights(gen, v0.dim, v0.dim_out, v0.hidden_dim))
+    wrt = [j for j, a in enumerate(args) if isinstance(a, torch.Tensor)]
+    rows.append(_grad_case("v0 B3", "block", kb.fused_block, kb.fused_block_plain, args, wrt))
+    assert rows[-1]["launches"]["block"] == 1
+
+    # the kernels without a backward refuse a gradient on the card, as in JAX
+    z = torch.zeros(1, 8, 16, device="cuda", requires_grad=True)
+    refused = {}
+    for name, call in (("pool_block", lambda: kb.fused_pool_block(z, (1, 2, 4), z, z, z, 1.0, z,
+                                                                  z, z, z, z)),
+                       ("decoder_block", lambda: kb.fused_decoder_block(
+                           z, (1, 2, 4), (1, 2, 2), z, z, z, 1.0, z, z, z, z, z)),
+                       ("t2_upsample", lambda: kup.t2_upsample(z, (2, 2, 2))),
+                       ("hw2_upsample", lambda: kup.hw2_upsample(z, (2, 2, 2)))):
+        try:
+            call()
+            refused[name] = "no refusal"
+        except RuntimeError as e:
+            refused[name] = str(e)
+    log("  5b(a) refusals under autograd: " + "; ".join(f"{k}: {v[:60]}"
+                                                    for k, v in refused.items()))
+    assert all("inference-only" in v for v in refused.values()), refused
+    torch.cuda.empty_cache()
+    return {"cases": rows, "refused": refused}
+
+
+def switch_ab(rng: np.random.Generator) -> dict:
+    """5b(c): the flagship's bf16 training step at batch 8 (``flagship_train_cfg``)
+    on each of the JAX package's four training routes (SWITCH_ROUTES), in
+    turns over SWITCH_AB_ROUNDS rounds of SWITCH_AB_STEPS steps: ms/step by
+    CUDA events (median), the device's busy ms of one traced step
+    (``device_trace``: the union of its activities), peak memory of one step,
+    each route's launches a step against ``train_plan``."""
+    cfg = flagship_train_cfg()
+    spec = build_spec(cfg)
+    bsz = cfg.TRAIN.BATCH_SIZE
+    state = train_lib.create_train_state(cfg, spec, torch.Generator().manual_seed(SEED),
+                                         device="cuda")
+    batch = make_train_batch(rng, bsz, spec)
+    step = train_lib.make_train_step(cfg, spec, steps_per_epoch=STEPS_PER_EPOCH)
+    gen = torch.Generator().manual_seed(SEED + 3)
+    res = {tag: {"steps_ms": []} for tag, _ in SWITCH_ROUTES}
+    for tag, switches in SWITCH_ROUTES:
+        with train_switches(**switches):
+            plan = train_plan(state.model)
+            reset_launches()
+            step(state, batch, gen)
+            torch.cuda.synchronize()
+            launches = {name: WRAPPERS[name].launches for name in PER_STEP}
+            assert launches == plan, f"{tag}: launches {launches}, plan {plan}"
+            torch.cuda.reset_peak_memory_stats()
+            step(state, batch, gen)
+            torch.cuda.synchronize()
+            res[tag].update(launches=launches, peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    for _ in range(SWITCH_AB_ROUNDS):
+        for tag, switches in SWITCH_ROUTES:
+            with train_switches(**switches):
+                res[tag]["steps_ms"] += [ms for ms, _ in timed_steps(step, state, batch, gen,
+                                                                     SWITCH_AB_STEPS)]
+    for tag, switches in SWITCH_ROUTES:
+        with train_switches(**switches):
+            wall, busy, _, n = device_trace(lambda: step(state, batch, gen))
+        r = res[tag]
+        r.update(median_ms=float(np.median(r["steps_ms"])), device_busy_ms=busy,
+                 traced_wall_ms=wall, device_activities=n,
+                 clips_per_s=bsz * 1e3 / float(np.median(r["steps_ms"])))
+        log(f"  5b(c) {tag}: median {r['median_ms']:.2f} ms/step "
+            f"({', '.join(f'{x:.1f}' for x in r['steps_ms'])}) = {r['clips_per_s']:.2f} train "
+            f"clips/s, device busy {busy:.2f} ms of a traced step ({n} activities, wall "
+            f"{wall:.2f} ms), peak memory {r['peak_gib']:.2f} GiB; launches a step "
+            f"{ {k: v for k, v in r['launches'].items() if v} } ({CARD})")
+    del state, batch
+    torch.cuda.empty_cache()
+    return res
+
+
+def switches_phase(rng: np.random.Generator, steps: "dict | None" = None) -> dict:
+    """Phase 5b: the JAX package's kernel switches at the flagship's width
+    (TF32 off for fp32): (a) ``kernel_grads_check``; (b) phase 6b's fp32
+    step at batch 2 (the same weights, masks and batch) under TRAIN_DECODER
+    on and under TRAIN_ATTN off against the same step through the plain
+    twins at the whole-step bars, launches against ``train_plan``
+    (``whole_step_check``, run with phase 6b's: ``steps`` is its result;
+    ``--switches`` runs it here); (c) ``switch_ab``."""
+    out = {"grads": kernel_grads_check()}
+    out["steps"] = steps if steps is not None else whole_step_check(rng, SWITCH_STEP_COMBOS)
+    out["ab"] = switch_ab(rng)
+    return out
+
+
+def switch_launches(switches: dict, name: str) -> dict:
+    """A kernel's launches a training step in phase 5b(b), under TRAIN_DECODER
+    on and under TRAIN_ATTN off (the kernels line's keys)."""
+    steps = switches["steps"]
+    return {"launches_train_decoder": steps["train_decoder"]["launches"].get(name, 0),
+            "launches_train_attn_off": steps["train_attn_off"]["launches"].get(name, 0)}
 
 
 def _primary_counts(counts: dict) -> dict:
@@ -3128,30 +3441,16 @@ AUG_WORKERS = 4  # DATA_LOADER.NUM_WORKERS of the AUG runs
 VIS_CLIPS = 4
 
 
-def route_plan(model, maps: bool = False) -> dict:
-    """Each kernel's launches in one eval forward of ``model`` as
-    ``mvit.block_route`` routes its blocks (the fusion blocks on the
-    "attn_map" route when ``maps``, and the spatial fusion also under
-    MVIT.SPATIAL_AUDIO_ATTN), with K3 at the x2 T resizes while
-    ``kup.T2_SKIP_KERNEL`` is set and B9a at the (1,2,2) skips of B5's route
-    while ``kup.HW2_SKIP_KERNEL`` is."""
+def _walk_blocks(model, add, maps: bool = False) -> None:
+    """``add(block spec, mask, thw, attn)`` for every block of ``model`` in
+    the forward's order on its input grid (the fusion blocks with ``attn``
+    when ``maps``, and the spatial fusion also under MVIT.SPATIAL_AUDIO_ATTN)."""
     from csts_torch.models.csts import _thw_after_blocks
 
     spec = model.spec
-    plan = {name: 0 for name in PER_FORWARD}
 
-    def add(b, mask, thw, attn=False):
-        route = tmvit.block_route(b, mask, thw, attn)
-        if route in ("block", "pool_block", "decoder_block"):
-            plan[route] += 1
-        else:
-            plan["mlp_tail"] += 1
-            plan["attention"] += route == "composite"
-        if b.upsample_q and b.skip_upsample_on:
-            stride = tuple(b.stride_q)
-            plan["t2_upsample"] += stride == (2, 1, 1) and kup.T2_SKIP_KERNEL
-            plan["hw2_upsample"] += (stride == (1, 2, 2) and route == "decoder_block"
-                                     and kup.HW2_SKIP_KERNEL)
+    def walk(b, mask, thw, attn=False):
+        add(b, mask, thw, attn)
         if b.upsample_q:
             return tmvit._static_upsample_out(thw, b.kernel_q, b.stride_q, b.padding_q,
                                               b.output_padding_q)
@@ -3160,14 +3459,74 @@ def route_plan(model, maps: bool = False) -> dict:
     for blocks, thw in ((spec.video_blocks, spec.patch_dims),
                         (spec.audio_blocks, spec.audio_patch_dims)):
         for b in blocks:
-            thw = add(b, None, thw)
-    add(spec.spatial_fusion, model.inframe_mask, spec.fusion_thw,
-        maps or spec.spatial_audio_attn)
-    add(spec.temporal_fusion, None, (2, 2, 2), maps)
+            thw = walk(b, None, thw)
+    walk(spec.spatial_fusion, model.inframe_mask, spec.fusion_thw,
+         maps or spec.spatial_audio_attn)
+    walk(spec.temporal_fusion, None, (2, 2, 2), maps)
     thw = spec.fusion_thw
     for b in spec.decoder_blocks:
-        thw = add(b, None, thw)
+        thw = walk(b, None, thw)
+
+
+def _skip_launches(plan: dict, b, route: str) -> None:
+    """K3 at a stride-(2,1,1) skip while ``kup.T2_SKIP_KERNEL`` is set, B9a at
+    a (1,2,2) skip of B5's route while ``kup.HW2_SKIP_KERNEL`` is (at eval and
+    in B5's training forward)."""
+    if not (b.upsample_q and b.skip_upsample_on) or route == "plain":
+        return
+    stride = tuple(b.stride_q)
+    plan["t2_upsample"] += stride == (2, 1, 1) and kup.T2_SKIP_KERNEL
+    plan["hw2_upsample"] += (stride == (1, 2, 2) and route == "decoder_block"
+                             and kup.HW2_SKIP_KERNEL)
+
+
+def route_plan(model, maps: bool = False) -> dict:
+    """Each kernel's launches in one eval forward of ``model`` as
+    ``mvit.block_route`` routes its blocks (the fusion blocks on the
+    "attn_map" route when ``maps``, and the spatial fusion also under
+    MVIT.SPATIAL_AUDIO_ATTN), with K3 at the x2 T resizes while
+    ``kup.T2_SKIP_KERNEL`` is set and B9a at the (1,2,2) skips of B5's route
+    while ``kup.HW2_SKIP_KERNEL`` is."""
+    plan = {name: 0 for name in PER_FORWARD}
+
+    def add(b, mask, thw, attn):
+        route = tmvit.block_route(b, mask, thw, attn)
+        if route in ("block", "pool_block", "decoder_block"):
+            plan[route] += 1
+        else:
+            plan["mlp_tail"] += 1
+            plan["attention"] += route == "composite"
+        _skip_launches(plan, b, route)
+
+    _walk_blocks(model, add, maps)
     plan["t2_upsample"] += bool(kup.T2_SKIP_KERNEL)  # the head's stem map
+    return plan
+
+
+def train_plan(model) -> dict:
+    """Each kernel's launches in one training step of ``model`` (forward and
+    backward) as ``mvit.train_route`` routes its blocks under the JAX
+    package's switches: B5 at a "decoder_block" block; on the "composite"
+    route B7, and K1 forward with, where there is no mask, B8 backward while
+    TRAIN_ATTN is on; the "attn_map" route (the spatial fusion under
+    MVIT.SPATIAL_AUDIO_ATTN) B7 only; nothing with the kernels off. K3 at the
+    stride-(2,1,1) skip and the head's stem map while ``kup.T2_SKIP_KERNEL``
+    is set, B9a inside B5's forward while ``kup.HW2_SKIP_KERNEL`` is."""
+    plan = {name: 0 for name in PER_STEP}
+
+    def add(b, mask, thw, attn):
+        route = tmvit.train_route(b, mask, thw, attn)
+        if route == "decoder_block":
+            plan["decoder_block"] += 1
+        elif route != "plain":
+            plan["mlp_tail_train"] += 1
+            k1 = route == "composite" and ka.train_attention_enabled()
+            plan["attention"] += k1
+            plan["attention_bwd"] += k1 and mask is None
+        _skip_launches(plan, b, route)
+
+    _walk_blocks(model, add)
+    plan["t2_upsample"] += bool(kup.T2_SKIP_KERNEL) and ka.enabled()  # the head's stem map
     return plan
 
 
@@ -3718,7 +4077,7 @@ def classifier_phase(rng: np.random.Generator) -> dict:
 AX_AXES = ("pipe", "model", "seq")
 AX_KW = {"pipe": "pipe_parallel", "model": "model_parallel", "seq": "seq_parallel"}
 AX_EVAL_BATCH = 8
-AX_TIMED = 3  # timed forwards and steps a rank, after the checked ones
+AX_TIMED = 2  # timed forwards and steps a rank, after the checked ones
 AX_FWD_KERNELS = ("attention", "mlp_tail", "block", "pool_block", "decoder_block",
                   "t2_upsample")
 AX_STEP_KERNELS = ("attention", "attention_bwd", "mlp_tail_train", "t2_upsample")
@@ -4344,6 +4703,29 @@ def trainer_only(t_start: float, audit: ProcessAudit) -> int:
     return 0
 
 
+def switches_only(t_start: float, audit: ProcessAudit) -> int:
+    """``--switches``: the build, then phase 5b alone (its JSON to
+    ``chiprun_out/chip_smoke_switches.json``), then the card and result
+    lines."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"phase build: {time.perf_counter() - t_start:.2f} s")
+    audit.at("switches")
+    t0 = time.perf_counter()
+    res = switches_phase(np.random.default_rng(SEED))
+    log(f"phase switches: {time.perf_counter() - t0:.2f} s")
+    res["processes"] = close_run(audit)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_switches.json"), "w") as f:
+        json.dump({"card": CARD, "switches": res}, f, indent=1, default=str)
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(CARD)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def parallel_only(t_start: float, audit: ProcessAudit) -> int:
     """``--parallel``: the build, then phase 8 alone (its JSON to
     ``chiprun_out/chip_smoke_parallel.json``), then the card and result
@@ -4388,6 +4770,10 @@ def main() -> int:
         return axes_only(t0, audit)
     if sys.argv[1:] == ["--trainer"]:
         return trainer_only(t0, audit)
+    if sys.argv[1:] == ["--switches"]:
+        return switches_only(t0, audit)
+    if sys.argv[1:] == ["--conditioning"]:
+        return conditioning_probe(t0, audit)
     log(f"phase build: {time.perf_counter() - t0:.2f} s for {sorted(logs)}")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -4536,8 +4922,16 @@ def main() -> int:
     audit.at("train checks")
     t0 = time.perf_counter()
     train_report = check_train_kernels(train.pop("calls"))
-    whole_step = whole_step_check(rng)
+    # the fp32 step of phase 6b, and the same step under the switches of 5b(b)
+    steps = whole_step_check(rng, (("default", {}),) + SWITCH_STEP_COMBOS)
+    whole_step = steps.pop("default")
     log(f"phase train checks: {time.perf_counter() - t0:.2f} s")
+
+    # --- phase 5b: the JAX package's kernel switches ----------------------------
+    audit.at("switches")
+    t0 = time.perf_counter()
+    switches = switches_phase(rng, steps)
+    log(f"phase switches: {time.perf_counter() - t0:.2f} s")
 
     # --- phase 7: the training entry point (run_net's train mode) -------------
     audit.at("trainer")
@@ -4605,6 +4999,9 @@ def main() -> int:
             "composite_ms": per("composite_ms") if name in WHOLE_BLOCKS else None,
             "block_device_ms": per("block_device_ms") if name in WHOLE_BLOCKS else None,
             "composite_device_ms": per("composite_device_ms") if name in WHOLE_BLOCKS else None,
+            # phase 5b: launches a training step under TRAIN_DECODER and
+            # with TRAIN_ATTN off
+            **switch_launches(switches, name),
             # phase 10: launches and device ms a batch-8 classifier forward
             "launches_classifier": cls_launches["cls"].get(name, 0),
             "launches_classifier_no_cls": cls_launches["no_cls"].get(name, 0),
@@ -4628,6 +5025,7 @@ def main() -> int:
             "path": k["path"], "launches_train": train["launches"][name],
             "launches_eval": evals["launches"].get(name, 0),
             "launches_trainer": trainer["launches"].get(name, 0),
+            **switch_launches(switches, name),
             # the stacks through this kernel and through the K1+K2 route:
             # CUDA events, and the device's busy time (torch.profiler)
             "block_ms": res.get("block_ms"), "composite_ms": res.get("composite_ms"),
@@ -4682,7 +5080,8 @@ def main() -> int:
                    "softmax_max_abs_diff": dsm, "profile": breakdown,
                    "hw2": hw2, "blocks": blocks, "yardsticks": yardsticks,
                    "train": train, "train_per_shape": train_report,
-                   "train_fp32_step": whole_step, "widths": widths, "eval": evals,
+                   "train_fp32_step": whole_step, "switches": switches, "widths": widths,
+                   "eval": evals,
                    "trainer": trainer, "parallel": parallel, "surface": surface,
                    "classifier": classifier, "axes": axes, "processes": processes,
                    "profiler_windows": PROFILER_WINDOWS}, f, indent=1,

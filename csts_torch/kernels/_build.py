@@ -148,20 +148,28 @@ def dtype_code(t: torch.Tensor) -> int:
     return _DTYPE_CODES[t.dtype]
 
 
-def plain_for_autograd(name: str, *tensors: Optional[torch.Tensor]) -> bool:
-    """A wrapper's check before its custom op, which has a CUDA and a CPU
-    implementation and no autograd formula. An input that wants a gradient
-    is refused on CUDA (see :func:`check_cuda_inputs`); on the CPU it sends
-    the wrapper to its plain twin directly, whose autograd is PyTorch's.
-    Returns True in that case."""
+def wants_grad(name: str, *tensors: Optional[torch.Tensor]) -> bool:
+    """Whether a wrapper's call is to be differentiated: grad mode on and an
+    input that wants a gradient. Raises on a device other than the CPU and
+    CUDA. K1, K2 and B3 then enter their autograd Functions (their
+    modules' ``FusedAttention``, ``MlpTail``, ``FusedBlock``)."""
     first = tensors[0]
     if first.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {first.device}")
-    if not (torch.is_grad_enabled()
-            and any(t is not None and t.requires_grad for t in tensors)):
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+def plain_for_autograd(name: str, *tensors: Optional[torch.Tensor]) -> bool:
+    """The check of a wrapper whose kernel has no backward (B4, B5, the eval
+    K3 and B9a, inference-only as in the JAX package) before its custom op,
+    which has a CUDA and a CPU implementation and no autograd formula. An
+    input that wants a gradient is refused on CUDA; on the CPU it sends the
+    wrapper to its plain twin directly, whose autograd is PyTorch's.
+    Returns True in that case."""
+    if not wants_grad(name, *tensors):
         return False
-    if first.device.type == "cuda":
-        raise RuntimeError(_FORWARD_ONLY.format(name=name))
+    if tensors[0].device.type == "cuda":
+        raise RuntimeError(_INFERENCE_ONLY.format(name=name))
     return True
 
 
@@ -169,19 +177,20 @@ def check_cuda_inputs(name: str, *tensors: torch.Tensor) -> None:
     """Same CUDA device and dtype for all inputs, and no input that wants a
     gradient: a wrapper launches its kernel outside autograd, so such an
     input would be cut from the graph silently. A kernel enters a training
-    graph only through its ``torch.autograd.Function`` (``attention_train``,
-    ``mlp_tail_train``, ``t2_upsample_train``), whose forward and backward
+    graph only through its ``torch.autograd.Function`` (``FusedAttention``,
+    ``MlpTail``, ``FusedBlock``, ``MlpTailTrain``, ``T2Upsample`` and
+    ``models/mvit.py`` ``DecoderBlockTrain``), whose forward and backward
     run with grad mode off."""
     first = tensors[0]
     for t in tensors:
         if t.device != first.device or t.dtype != first.dtype:
             raise ValueError(f"{name}: inputs must share one CUDA device and dtype")
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(_FORWARD_ONLY.format(name=name))
+        raise RuntimeError(_INFERENCE_ONLY.format(name=name))
 
 
-_FORWARD_ONLY = ("{name}: the CUDA kernel is forward-only outside its autograd Function; "
-                 "train through the *_train entry of its module")
+_INFERENCE_ONLY = ("{name}: the CUDA kernel is inference-only outside an autograd Function "
+                   "(as in the JAX package); train through the block's training route")
 
 
 def stream_ptr(t: torch.Tensor) -> int:

@@ -8,7 +8,8 @@ a TMA ring of K/V chunks, online softmax in registers, the keys split 1-4
 ways where the grid would leave the card idle, see :func:`key_splits`; fp32:
 an exact FMA body) and :func:`fused_attention_bwd` the one in
 ``csrc/attention_bwd.cu``; on a CPU tensor each runs its ``*_plain`` twin,
-the same function in plain PyTorch. There is no other route.
+the same function in plain PyTorch, as it does on either device with the
+kernels switched off (:func:`set_enabled`). There is no other route.
 :func:`fused_attention_split_plain` is the plain model of the key split and
 its merge. Both wrappers take any head dim, as the JAX kernels do. Which
 body a call takes is a function of (head dim, dtype) alone, chosen before
@@ -21,16 +22,27 @@ head dim and cut the rows a block takes until its accumulators fit
 (:func:`fused_attention_streamed_plain` and
 :func:`fused_attention_bwd_streamed_plain` are their plain models).
 
-Training goes through :func:`attention_train` (the autograd Function
-:class:`FusedAttention`): unmasked sites run K1 forward, which then also
+Under autograd, :func:`fused_attention` (and :func:`attention_train`, the
+training route's entry) goes through the autograd Function
+:class:`FusedAttention`: unmasked sites run K1 forward, which then also
 writes each row's log-sum-exp, and B8 backward, as the JAX package's
 ``_fwd``/``_bwd`` do with its kernels on; a masked site (the spatial fusion)
 runs K1 forward and recomputes the probabilities in plain PyTorch backward,
 as JAX's XLA fallback does.
+
+The JAX package's three kernel switches live here with its names
+(``csts_tpu/kernels/attention.py:35-82``): :func:`set_enabled` (False sends
+every wrapper of ``kernels/`` to its plain twin, on the card too, and every
+block to the composite route: JAX's composite route),
+:func:`set_train_attention` (TRAIN_ATTN: K1 and B8 in training forwards;
+on by default here, a route difference from JAX, whose default is off) and
+:func:`set_train_decoder` (TRAIN_DECODER: B5 in the training step, off by
+default as in JAX; ``models/mvit.py`` ``train_route``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Optional, Tuple
 
@@ -38,6 +50,77 @@ import torch
 import torch.nn.functional as F
 
 from csts_torch.kernels import _build
+
+# The JAX package's kernel switches (``csts_tpu/kernels/attention.py:35-82``),
+# with its names and signatures. Module state, read when a block runs.
+_ENABLED: Optional[bool] = None
+
+
+def enabled() -> bool:
+    """Whether the kernels run: by default (None) and when set True, each
+    wrapper launches its kernel on a CUDA tensor (its plain twin on a CPU
+    tensor, where there is no kernel) and the blocks take the whole-block
+    routes on both devices. Set False: JAX's composite route, every wrapper
+    its plain twin and every block the composite route
+    (``models/mvit.py`` ``block_route``), on the card too. JAX's default
+    is the platform (on only on a TPU); the port's dispatch does not depend
+    on the device."""
+    return _ENABLED is not False
+
+
+def set_enabled(value: Optional[bool]) -> None:
+    """True or False as :func:`enabled` says; None restores the default
+    (the kernels on)."""
+    global _ENABLED
+    _ENABLED = value
+
+
+@contextlib.contextmanager
+def disabled():
+    """The kernels switched off (:func:`set_enabled` False) for the
+    block, the switch restored on exit: the plain twins' run on the card
+    and the composite recompute of a whole-block backward."""
+    saved = _ENABLED
+    set_enabled(False)
+    try:
+        yield
+    finally:
+        set_enabled(saved)
+
+
+# TRAIN_ATTN: K1 forward and B8 backward (through FusedAttention) inside
+# training forwards; off, every training block takes the differentiable
+# plain attention core (``models/mvit.py`` ``attention_probs``). On by
+# default: the port has trained on K1 + B8 since its first training slice.
+# JAX's default is off, from an A/B on a TPU (its comment at
+# ``csts_tpu/kernels/attention.py:52-57``); the card's A/B of the four
+# training routes is ``chip_smoke.py``'s phase 5b.
+_TRAIN_ATTN: bool = True
+
+
+def train_attention_enabled() -> bool:
+    return _TRAIN_ATTN
+
+
+def set_train_attention(value: bool) -> None:
+    global _TRAIN_ATTN
+    _TRAIN_ATTN = value
+
+
+# TRAIN_DECODER: a decoder block on B5's eval route whose drop_path is 0 runs
+# in training through B5's forward with a backward that recomputes the
+# composite block (``models/mvit.py`` ``DecoderBlockTrain``, JAX's
+# ``_decoder_block_ad``). Off by default, as in JAX.
+_TRAIN_DECODER: bool = False
+
+
+def train_decoder_enabled() -> bool:
+    return _TRAIN_DECODER
+
+
+def set_train_decoder(value: bool) -> None:
+    global _TRAIN_DECODER
+    _TRAIN_DECODER = value
 
 
 # head dims the bf16 wgmma bodies are compiled for (the flagship uses 96, and 192 at d2)
@@ -270,10 +353,15 @@ def fused_attention(
     above 384 and fp32 at any head dim the streamed body (see
     :func:`kernel_head_dim`, :func:`streamed`). It calls the custom op
     ``csts_torch::fused_attention`` (K1 on CUDA, the plain twin on the CPU),
-    which ``torch.export`` keeps whole in its graph.
+    which ``torch.export`` keeps whole in its graph; an input that wants a
+    gradient takes :class:`FusedAttention` instead (K1, then B8 or the
+    masked recompute backward), and the kernels switched off
+    (:func:`set_enabled`) the plain twin.
     """
-    if _build.plain_for_autograd("fused_attention", q, k, v, mask):
+    if not enabled():
         return fused_attention_plain(q, k, v, scale, mask)
+    if _build.wants_grad("fused_attention", q, k, v, mask):
+        return FusedAttention.apply(q, k, v, scale, mask)
     return torch.ops.csts_torch.fused_attention(q, k, v, float(scale), mask)
 
 
@@ -467,7 +555,7 @@ def fused_attention_bwd(
     blocks from 128 on), bf16 above 384 and fp32 at any head dim the
     streamed passes (see :func:`kernel_head_dim`, :func:`streamed`).
     """
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" or not enabled():
         return fused_attention_bwd_plain(q, k, v, out, g, scale, lse)
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention_bwd: unsupported device {q.device}")
@@ -534,8 +622,10 @@ def masked_attention_bwd_plain(q, k, v, mask, g, scale):
 
 class FusedAttention(torch.autograd.Function):
     """K1 forward; B8 backward where there is no mask, the plain recompute
-    where there is one. The same code on both devices: on the CPU the
-    wrappers run their plain twins."""
+    where there is one (JAX's ``_fwd``/``_bwd``,
+    ``csts_tpu/kernels/attention.py:347-379``). The same code on both
+    devices: on the CPU the forward is the plain twin and B8's wrapper its
+    plain twin. The mask is a buffer and gets no gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, mask):
@@ -543,7 +633,7 @@ class FusedAttention(torch.autograd.Function):
         if q.device.type == "cuda":
             out, lse = _attention_fwd(q, k, v, scale, mask, with_lse=mask is None)
         else:
-            out, lse = fused_attention(q, k, v, scale, mask), None
+            out, lse = fused_attention_plain(q, k, v, scale, mask), None
         if mask is None:
             ctx.save_for_backward(q, k, v, out, lse)
         else:
@@ -566,5 +656,10 @@ def attention_train(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
     mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """:func:`fused_attention` inside autograd (see :class:`FusedAttention`)."""
+    """The training route's attention core with TRAIN_ATTN on: :func:`fused_attention`
+    inside autograd (see :class:`FusedAttention`), whether or not an input
+    wants a gradient (GradCache's first pass runs it without); the kernels
+    switched off, the plain twin under PyTorch's autograd."""
+    if not enabled():
+        return fused_attention_plain(q, k, v, scale, mask)
     return FusedAttention.apply(q, k, v, scale, mask)

@@ -33,6 +33,14 @@ the kernel's rounding points (those of the TPU kernels), and under
 ``torch.export`` its fake gives the output's shape. B7 is not an op: it
 enters training graphs only through :class:`MlpTailTrain`.
 Weights are in ``nn.Linear`` / ``nn.Conv3d`` layout.
+
+Under autograd K2 and B3 run through :class:`MlpTail` and
+:class:`FusedBlock`, as the JAX package's custom VJPs do
+(``csts_tpu/kernels/block.py:720-735``, ``:596-611``): the kernel forward,
+a backward that recomputes the plain twin under autograd
+(:func:`recompute_vjp`). B4 and B5 are inference-only, as in JAX: their
+wrappers refuse an input that wants a gradient on the card. The kernels
+switched off (``ka.set_enabled(False)``), every wrapper runs its plain twin.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from csts_torch.kernels import _build
+from csts_torch.kernels import attention as ka
 from csts_torch.ops.common import gelu
 
 LN_EPS = 1e-6
@@ -206,12 +215,14 @@ def fused_mlp_tail(
     proj_w: Optional[torch.Tensor] = None, proj_b: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """x: (B, L, C) residual-complete attention output -> (B, L, dim_out).
-    Through the custom op ``csts_torch::fused_mlp_tail`` (K2 on CUDA)."""
-    if _build.plain_for_autograd("fused_mlp_tail", x, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b,
-                                 proj_w, proj_b):
-        return fused_mlp_tail_plain(x, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, proj_w, proj_b)
-    return torch.ops.csts_torch.fused_mlp_tail(x, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b,
-                                               proj_w, proj_b)
+    Through the custom op ``csts_torch::fused_mlp_tail`` (K2 on CUDA); an
+    input that wants a gradient takes :class:`MlpTail`."""
+    weights = (ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, proj_w, proj_b)
+    if not ka.enabled():
+        return fused_mlp_tail_plain(x, *weights)
+    if _build.wants_grad("fused_mlp_tail", x, *weights):
+        return MlpTail.apply(x, *weights)
+    return torch.ops.csts_torch.fused_mlp_tail(x, *weights)
 
 
 @torch.library.custom_op("csts_torch::fused_mlp_tail", mutates_args=(), device_types="cpu")
@@ -263,6 +274,41 @@ def _(x, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, proj_w, proj_b):
 fused_mlp_tail.launches = 0
 
 
+def recompute_vjp(plain, args, needs, g) -> tuple:
+    """The recompute backward of :class:`MlpTail` and :class:`FusedBlock`,
+    JAX's ``_tail_bwd`` and ``_bwd`` (``csts_tpu/kernels/block.py:605-609``,
+    ``:726-732``): ``plain(*args)``, the kernel's plain twin, run again under
+    autograd from detached copies of the tensor arguments and differentiated
+    for the output gradient ``g``. The forward's output stays the kernel's;
+    this is the formula of its gradient. Returns one gradient per argument:
+    None where ``needs`` (the Function's ``needs_input_grad``) is False, for
+    a non-tensor and for an argument ``plain`` does not read."""
+    want = [bool(n) and isinstance(a, torch.Tensor) for a, n in zip(args, needs)]
+    with torch.enable_grad():
+        args = [a.detach().requires_grad_(w) if isinstance(a, torch.Tensor) else a
+                for a, w in zip(args, want)]
+        out = plain(*args)
+        wrt = [a for a, w in zip(args, want) if w]
+        grads = iter(torch.autograd.grad(out, wrt, g, allow_unused=True) if wrt else ())
+    return tuple(next(grads) if w else None for w in want)
+
+
+class MlpTail(torch.autograd.Function):
+    """K2 inside autograd (JAX's ``_mlp_tail`` custom VJP): the op's forward
+    outside autograd (K2 on CUDA, the plain twin on the CPU), x and the
+    weights saved; backward :func:`recompute_vjp` through
+    :func:`fused_mlp_tail_plain`, the gradients of x and of every weight."""
+
+    @staticmethod
+    def forward(ctx, x, *weights):
+        ctx.save_for_backward(x, *weights)
+        return torch.ops.csts_torch.fused_mlp_tail(x, *weights)
+
+    @staticmethod
+    def backward(ctx, g):
+        return recompute_vjp(fused_mlp_tail_plain, ctx.saved_tensors, ctx.needs_input_grad, g)
+
+
 # ----------------------------------------------------------------------------------
 # B7: the training tail. Forward kernel plus stored pre-GELU hidden; backward by
 # hand from (x, hidden), a port of ``_tail_train_bwd`` (block.py:1672-1755).
@@ -310,7 +356,7 @@ def fused_mlp_tail_train(
     """B7 forward. x: (B, L, C) residual-complete attention output; dp: fp32
     (B,) stochastic-depth factor of the MLP branch. Returns (out (B, L,
     dim_out), hid_pre (B, L, hidden)), both in x's dtype."""
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" or not ka.enabled():
         return fused_mlp_tail_train_plain(x, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b,
                                           proj_w, proj_b, dp)
     if x.device.type != "cuda":
@@ -433,7 +479,13 @@ def mlp_tail_train(
     proj_w: Optional[torch.Tensor], proj_b: Optional[torch.Tensor],
     dp: torch.Tensor,
 ) -> torch.Tensor:
-    """B7 inside autograd (see :class:`MlpTailTrain`). Returns (B, L, dim_out)."""
+    """B7 inside autograd (see :class:`MlpTailTrain`). Returns (B, L, dim_out).
+    The kernels switched off: the plain twin, the weights cast to x's dtype
+    as for the kernel, under PyTorch's autograd (JAX's composite tail)."""
+    if not ka.enabled():
+        cast = [None if w is None else w.to(x.dtype)
+                for w in (ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, proj_w, proj_b)]
+        return fused_mlp_tail_train_plain(x, *cast, dp)[0]
     return MlpTailTrain.apply(x, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, proj_w, proj_b, dp)
 
 
@@ -690,14 +742,40 @@ def fused_block(x, k, v, scale, ln1_w, ln1_b, wq, bq, wproj, bproj, ln2_w, ln2_b
     split body (:func:`split_instance`) takes its Q product from them. The
     first design and the fp32 body compute LN1 from x themselves and do not
     read xn. Returns (B, L, dim_out). Through the custom op
-    ``csts_torch::fused_block`` (B3 on CUDA)."""
-    if _build.plain_for_autograd("fused_block", x, k, v, ln1_w, ln1_b, wq, bq, wproj, bproj,
-                                 ln2_w, ln2_b, fc1_w, fc1_b, fc2_w, fc2_b, proj_w, proj_b):
-        return fused_block_plain(x, k, v, scale, ln1_w, ln1_b, wq, bq, wproj, bproj, ln2_w,
-                                 ln2_b, fc1_w, fc1_b, fc2_w, fc2_b, proj_w, proj_b)
-    return torch.ops.csts_torch.fused_block(x, k, v, float(scale), ln1_w, ln1_b, wq, bq, wproj,
-                                            bproj, ln2_w, ln2_b, fc1_w, fc1_b, fc2_w, fc2_b,
-                                            proj_w, proj_b, xn)
+    ``csts_torch::fused_block`` (B3 on CUDA); an input that wants a
+    gradient takes :class:`FusedBlock`."""
+    weights = (ln1_w, ln1_b, wq, bq, wproj, bproj, ln2_w, ln2_b, fc1_w, fc1_b, fc2_w, fc2_b,
+               proj_w, proj_b)
+    if not ka.enabled():
+        return fused_block_plain(x, k, v, scale, *weights)
+    if _build.wants_grad("fused_block", x, k, v, *weights):
+        return FusedBlock.apply(x, k, v, float(scale), *weights, xn)
+    return torch.ops.csts_torch.fused_block(x, k, v, float(scale), *weights, xn)
+
+
+class FusedBlock(torch.autograd.Function):
+    """B3 inside autograd (JAX's ``_fused_block`` custom VJP): the op's
+    forward outside autograd (B3 on CUDA, the plain twin on the CPU), x, the
+    pooled k and v and the weights saved; backward :func:`recompute_vjp`
+    through :func:`fused_block_plain` (LN1 from x, the Q projection, the
+    attention, proj and skip, the tail: JAX's ``_composite_block``), the
+    gradients of x, k, v and every weight. ``xn``, the LN1 rows the bf16
+    kernel takes, gets none: the recompute takes LN1's gradient through x,
+    and the rows' other use (the K/V projection) lies outside the Function."""
+
+    @staticmethod
+    def forward(ctx, x, k, v, scale, *weights_xn):
+        ctx.scale = scale
+        ctx.save_for_backward(x, k, v, *weights_xn[:-1])
+        return torch.ops.csts_torch.fused_block(x, k, v, scale, *weights_xn)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, k, v, *weights = ctx.saved_tensors
+        needs = ctx.needs_input_grad
+        grads = recompute_vjp(lambda x_, k_, v_, *w: fused_block_plain(x_, k_, v_, ctx.scale, *w),
+                              (x, k, v, *weights), needs[:3] + needs[4:-1], g)
+        return (*grads[:3], None, *grads[3:], None)
 
 
 @torch.library.custom_op("csts_torch::fused_block", mutates_args=(), device_types="cpu")
@@ -750,8 +828,8 @@ def fused_pool_block(q, thw, skip, k, v, scale, wconv, nq_w, nq_b, wproj, bproj,
     k, v: pooled; wconv: pool_q (hd, 1, 3, 3, 3). Returns (B, L_coarse,
     dim_out). Through the custom op ``csts_torch::fused_pool_block`` (B4 on
     CUDA)."""
-    if _build.plain_for_autograd("fused_pool_block", q, skip, k, v, wconv, nq_w, nq_b, wproj,
-                                 bproj, *tail):
+    if not ka.enabled() or _build.plain_for_autograd("fused_pool_block", q, skip, k, v, wconv,
+                                                     nq_w, nq_b, wproj, bproj, *tail):
         return fused_pool_block_plain(q, thw, skip, k, v, scale, wconv, nq_w, nq_b, wproj,
                                       bproj, *tail)
     return torch.ops.csts_torch.fused_pool_block(q, [int(s) for s in thw], skip, k, v,
@@ -811,8 +889,8 @@ def fused_decoder_block(q, thw, stride, skip, k, v, scale, wconv, nq_w, nq_b, wp
     the fine grid; k, v: pooled; wconv: upsample_q (hd, 1, 3, 3, 3).
     Returns (B, L_fine, dim_out). Through the custom op
     ``csts_torch::fused_decoder_block`` (B5 on CUDA)."""
-    if _build.plain_for_autograd("fused_decoder_block", q, skip, k, v, wconv, nq_w, nq_b,
-                                 wproj, bproj, *tail):
+    if not ka.enabled() or _build.plain_for_autograd("fused_decoder_block", q, skip, k, v,
+                                                     wconv, nq_w, nq_b, wproj, bproj, *tail):
         return fused_decoder_block_plain(q, thw, stride, skip, k, v, scale, wconv, nq_w, nq_b,
                                          wproj, bproj, *tail)
     return torch.ops.csts_torch.fused_decoder_block(

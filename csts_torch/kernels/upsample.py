@@ -10,7 +10,9 @@
 * B9a :func:`hw2_upsample` (``_hw2_kernel``): x2 along H, then x2 along W,
   the stride-(1,2,2) skips of d2 and d3, taken only when
   :data:`HW2_SKIP_KERNEL` is set (the JAX package's switch, with its name
-  and default). Eval only, as in JAX: no backward.
+  and default). No backward, as in JAX: it runs at eval and inside B5's
+  forward in the training step (``models/mvit.py`` ``DecoderBlockTrain``),
+  where the eval K3 serves d4's skip too.
 
 Each wrapper calls its custom op (``csts_torch::t2_upsample``,
 ``csts_torch::hw2_upsample``): on a CUDA tensor it launches
@@ -30,6 +32,7 @@ from typing import List, Sequence
 import torch
 
 from csts_torch.kernels import _build
+from csts_torch.kernels import attention as ka
 from csts_torch.ops.resize import upsample2x
 
 # The JAX package's experiment switch (``csts_tpu/kernels/upsample.py:54``),
@@ -84,7 +87,7 @@ def t2_upsample_window_plain(x: torch.Tensor, thw: Sequence[int]) -> torch.Tenso
 def t2_upsample(x: torch.Tensor, thw: Sequence[int]) -> torch.Tensor:
     """x: (B, T·H·W, C) tokens -> (B, 2T·H·W, C), see :func:`t2_upsample_plain`.
     Through the custom op ``csts_torch::t2_upsample`` (K3 on CUDA)."""
-    if _build.plain_for_autograd("t2_upsample", x):
+    if not ka.enabled() or _build.plain_for_autograd("t2_upsample", x):
         return t2_upsample_plain(x, thw)
     return torch.ops.csts_torch.t2_upsample(x, [int(s) for s in thw])
 
@@ -138,7 +141,7 @@ def hw2_upsample(x: torch.Tensor, thw: Sequence[int]) -> torch.Tensor:
     """B9a. x: (B, T·H·W, C) tokens -> (B, T·2H·2W, C), see
     :func:`hw2_upsample_plain`. Any T, H, W and C. Through the custom op
     ``csts_torch::hw2_upsample`` (B9a on CUDA)."""
-    if _build.plain_for_autograd("hw2_upsample", x):
+    if not ka.enabled() or _build.plain_for_autograd("hw2_upsample", x):
         return hw2_upsample_plain(x, thw)
     return torch.ops.csts_torch.hw2_upsample(x, [int(s) for s in thw])
 
@@ -208,5 +211,8 @@ class T2Upsample(torch.autograd.Function):
 
 
 def t2_upsample_train(x: torch.Tensor, thw: Sequence[int]) -> torch.Tensor:
-    """:func:`t2_upsample` inside autograd (see :class:`T2Upsample`)."""
+    """:func:`t2_upsample` inside autograd (see :class:`T2Upsample`); the
+    kernels switched off, the plain twin under PyTorch's autograd."""
+    if not ka.enabled():
+        return t2_upsample_plain(x, thw)
     return T2Upsample.apply(x, thw)

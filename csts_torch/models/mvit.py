@@ -14,19 +14,30 @@ block in B5 (``kb.fused_decoder_block``), a Q-pool block in B4
 attention core (K1) → proj → skip → MLP tail (K2). The decoder's
 stride-(2,1,1) skip is K3; its stride-(1,2,2) skips on B5's route are B9a
 (``kup.hw2_upsample``) when the JAX package's switch
-``kup.HW2_SKIP_KERNEL`` is set (off by default, as in JAX). In training (``module.train()``) every block takes
-the composite route, as the JAX predicates force when not deterministic: K1
-forward with B8 backward (``ka.attention_train``), the skip plus the
-stochastic-depth attention branch, and the B7 tail (``kb.mlp_tail_train``)
-with the MLP branch's mask as its per-sample factor; K3 through
-``kup.t2_upsample_train``. A block asked for its attention map
+``kup.HW2_SKIP_KERNEL`` is set (off by default, as in JAX). In training
+(``module.train()``) the route is :func:`train_route`'s, under the JAX
+package's switches in ``kernels/attention.py``. Every block takes the
+composite route: the skip plus the stochastic-depth attention branch and
+the B7 tail (``kb.mlp_tail_train``) with the MLP branch's mask as its
+per-sample factor, K3 through ``kup.t2_upsample_train``; its attention core
+is K1 forward with B8 backward (``ka.attention_train``) with TRAIN_ATTN on
+(``ka.set_train_attention``, the port's default): that is JAX's TRAIN_ATTN
+route, which JAX takes only with the switch set (its default is off). With
+TRAIN_ATTN off the core is the differentiable plain one
+(:func:`attention_probs`), JAX's default route. With TRAIN_DECODER on
+(``ka.set_train_decoder``, off by default as in JAX) a block on B5's eval
+route with drop_path 0 runs B5's forward with a backward that recomputes the
+composite block (:class:`DecoderBlockTrain`, JAX's ``_decoder_block_ad``):
+d2-d4 on the flagship. The kernels switched off (``ka.set_enabled(False)``),
+every block takes the composite route through the plain twins at eval and
+in training: JAX's composite route. A block asked for its attention map
 (``return_attn``: the fusion blocks' maps) takes the composite route with
 the plain attention core and its fp32 probabilities (:func:`attention_probs`,
 JAX's ``_attention_core`` with ``need_attn``) in place of K1, at eval and in
 training, as JAX's predicates leave every whole-block route then. The
 kernels are called through their modules (``ka.fused_attention`` ...) so a
 check can swap in the plain versions on the card. The dispatch depends on
-the model and its mode only, never on the device. A block of the MViT
+the model, its mode and the switches only, never on the device. A block of the MViT
 classifier (``has_cls``) pools with its leading cls token bypassing the
 pools (JAX's ``pool_heads_conv`` and ``pool_tokens_max``) and takes K1+K2:
 B3 and B4 refuse the token, as JAX's predicates do.
@@ -409,15 +420,49 @@ def block_route(spec: AttentionSpec, mask, thw: THW, return_attn: bool = False) 
     takes "attn_map": the composite route with the plain attention core
     (:func:`attention_probs`) in place of K1, as JAX's predicates leave
     every whole-block route then (``csts_tpu/models/mvit.py:643, :658,
-    :687``)."""
+    :687``). With the kernels switched off (``ka.set_enabled(False)``)
+    every other block takes "composite", through the plain twins."""
     if return_attn:
         return "attn_map"
+    if not ka.enabled():  # JAX's composite route
+        return "composite"
     if block_eligible(spec, mask):
         return "block"
     if decoder_eligible(spec, mask, thw):
         return "decoder_block"
     if pool_block_eligible(spec, mask, thw):
         return "pool_block"
+    return "composite"
+
+
+def train_route(spec: AttentionSpec, mask, thw: THW, return_attn: bool = False,
+                split: bool = False) -> str:
+    """The route a block takes in training (``module.train()``) under the
+    JAX package's switches (``csts_tpu/models/mvit.py:653-676, :705-712``):
+
+    * "attn_map": the block's attention map asked for, the plain core and
+      the B7 tail;
+    * "decoder_block": TRAIN_DECODER on (``ka.set_train_decoder``), a block
+      whose eval route is B5's (:func:`block_route`) with drop_path 0 and not
+      ``split`` on the model axis: B5's forward (with its eval skip: K3, or
+      B9a under ``kup.HW2_SKIP_KERNEL``), a backward that recomputes the
+      composite block (:class:`DecoderBlockTrain`);
+    * "composite": the attention core K1 forward and, where there is no
+      mask, B8 backward with TRAIN_ATTN on (``ka.set_train_attention``, the
+      port's default), else the plain core; the skip (K3 at a stride-(2,1,1)
+      skip under ``kup.T2_SKIP_KERNEL``) and the B7 tail;
+    * "plain": the kernels switched off (``ka.set_enabled(False)``): the
+      composite route through the plain twins under autograd.
+
+    A model-split block keeps "composite" under TRAIN_DECODER: the
+    recompute would run the split's collectives inside the backward."""
+    if return_attn:
+        return "attn_map"
+    if not ka.enabled():
+        return "plain"
+    if (ka.train_decoder_enabled() and spec.drop_path == 0.0 and not split
+            and block_route(spec, mask, thw) == "decoder_block"):
+        return "decoder_block"
     return "composite"
 
 
@@ -532,7 +577,8 @@ class MultiScaleAttention(nn.Module):
     ):
         """xn: LN1'd tokens (B, L, dim). Returns (out (B, Lq, dim), thw_q),
         and with ``return_attn`` also the fp32 probabilities (B, N, Lq, Lk)
-        from :func:`attention_probs`, which then replaces K1. ``rows``
+        from :func:`attention_probs`, which then replaces K1 (as it does in
+        training with TRAIN_ATTN off). ``rows``
         (first, count): the output rows of the seq axis's stripe only (Q's
         rows after its pool; K and V whole). Split on the model axis, the
         attention runs on this rank's heads and proj on their columns, summed
@@ -555,6 +601,8 @@ class MultiScaleAttention(nn.Module):
         attn = None
         if return_attn:
             out, attn = attention_probs(q, k, v, s.scale, mask)
+        elif self.training and not ka.train_attention_enabled():
+            out, _ = attention_probs(q, k, v, s.scale, mask)  # TRAIN_ATTN off
         else:
             attend = ka.attention_train if self.training else ka.fused_attention
             out = attend(q, k, v, s.scale, mask)
@@ -672,24 +720,38 @@ class MultiScaleBlock(nn.Module):
             return self.forward_composite(x, thw, mask, return_attn)
         if route == "block":
             return self.forward_block(x, thw)
+        if route == "decoder_block":
+            return self.decoder_kernel_forward(x, thw)
         # the kernels take one dtype: fp32 master weights are cast to x's
         tail = self._tail_weights(x.dtype)
         xn = ops.layer_norm(x, self.norm1.weight, self.norm1.bias)
         q, k, v = a.project(xn, thw)
-        if route == "decoder_block":
-            thw_f = _static_upsample_out(thw, s.kernel_q, s.stride_q, s.padding_q,
-                                         s.output_padding_q)
-            out = kb.fused_decoder_block(q, thw, s.stride_q,
-                                         self._skip(x, thw, decoder_kernel=True), k, v, s.scale,
-                                         a.upsample_q.weight.to(x.dtype),
-                                         a.norm_q.weight.to(x.dtype), a.norm_q.bias.to(x.dtype),
-                                         *tail)
-            return out, thw_f
         pad = tuple(int(kk // 2) for kk in s.skip_kernel)
         skip, thw_c = pool_tokens_max(x, thw, s.skip_kernel, s.stride_q, pad)
         out = kb.fused_pool_block(q, thw, skip, k, v, s.scale, a.pool_q.weight.to(x.dtype),
                                   a.norm_q.weight.to(x.dtype), a.norm_q.bias.to(x.dtype), *tail)
         return out, thw_c
+
+    def decoder_kernel_forward(self, x: torch.Tensor, thw: THW) -> Tuple[torch.Tensor, THW]:
+        """A decoder block whole in ``kb.fused_decoder_block`` after phase 1
+        (LN1, the coarse Q and the pooled K/V) and its eval skip (K3 at
+        stride (2,1,1), B9a at (1,2,2) under ``kup.HW2_SKIP_KERNEL``, else the
+        trilinear resize): B5's route at eval and, under TRAIN_DECODER, the
+        forward of :class:`DecoderBlockTrain` (JAX's
+        ``_decoder_kernel_forward``). Returns (out on the fine grid, thw_f)."""
+        s, a = self.spec, self.attn
+        # the kernels take one dtype: fp32 master weights are cast to x's
+        tail = self._tail_weights(x.dtype)
+        xn = ops.layer_norm(x, self.norm1.weight, self.norm1.bias)
+        q, k, v = a.project(xn, thw)
+        skip = x
+        if s.skip_upsample_on:
+            skip, _ = upsample_tokens_trilinear(x, thw, s.stride_q, decoder_kernel=True)
+        out = kb.fused_decoder_block(q, thw, s.stride_q, skip, k, v, s.scale,
+                                     a.upsample_q.weight.to(x.dtype),
+                                     a.norm_q.weight.to(x.dtype), a.norm_q.bias.to(x.dtype),
+                                     *tail)
+        return out, self.decoder_grid(thw)
 
     def forward_block(self, x: torch.Tensor, thw: THW) -> Tuple[torch.Tensor, THW]:
         """An identity-skip block whole in ``kb.fused_block`` after phase 1
@@ -710,16 +772,14 @@ class MultiScaleBlock(nn.Module):
                              bq.to(x.dtype), *tail, xn)
         return out, thw
 
-    def _skip(self, x: torch.Tensor, thw: THW, decoder_kernel: bool = False) -> torch.Tensor:
-        """The residual skip of the unnormed input: trilinear upsample
-        (decoder), MaxPool (encoder Q-pool) or identity. ``decoder_kernel``:
-        the block is on B5's route (see :func:`upsample_tokens_trilinear`)."""
+    def _skip(self, x: torch.Tensor, thw: THW) -> torch.Tensor:
+        """The residual skip of the unnormed input on the composite route:
+        trilinear upsample (decoder), MaxPool (encoder Q-pool) or identity."""
         s = self.spec
         if s.upsample_q:
             if not s.skip_upsample_on:
                 return x
-            return upsample_tokens_trilinear(x, thw, s.stride_q, train=self.training,
-                                             decoder_kernel=decoder_kernel)[0]
+            return upsample_tokens_trilinear(x, thw, s.stride_q, train=self.training)[0]
         if s.skip_pool_on:
             pad = tuple(int(k // 2) for k in s.skip_kernel)
             return pool_tokens_max(x, thw, s.skip_kernel, s.stride_q, pad, s.has_cls)[0]
@@ -752,14 +812,24 @@ class MultiScaleBlock(nn.Module):
         drop: Optional[Tuple[torch.Tensor, torch.Tensor]] = None, return_attn: bool = False,
         rows: Optional[Tuple[int, int]] = None,
     ):
-        """The training route (the JAX composite at ``deterministic=False``):
-        K1 forward with B8 backward (with ``return_attn``, the
-        differentiable :func:`attention_probs` instead, its probabilities
-        returned too), skip + drop_path(attention branch), then the B7 tail
-        with the MLP-branch mask as its per-sample factor (ones without
-        stochastic depth). The weights stay in their own dtype: the ops and
-        B7's Function cast them in the graph. ``rows``: as
-        :meth:`forward_composite`'s."""
+        """The training route (:func:`train_route`; the JAX block at
+        ``deterministic=False``). With TRAIN_DECODER on, a block of its
+        "decoder_block" route given no masks runs :class:`DecoderBlockTrain`.
+        Else: the attention core, K1 forward with B8 backward (JAX's
+        TRAIN_ATTN route; with TRAIN_ATTN off or ``return_attn``, the
+        differentiable :func:`attention_probs`, JAX's default, its
+        probabilities returned with ``return_attn``), skip +
+        drop_path(attention branch), then the B7 tail with the MLP-branch
+        mask as its per-sample factor (ones without stochastic depth); the
+        kernels switched off, each through its plain twin. The weights stay
+        in their own dtype: the ops and B7's Function cast them in the
+        graph. ``rows``: as :meth:`forward_composite`'s."""
+        if drop is None and train_route(self.spec, mask, thw, return_attn,
+                                        self.tp is not None) == "decoder_block":
+            out = DecoderBlockTrain.apply(self, thw, x, *self.parameters())
+            if rows is not None:
+                out = out[:, rows[0]:rows[0] + rows[1]]
+            return out, self.decoder_grid(thw)
         skip, x_block, thw_new, attn = self._branches(x, thw, mask, return_attn, rows)
         if drop is not None:
             x_block = ops.drop_path(x_block, drop[0])
@@ -776,13 +846,49 @@ class MultiScaleBlock(nn.Module):
         whole input ``x`` (the seq axis's stripe, ``models/csts.py``): on the
         K1+K2 route and in training, K/V and the pooled Q from every token,
         K1 on those Q rows, the skip and the tail (K2, B7) on those rows; a
-        whole-block route (B3, B4, B5) runs the block whole and keeps them."""
+        whole-block route (B3, B4, B5, and B5 in training under
+        TRAIN_DECODER) runs the block whole and keeps them."""
         if self.training:
             return self.forward_train(x, thw, drop=drop, rows=rows)
         if block_route(self.spec, None, thw) == "composite":
             return self.forward_composite(x, thw, rows=rows)
         out, thw_new = self.forward(x, thw)
         return out[:, rows[0]:rows[0] + rows[1]], thw_new
+
+    def decoder_grid(self, thw: THW) -> THW:
+        """The fine grid of an upsample-Q block on grid ``thw``."""
+        s = self.spec
+        return _static_upsample_out(thw, s.kernel_q, s.stride_q, s.padding_q,
+                                    s.output_padding_q)
+
+
+class DecoderBlockTrain(torch.autograd.Function):
+    """A decoder block in the training step under TRAIN_DECODER, JAX's
+    ``_decoder_block_ad`` (``csts_tpu/models/mvit.py:808-830``): the forward
+    is B5's eval route (:meth:`MultiScaleBlock.decoder_kernel_forward`), run
+    outside autograd; x and the block's parameters are saved. The backward
+    recomputes the composite block at drop_path 0 under autograd with the
+    kernels switched off (``ka.disabled``: the plain twins, JAX's
+    ``fused=False`` recompute) and returns the gradients of x and of every
+    parameter. Exact: at drop_path 0 the eval block is the training block.
+    ``apply(block, thw, x, *block.parameters())``."""
+
+    @staticmethod
+    def forward(ctx, block, thw, x, *params):
+        ctx.block, ctx.thw = block, thw
+        ctx.save_for_backward(x, *params)
+        return block.decoder_kernel_forward(x, thw)[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *params = ctx.saved_tensors
+        needs = ctx.needs_input_grad[2:]
+        with torch.enable_grad(), ka.disabled():
+            x_ = x.detach().requires_grad_(needs[0])
+            out, _ = ctx.block.forward_train(x_, ctx.thw)
+            wrt = [t for t, n in zip([x_, *params], needs) if n]
+            grads = iter(torch.autograd.grad(out, wrt, g, allow_unused=True) if wrt else ())
+        return (None, None, *(next(grads) if n else None for n in needs))
 
 
 def build_inframe_mask(thw: THW, num_audio_tokens: int) -> np.ndarray:

@@ -15,9 +15,9 @@ with the last clip on the device. On CUDA a
 bucket's first request runs eagerly, its second captures the forward in a
 CUDA graph (``torch.cuda.CUDAGraph``) over those buffers, and every later
 request replays it. A graph is keyed by the values of the experiment
-switches (``csts_torch.tools.ab_flags.flag_registry``): a switch flipped
-after a capture starts the bucket over, so a stale graph is never
-replayed. A request larger than the largest bucket runs one eager forward
+switches (``csts_torch.tools.ab_flags.flag_registry``) and of the kernels'
+switch (``ka.set_enabled``): a switch flipped after a capture starts the
+bucket over, so a stale graph is never replayed. A request larger than the largest bucket runs one eager forward
 at its own size. :meth:`GazePredictor.forward` stays eager.
 
 For deployment, :meth:`GazePredictor.export_compiled` writes one
@@ -49,14 +49,16 @@ def _program_file(bucket: int) -> str:
 
 
 def _switches() -> tuple:
-    """The values of the port's experiment switches, which decide a kernel
-    route when the forward runs (and so what a graph captured). A switch
-    whose module was never imported reads None: nothing flipped it (an
-    exported program imports no model code)."""
+    """The values of the port's experiment switches and of the kernels'
+    switch (``ka.set_enabled``), which decide a kernel route when the
+    forward runs (and so what a graph captured). A switch whose module was
+    never imported reads None: nothing flipped it (an exported program
+    imports no model code)."""
     from csts_torch.tools.ab_flags import SWITCHES
 
+    switches = (*SWITCHES.values(), ("csts_torch.kernels.attention", "_ENABLED"))
     return tuple(getattr(sys.modules[mod], attr) if mod in sys.modules else None
-                 for mod, attr in SWITCHES.values())
+                 for mod, attr in switches)
 
 
 class _Slot:

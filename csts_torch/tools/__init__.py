@@ -52,30 +52,15 @@ def mean_ms(fn: Callable[[], object], device: torch.device, iters: int) -> float
     return start.elapsed_time(end) / iters
 
 
-@contextlib.contextmanager
 def plain_twins():
-    """The eval forward's kernel calls (K1, K2, K3, B3, B4, B5 and B9a) go to
-    their plain PyTorch twins (the reference run on the card); the wrappers
-    are restored on exit."""
+    """A context in which every kernel wrapper runs its plain PyTorch twin
+    and every block takes the composite route, at eval and in training (the
+    training entries differentiate their twins under PyTorch's autograd):
+    the kernels switched off (``ka.set_enabled(False)``, JAX's composite
+    route), the switch restored on exit. The reference run on the card."""
     from csts_torch.kernels import attention as ka
-    from csts_torch.kernels import block as kb
-    from csts_torch.kernels import upsample as kup
 
-    twins = ((ka, "fused_attention", ka.fused_attention_plain),
-             (kb, "fused_mlp_tail", kb.fused_mlp_tail_plain),
-             (kup, "t2_upsample", kup.t2_upsample_plain),
-             (kup, "hw2_upsample", kup.hw2_upsample_plain),
-             (kb, "fused_block", kb.fused_block_plain),
-             (kb, "fused_pool_block", kb.fused_pool_block_plain),
-             (kb, "fused_decoder_block", kb.fused_decoder_block_plain))
-    saved = [getattr(module, attr) for module, attr, _ in twins]
-    try:
-        for module, attr, plain in twins:
-            setattr(module, attr, plain)
-        yield
-    finally:
-        for (module, attr, _), fn in zip(twins, saved):
-            setattr(module, attr, fn)
+    return ka.disabled()
 
 
 @contextlib.contextmanager

@@ -7,8 +7,9 @@ softmax at T = 2, the loss (kldiv + LOSS_ALPHA·EgoNCE over the batch for
 (``train/optimizer.py``) at the cosine LR of ``step / steps_per_epoch``, and
 the fp32 EMA of the weights when SOLVER.EMA_DECAY > 0. The JAX package
 compiles the step into one XLA program; here PyTorch runs it eagerly,
-through the kernels on CUDA (K1 and B8, B7, K3) and their plain twins on
-the CPU.
+through the kernels on CUDA (K1 and B8, B7, K3; B5 under TRAIN_DECODER)
+and their plain twins on the CPU, on the routes the JAX package's switches
+in ``kernels/attention.py`` choose (``models/mvit.py`` ``train_route``).
 
 ``accum_steps > 1`` splits the batch into micro-batches before the one
 update. With EgoNCE in the loss it is the GradCache two-pass, so the
@@ -156,7 +157,8 @@ def _grad_cache(cfg: Config, model: nn.Module, batch, drops, accum: int):
     alpha = cfg.MODEL.LOSS_ALPHA
     micro = [_micro(batch, accum, i) for i in range(accum)]
     # pass A: every micro-batch's embeddings, no graph kept; the model stays
-    # in training mode, so this is pass B's route, kernels and masks
+    # in training mode, so this is pass B's route (B5's under TRAIN_DECODER
+    # too), kernels and masks
     with torch.no_grad():
         embeds = [model(mb["video"], mb["audio"], return_embed=True, drop=d)[1:]
                   for mb, d in zip(micro, drops)]

@@ -11,7 +11,9 @@ the whole-block kernel at 3, 4 and 8 heads (B9b/B9c) at L 1000 and Lk 200;
 for the training kernels B7 (forward and its hand-written backward)
 and B8, ragged rows and keys, a zero stochastic-depth factor, strided output
 gradients, and the three autograd Functions against autograd of their plain
-versions; ``small_cfg``'s eval loop
+versions; K1, K2 and B3 under autograd through their wrappers (the Functions
+of the JAX package's custom VJPs), B4 and B5 refusing a gradient
+("inference-only"); ``small_cfg``'s eval loop
 (``csts_torch.eval.tester.test``: loader, prefetcher, metrics) through the
 kernels against the same loop through the plain twins, and the AUC's
 tie order on the card against the CPU's; the orbax checkpointer's round
@@ -316,22 +318,92 @@ def test_decoder_block_scratch_held(gen):
 
 
 def test_kernels_refuse_gradients(gen):
-    """The kernel wrappers launch outside autograd: an input that wants a
-    gradient is refused (the *_train entries take it)."""
-    q = _randn(gen, 1, 1, 16, 64).requires_grad_()
-    with pytest.raises(RuntimeError, match="forward-only"):
-        ka.fused_attention(q, q, q, 0.125)
+    """The kernels without a backward launch outside autograd: an input that
+    wants a gradient is refused, "inference-only" as in the JAX package
+    (the eval K3 and B9a, B7's raw forward, whose Function takes it; B4 and
+    B5 in ``test_pool_and_decoder_blocks_are_inference_only``). K1, K2 and
+    B3 differentiate instead (``test_k1_k2_b3_differentiate``)."""
     x = _randn(gen, 1, 8, 16).requires_grad_()
-    with pytest.raises(RuntimeError, match="forward-only"):
+    with pytest.raises(RuntimeError, match="inference-only"):
         kup.t2_upsample(x, (2, 2, 2))
-    with pytest.raises(RuntimeError, match="forward-only"):
+    with pytest.raises(RuntimeError, match="inference-only"):
         kup.hw2_upsample(x, (2, 2, 2))
     x = _randn(gen, 2, 8, 16).requires_grad_()
     w = _randn(gen, 16)
-    with pytest.raises(RuntimeError, match="forward-only"):
+    with pytest.raises(RuntimeError, match="inference-only"):
         kb.fused_mlp_tail_train(x, w, w, _randn(gen, 64, 16), _randn(gen, 64),
                                 _randn(gen, 16, 64), w, None, None,
                                 torch.ones(2, device="cuda"))
+
+
+def test_pool_and_decoder_blocks_are_inference_only(gen):
+    """B4 and B5 refuse an input that wants a gradient on the card before
+    any launch, as the JAX package's raise "inference-only"."""
+    b, thw, c, heads, lk = 1, (2, 8, 8), 96, 1, 64
+    hd = c // heads
+    k, v = _kv(gen, b, heads, lk, hd)
+    q = _randn(gen, b, 128, c).requires_grad_()
+    conv = [_randn(gen, hd, 1, 3, 3, 3, scale=0.2), 1 + _randn(gen, hd, scale=0.1),
+            _randn(gen, hd, scale=0.1)]
+    before = (kb.fused_pool_block.launches, kb.fused_decoder_block.launches)
+    with pytest.raises(RuntimeError, match="inference-only"):
+        kb.fused_pool_block(q, thw, _randn(gen, b, 32, c), k, v, hd ** -0.5, *conv,
+                            *_tail(gen, c, c, 4 * c))
+    with pytest.raises(RuntimeError, match="inference-only"):
+        kb.fused_decoder_block(q, thw, (1, 2, 2), _randn(gen, b, 512, c), k, v, hd ** -0.5,
+                               *conv, *_tail(gen, c, c, 4 * c))
+    assert (kb.fused_pool_block.launches, kb.fused_decoder_block.launches) == before
+
+
+@pytest.mark.parametrize("name", ["attention", "attention_masked", "mlp_tail", "block"])
+def test_k1_k2_b3_differentiate(gen, name):
+    """K1, K2 and B3 under autograd on the card through their wrappers
+    (``FusedAttention``: K1 forward, B8 backward or the masked recompute;
+    ``MlpTail`` and ``FusedBlock``: the kernel forward, the recompute of the
+    plain twin backward), fp32 at ragged shapes, against autograd of the
+    plain twins at chip_smoke's phase 5b bars (``GRAD_BARS``); each kernel's
+    launches move once."""
+    from chip_smoke import GRAD_BARS
+
+    b, l, c, cout, heads, lk = 2, 100, 96, 192, 1, 64
+    if name.startswith("attention"):
+        q, k, v = _randn(gen, b, 2, 68, 64), _randn(gen, b, 2, 68, 64), _randn(gen, b, 2, 68, 64)
+        mask = (torch.from_numpy(build_inframe_mask((4, 4, 4), 4)).cuda()
+                if name == "attention_masked" else None)
+        args, wrt, fn, plain, counter = ([q, k, v, 0.125, mask], [0, 1, 2], ka.fused_attention,
+                                         ka.fused_attention_plain, ka.fused_attention)
+    elif name == "mlp_tail":
+        args = [_randn(gen, b, l, c)] + _tail(gen, c, cout, 4 * c)[2:]
+        wrt, fn, plain, counter = list(range(len(args))), kb.fused_mlp_tail, \
+            kb.fused_mlp_tail_plain, kb.fused_mlp_tail
+    else:
+        hd = c // heads
+        k, v = _kv(gen, b, heads, lk, hd)
+        args = [_randn(gen, b, l, c), k, v, hd ** -0.5, 1 + _randn(gen, c, scale=0.1),
+                _randn(gen, c, scale=0.1), _randn(gen, c, c, scale=c ** -0.5),
+                _randn(gen, c, scale=0.1)] + _tail(gen, c, cout, 4 * c)
+        wrt = [i for i, a in enumerate(args) if isinstance(a, torch.Tensor)]
+        fn, plain, counter = kb.fused_block, kb.fused_block_plain, kb.fused_block
+    atol, rtol = GRAD_BARS["attention" if name.startswith("attention") else name]
+
+    def grads(f):
+        leaves = [a.detach().requires_grad_(i in wrt) if isinstance(a, torch.Tensor) else a
+                  for i, a in enumerate(args)]
+        out = f(*leaves)
+        g = torch.linspace(-1, 1, out.numel(), device="cuda").reshape(out.shape)
+        return out, torch.autograd.grad(out, [leaves[i] for i in wrt], g)
+
+    before, bwd = counter.launches, ka.fused_attention_bwd.launches
+    out, got = grads(fn)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert ka.fused_attention_bwd.launches == bwd + (name == "attention")
+    ref_out, ref = grads(plain)
+    key = "attention" if name.startswith("attention") else name
+    bar = FP32_ATOL[key] + FP32_RTOL[key] * float(ref_out.abs().max())
+    assert float((out - ref_out).abs().max()) <= bar
+    for a, r in zip(got, ref):
+        assert bool(((a - r).abs() <= atol + rtol * r.abs()).all())
 
 
 def _tail_args(gen, b, l, c, cout, hidden):
@@ -508,7 +580,8 @@ def test_small_cfg_train_step_fp32_through_kernels(gen):
     import numpy as np
 
     from chip_smoke import (STEP_GRAD_FLOOR, STEP_GRAD_RTOL, STEP_LOSS_RTOL, WRAPPERS,
-                            reset_launches, train_twins)
+                            reset_launches)
+    from csts_torch.tools import plain_twins
     from csts_torch.ops import sample_drop_masks
     from csts_torch.train import step as train_lib
 
@@ -532,7 +605,7 @@ def test_small_cfg_train_step_fp32_through_kernels(gen):
     ran = {n: WRAPPERS[n].launches for n in ("attention", "attention_bwd", "mlp_tail_train",
                                              "t2_upsample")}
     assert all(ran.values()), ran
-    with train_twins():
+    with plain_twins():
         loss_p, grads_p = loss_and_grads()
     assert abs(loss_k - loss_p) <= STEP_LOSS_RTOL * abs(loss_p), (loss_k, loss_p)
     norm = lambda t: float(torch.linalg.vector_norm(t.float()))  # noqa: E731
@@ -1026,7 +1099,7 @@ def test_small_trainer_kernels_vs_plain(gen, tmp_path, monkeypatch):
     gives back the run's weights, moments, counts and EMA bit for bit."""
     import numpy as np
 
-    from chip_smoke import WRAPPERS, reset_launches, train_twins
+    from chip_smoke import WRAPPERS, reset_launches
     from csts_torch.models.csts import build_spec
     from csts_torch.tools import plain_twins
     from csts_torch.train import meters, trainer
@@ -1057,7 +1130,6 @@ def test_small_trainer_kernels_vs_plain(gen, tmp_path, monkeypatch):
                else contextlib.ExitStack())
         with ctx as stack:
             if tag == "plain":
-                stack.enter_context(train_twins())
                 stack.enter_context(plain_twins())
             reset_launches()
             states.append(trainer.train(cfg))

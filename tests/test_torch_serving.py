@@ -284,8 +284,11 @@ def test_kernel_op_opcheck(name):
 @pytest.mark.parametrize("name", OPS)
 def test_kernel_wrapper_keeps_cpu_autograd(name):
     """The ops have no autograd formula: on the CPU an input that wants a
-    gradient sends the wrapper to its plain twin, so gradients flow as they
-    did before the kernels were ops (equal to the plain twin's)."""
+    gradient sends the wrapper around the op, so gradients flow: equal to
+    the plain twin's autograd, which K2's and B3's Functions recompute and
+    the others run directly; K1 takes its Function, the JAX package's
+    custom VJP, whose backward at a masked site is the plain recompute
+    (``ka.masked_attention_bwd_plain``), and equals that bit for bit."""
     wrapper = getattr(WRAPPERS[name], name)
     plain = getattr(WRAPPERS[name], f"{name}_plain")
     grads = []
@@ -295,6 +298,13 @@ def test_kernel_wrapper_keeps_cpu_autograd(name):
         args[0] = leaf
         fn(*args).square().sum().backward()
         grads.append(leaf.grad)
+    if name == "fused_attention":
+        q, k, v, scale, mask = _op_args(name)
+        out = ka.fused_attention_plain(q, k, v, scale, mask)
+        want = ka.masked_attention_bwd_plain(q, k, v, mask, 2 * out, scale)[0]
+        torch.testing.assert_close(grads[0], want, rtol=0, atol=0)
+        torch.testing.assert_close(grads[0], grads[1], rtol=1e-4, atol=1e-4)
+        return
     torch.testing.assert_close(grads[0], grads[1], rtol=0, atol=0)
 
 
