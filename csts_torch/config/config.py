@@ -60,10 +60,11 @@ class TrainConfig:
     # "npz" (reference-style master-only files, utils/checkpoint.py) or "orbax"
     # (async sharding-aware multihost backend, utils/orbax_ckpt.py)
     CHECKPOINT_BACKEND: str = "npz"
-    # In-trainer device profiling: capture a jax.profiler trace of iterations
+    # In-trainer device profiling: capture a torch.profiler trace of iterations
     # [PROFILE_START_ITER, PROFILE_START_ITER + PROFILE_NUM_ITERS) of the first
-    # trained epoch to OUTPUT_DIR/profile (0 iters = off). The offline analyzer
-    # tools/profile_forward.py reads the same trace format.
+    # trained epoch to OUTPUT_DIR/profile (0 iters = off), a Chrome trace that
+    # carries the step's and the model's spans (utils/tracing.py) beside the
+    # operations and kernels.
     PROFILE_START_ITER: int = 0
     PROFILE_NUM_ITERS: int = 0
 

@@ -48,6 +48,7 @@ from csts_torch.models.mvit import (
     round_width,
     upsample_tokens_trilinear,
 )
+from csts_torch.utils import tracing
 
 # The JAX package's switch (``csts_tpu/models/csts.py:37``, used at :628-647):
 # classify the stem skip before its T-resize (exact commute). JAX takes this
@@ -506,7 +507,9 @@ class CSTS(nn.Module):
         asked for the list [logits, spatial map, temporal map] (each map
         only if asked): the spatial fusion's probabilities (B, N, L, L),
         L = T·H·W + T with the audio tokens last, and the temporal
-        fusion's (B, N, 2T, 2T), both fp32."""
+        fusion's (B, N, 2T, 2T), both fp32. While a profiler records, the
+        stages record the spans ``csts.model.encoders``, ``.fusion`` and
+        ``.decoder`` (``utils/tracing.py``)."""
         spec = self.spec
         cdt = spec.compute_dtype
 
@@ -516,121 +519,124 @@ class CSTS(nn.Module):
 
         if drop is None:
             drop = [None] * len(self.blocks)
-        if not video.is_floating_point():
-            mean = torch.tensor(spec.data_mean, dtype=cdt, device=video.device)
-            std = torch.tensor(spec.data_std, dtype=cdt, device=video.device)
-            video = (video.to(cdt) / 255.0 - mean) / std
-        else:
-            video = video.to(cdt)
-        audio = audio.to(cdt)
+        with tracing.span("csts.model.encoders"):
+            if not video.is_floating_point():
+                mean = torch.tensor(spec.data_mean, dtype=cdt, device=video.device)
+                std = torch.tensor(spec.data_std, dtype=cdt, device=video.device)
+                video = (video.to(cdt) / 255.0 - mean) / std
+            else:
+                video = video.to(cdt)
+            audio = audio.to(cdt)
 
-        x = self.patch_embed(video)
-        y = self.patch_embed_audio(audio)
-        cap("patch_embed", x)
-        cap("patch_embed_audio", y)
-        x = x + self._pos_embed(False).to(cdt)
-        y = y + self._pos_embed(True).to(cdt)
-        thw: THW = spec.patch_dims
-        thw_audio: THW = spec.audio_patch_dims
+            x = self.patch_embed(video)
+            y = self.patch_embed_audio(audio)
+            cap("patch_embed", x)
+            cap("patch_embed_audio", y)
+            x = x + self._pos_embed(False).to(cdt)
+            y = y + self._pos_embed(True).to(cdt)
+            thw: THW = spec.patch_dims
+            thw_audio: THW = spec.audio_patch_dims
 
-        # interleaved encoder groups, keeping the decoder's skip features
-        inter_feat = [(x, thw)]
-        # the seq axis: each rank holds a stripe of each branch's tokens
-        # between blocks while the token count divides it (JAX's seq_constraint)
-        x_seq, y_seq = mesh.seq_divides(x.shape[1]), mesh.seq_divides(y.shape[1])
-        x, y = mesh.seq_constraint(x), mesh.seq_constraint(y)
+            # interleaved encoder groups, keeping the decoder's skip features
+            inter_feat = [(x, thw)]
+            # the seq axis: each rank holds a stripe of each branch's tokens
+            # between blocks while the token count divides it (JAX's seq_constraint)
+            x_seq, y_seq = mesh.seq_divides(x.shape[1]), mesh.seq_divides(y.shape[1])
+            x, y = mesh.seq_constraint(x), mesh.seq_constraint(y)
 
-        def whole(t, striped):
-            return mesh.gather(t, mesh.SEQ_AXIS, 1, partial=False) if striped else t
+            def whole(t, striped):
+                return mesh.gather(t, mesh.SEQ_AXIS, 1, partial=False) if striped else t
 
-        def cap_tokens(name, t, striped):
-            if capture is not None:
-                with torch.no_grad():
-                    capture[name] = whole(t, striped)
+            def cap_tokens(name, t, striped):
+                if capture is not None:
+                    with torch.no_grad():
+                        capture[name] = whole(t, striped)
 
-        groups = list(zip(spec.video_groups, spec.audio_groups))
-        for gi, ((vs, ve), (as_, ae)) in enumerate(groups):
-            i = vs
-            while i < ve:
-                n_pipe = self._pipelined_run_len(i, ve, x.shape[0], capture)
-                if n_pipe:
-                    x = self._pipelined_blocks(i, n_pipe, x, thw, drop, x_seq)
-                    i += n_pipe
-                    continue
-                if x_seq:
-                    x, thw, x_seq = self._seq_block(self.blocks[i], x, thw, drop[i])
-                else:
-                    x, thw = self._encoder_block(self.blocks[i], x, thw, drop[i])
-                cap_tokens(f"blocks/{i}", x, x_seq)
-                i += 1
-            if gi < len(groups) - 1:
-                inter_feat.append((whole(x, x_seq), thw))
-            for i in range(as_, ae):
-                if y_seq:
-                    y, thw_audio, y_seq = self._seq_block(self.blocks_audio[i], y, thw_audio)
-                else:
-                    y, thw_audio = self._encoder_block(self.blocks_audio[i], y, thw_audio)
-                cap_tokens(f"blocks_audio/{i}", y, y_seq)
-        x, y = whole(x, x_seq), whole(y, y_seq)
+            groups = list(zip(spec.video_groups, spec.audio_groups))
+            for gi, ((vs, ve), (as_, ae)) in enumerate(groups):
+                i = vs
+                while i < ve:
+                    n_pipe = self._pipelined_run_len(i, ve, x.shape[0], capture)
+                    if n_pipe:
+                        x = self._pipelined_blocks(i, n_pipe, x, thw, drop, x_seq)
+                        i += n_pipe
+                        continue
+                    if x_seq:
+                        x, thw, x_seq = self._seq_block(self.blocks[i], x, thw, drop[i])
+                    else:
+                        x, thw = self._encoder_block(self.blocks[i], x, thw, drop[i])
+                    cap_tokens(f"blocks/{i}", x, x_seq)
+                    i += 1
+                if gi < len(groups) - 1:
+                    inter_feat.append((whole(x, x_seq), thw))
+                for i in range(as_, ae):
+                    if y_seq:
+                        y, thw_audio, y_seq = self._seq_block(self.blocks_audio[i], y, thw_audio)
+                    else:
+                        y, thw_audio = self._encoder_block(self.blocks_audio[i], y, thw_audio)
+                    cap_tokens(f"blocks_audio/{i}", y, y_seq)
+            x, y = whole(x, x_seq), whole(y, y_seq)
 
-        # spatial-temporal fusion (custom_multimodal_builder.py:413-462)
-        b = x.shape[0]
-        t = spec.fusion_thw[0]
-        td = spec.token_dim
-        y_grid = y.reshape(b, *thw_audio, td)
-        y_spatial = _conv(self.audio_pool, y_grid).reshape(b, t, td)
-        av_spatial = torch.cat([x, y_spatial], dim=1)
-        spatial_attn = None
-        if spec.spatial_audio_attn or return_spatial_attn:
-            av_spatial, _, spatial_attn = self.spatial_fusion(
-                av_spatial, thw, mask=self.inframe_mask, return_attn=True)
-        else:
-            av_spatial, _ = self.spatial_fusion(av_spatial, thw, mask=self.inframe_mask)
-        cap("spatial_fusion", av_spatial)
-        n_video = x.shape[1]
-        x_spatial = av_spatial[:, :n_video]
+        with tracing.span("csts.model.fusion"):
+            # spatial-temporal fusion (custom_multimodal_builder.py:413-462)
+            b = x.shape[0]
+            t = spec.fusion_thw[0]
+            td = spec.token_dim
+            y_grid = y.reshape(b, *thw_audio, td)
+            y_spatial = _conv(self.audio_pool, y_grid).reshape(b, t, td)
+            av_spatial = torch.cat([x, y_spatial], dim=1)
+            spatial_attn = None
+            if spec.spatial_audio_attn or return_spatial_attn:
+                av_spatial, _, spatial_attn = self.spatial_fusion(
+                    av_spatial, thw, mask=self.inframe_mask, return_attn=True)
+            else:
+                av_spatial, _ = self.spatial_fusion(av_spatial, thw, mask=self.inframe_mask)
+            cap("spatial_fusion", av_spatial)
+            n_video = x.shape[1]
+            x_spatial = av_spatial[:, :n_video]
 
-        x_grid = x.reshape(b, *thw, td)
-        if spec.spatial_audio_attn:
-            # the audio token's attention over its frame, averaged over heads,
-            # scales that frame's video tokens (custom_multimodal_builder.py:434-441)
-            audio_attn = extract_audio_attention(spatial_attn, spec.fusion_thw)
-            x_grid = x_grid * audio_attn.mean(dim=1)[..., None].to(cdt)
-        x_temporal = _conv(self.vision_pool, x_grid).reshape(b, t, td)
-        y_temporal = _conv(self.audio_pool2, y_grid).reshape(b, t, td)
-        av_temporal = torch.cat([x_temporal, y_temporal], dim=1)
-        av_temporal, _, *temporal_attn = self.temporal_fusion(
-            av_temporal, (2, 2, 2), return_attn=return_temporal_attn)
-        cap("temporal_fusion", av_temporal)
+            x_grid = x.reshape(b, *thw, td)
+            if spec.spatial_audio_attn:
+                # the audio token's attention over its frame, averaged over heads,
+                # scales that frame's video tokens (custom_multimodal_builder.py:434-441)
+                audio_attn = extract_audio_attention(spatial_attn, spec.fusion_thw)
+                x_grid = x_grid * audio_attn.mean(dim=1)[..., None].to(cdt)
+            x_temporal = _conv(self.vision_pool, x_grid).reshape(b, t, td)
+            y_temporal = _conv(self.audio_pool2, y_grid).reshape(b, t, td)
+            av_temporal = torch.cat([x_temporal, y_temporal], dim=1)
+            av_temporal, _, *temporal_attn = self.temporal_fusion(
+                av_temporal, (2, 2, 2), return_attn=return_temporal_attn)
+            cap("temporal_fusion", av_temporal)
 
-        x_weights = av_temporal[:, :t]
-        x_reweight = (x_spatial.reshape(b, *thw, td) * x_weights[:, :, None, None, :])
-        x_reweight = x_reweight.reshape(b, n_video, td)
-        y_weights = av_temporal[:, t:]
-        y_reweight = (y_grid * y_weights[:, :, None, None, :]).reshape(b, -1, td)
+            x_weights = av_temporal[:, :t]
+            x_reweight = (x_spatial.reshape(b, *thw, td) * x_weights[:, :, None, None, :])
+            x_reweight = x_reweight.reshape(b, n_video, td)
+            y_weights = av_temporal[:, t:]
+            y_reweight = (y_grid * y_weights[:, :, None, None, :]).reshape(b, -1, td)
 
-        # decoder (custom_multimodal_builder.py:465-481)
-        feat = x_reweight
-        n_dec = len(spec.decoder_blocks)
-        for i in range(n_dec):
-            feat, thw = getattr(self, f"decode_block{i + 1}")(feat, thw)
-            if i < n_dec - 1:
-                feat = feat + inter_feat[-(i + 1)][0]
-            cap(f"decode_block{i + 1}", feat)
+        with tracing.span("csts.model.decoder"):
+            # decoder (custom_multimodal_builder.py:465-481)
+            feat = x_reweight
+            n_dec = len(spec.decoder_blocks)
+            for i in range(n_dec):
+                feat, thw = getattr(self, f"decode_block{i + 1}")(feat, thw)
+                if i < n_dec - 1:
+                    feat = feat + inter_feat[-(i + 1)][0]
+                cap(f"decode_block{i + 1}", feat)
 
-        # head: the stem skip T-resized (K3 while kup.T2_SKIP_KERNEL is set)
-        stem_feat, stem_thw = inter_feat[0]
-        if HEAD_COMMUTE:  # classify first, then T-resize the 1-channel map
-            logits = _conv(self.classifier, feat.reshape(b, *thw, -1))
-            w = self.classifier.weight.reshape(1, -1).to(stem_feat.dtype)
-            stem_cls = ops.linear(stem_feat, w)  # (B, L_stem, 1), no bias
-            stem_up, _ = upsample_tokens_trilinear(stem_cls, stem_thw, (2, 1, 1),
-                                                   train=self.training)
-            logits = logits + stem_up.reshape(logits.shape)
-        else:
-            stem_up, _ = upsample_tokens_trilinear(stem_feat, stem_thw, (2, 1, 1),
-                                                   train=self.training)
-            logits = _conv(self.classifier, (feat + stem_up).reshape(b, *thw, -1))
+            # head: the stem skip T-resized (K3 while kup.T2_SKIP_KERNEL is set)
+            stem_feat, stem_thw = inter_feat[0]
+            if HEAD_COMMUTE:  # classify first, then T-resize the 1-channel map
+                logits = _conv(self.classifier, feat.reshape(b, *thw, -1))
+                w = self.classifier.weight.reshape(1, -1).to(stem_feat.dtype)
+                stem_cls = ops.linear(stem_feat, w)  # (B, L_stem, 1), no bias
+                stem_up, _ = upsample_tokens_trilinear(stem_cls, stem_thw, (2, 1, 1),
+                                                       train=self.training)
+                logits = logits + stem_up.reshape(logits.shape)
+            else:
+                stem_up, _ = upsample_tokens_trilinear(stem_feat, stem_thw, (2, 1, 1),
+                                                       train=self.training)
+                logits = _conv(self.classifier, (feat + stem_up).reshape(b, *thw, -1))
 
         if return_embed:
             x_embed = ops.linear(x_reweight.mean(dim=1), self.vision_proj.weight,

@@ -28,6 +28,7 @@ from csts_torch.models.build import MODEL_REGISTRY
 from csts_torch.models.csts import PatchEmbed, init_params
 from csts_torch.models.csts import build_spec as build_csts_spec
 from csts_torch.models.mvit import THW, AttentionSpec, MultiScaleBlock
+from csts_torch.utils import tracing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,16 +136,17 @@ class MViT(nn.Module):
         while MODEL.DROPOUT_RATE is above 0."""
         spec = self.spec
         cdt = spec.compute_dtype
-        x = self.patch_embed(video.to(cdt))
-        b = x.shape[0]
-        if spec.cls_embed_on:
-            x = torch.cat([self.cls_token.to(cdt).expand(b, -1, -1), x], dim=1)
-        x = x + self._pos_embed().to(cdt)
-        if drop is None:
-            drop = [None] * len(self.blocks)
-        thw: THW = spec.patch_dims
-        for blk, d in zip(self.blocks, drop):
-            x, thw = blk(x, thw, drop=d)
+        with tracing.span("csts.model.encoders"):
+            x = self.patch_embed(video.to(cdt))
+            b = x.shape[0]
+            if spec.cls_embed_on:
+                x = torch.cat([self.cls_token.to(cdt).expand(b, -1, -1), x], dim=1)
+            x = x + self._pos_embed().to(cdt)
+            if drop is None:
+                drop = [None] * len(self.blocks)
+            thw: THW = spec.patch_dims
+            for blk, d in zip(self.blocks, drop):
+                x, thw = blk(x, thw, drop=d)
         x = ops.layer_norm(x, self.norm.weight, self.norm.bias)
         feat = x[:, 0] if spec.cls_embed_on else x.mean(dim=1)
         if self.training and spec.head_dropout > 0:

@@ -31,6 +31,11 @@ each keeps its rows, DDP's mean of the gradients gives the one-process
 mean, and the reported losses are the global batch's. Every micro-batch
 backward but the last skips the gradient reduction.
 
+While a profiler records, a step records the spans ``csts.train_step``
+and, inside it, ``.forward`` (each forward and its loss), ``.backward``
+(each backward, the model axes' gradient sync) and ``.update`` (the clip,
+the optimizer, the EMA, the stats), ``utils/tracing.py``.
+
 Entry points run on CUDA unless the caller names another device.
 """
 
@@ -52,6 +57,7 @@ from csts_torch.parallel import collectives, mesh
 from csts_torch.train import losses
 from csts_torch.train.lr_policy import get_lr_at_epoch
 from csts_torch.train.optimizer import Optimizer, construct_optimizer
+from csts_torch.utils import tracing
 
 
 @dataclasses.dataclass
@@ -159,33 +165,36 @@ def _grad_cache(cfg: Config, model: nn.Module, batch, drops, accum: int):
     # pass A: every micro-batch's embeddings, no graph kept; the model stays
     # in training mode, so this is pass B's route (B5's under TRAIN_DECODER
     # too), kernels and masks
-    with torch.no_grad():
-        embeds = [model(mb["video"], mb["audio"], return_embed=True, drop=d)[1:]
-                  for mb, d in zip(micro, drops)]
-        v_loc = torch.cat([v for v, _ in embeds])
-        a_loc = torch.cat([a for _, a in embeds])
-        v_all = collectives.all_gather_with_grad(v_loc).detach().requires_grad_()
-        a_all = collectives.all_gather_with_grad(a_loc).detach().requires_grad_()
-    with torch.enable_grad():
-        nce = losses.egonce_loss(losses.sim_matrix(v_all, a_all))
-    dv, da = torch.autograd.grad(nce, (v_all, a_all))
-    # this rank's rows of the ranks' summed embedding gradients, as
-    # all_gather_with_grad's backward gives them (DDP's mean divides by W)
-    lo, rows = collectives.rank() * v_loc.shape[0], v_loc.shape[0]
-    dv = collectives.all_reduce_sum(dv)[lo:lo + rows]
-    da = collectives.all_reduce_sum(da)[lo:lo + rows]
-    del embeds, v_all, a_all, v_loc, a_loc
+    with tracing.span("csts.train_step.forward"):
+        with torch.no_grad():
+            embeds = [model(mb["video"], mb["audio"], return_embed=True, drop=d)[1:]
+                      for mb, d in zip(micro, drops)]
+            v_loc = torch.cat([v for v, _ in embeds])
+            a_loc = torch.cat([a for _, a in embeds])
+            v_all = collectives.all_gather_with_grad(v_loc).detach().requires_grad_()
+            a_all = collectives.all_gather_with_grad(a_loc).detach().requires_grad_()
+        with torch.enable_grad():
+            nce = losses.egonce_loss(losses.sim_matrix(v_all, a_all))
+        dv, da = torch.autograd.grad(nce, (v_all, a_all))
+        # this rank's rows of the ranks' summed embedding gradients, as
+        # all_gather_with_grad's backward gives them (DDP's mean divides by W)
+        lo, rows = collectives.rank() * v_loc.shape[0], v_loc.shape[0]
+        dv = collectives.all_reduce_sum(dv)[lo:lo + rows]
+        da = collectives.all_reduce_sum(da)[lo:lo + rows]
+        del embeds, v_all, a_all, v_loc, a_loc
     kls, preds = [], []
     for i, (mb, d) in enumerate(zip(micro, drops)):
         with _reduce_grads(model, i == accum - 1):
-            logits, v, a = model(mb["video"], mb["audio"], return_embed=True, drop=d)
-            p = losses.frame_softmax(logits, temperature=2.0)
-            kl = _main_loss(cfg, logits, p, mb["labels_hm"])
+            with tracing.span("csts.train_step.forward"):
+                logits, v, a = model(mb["video"], mb["audio"], return_embed=True, drop=d)
+                p = losses.frame_softmax(logits, temperature=2.0)
+                kl = _main_loss(cfg, logits, p, mb["labels_hm"])
             n = v.shape[0]
-            torch.autograd.backward(
-                (kl, v, a),
-                (torch.full_like(kl, 1.0 / accum), (alpha * dv[i * n:(i + 1) * n]).to(v.dtype),
-                 (alpha * da[i * n:(i + 1) * n]).to(a.dtype)))
+            with tracing.span("csts.train_step.backward"):
+                torch.autograd.backward(
+                    (kl, v, a),
+                    (torch.full_like(kl, 1.0 / accum), (alpha * dv[i * n:(i + 1) * n]).to(v.dtype),
+                     (alpha * da[i * n:(i + 1) * n]).to(a.dtype)))
         kls.append(kl.detach())
         preds.append(p.detach())
     kl_mean = torch.stack(kls).mean()
@@ -200,8 +209,10 @@ def _grad_mean(cfg: Config, model: nn.Module, batch, drops, accum: int):
     preds = []
     for i, d in enumerate(drops):
         with _reduce_grads(model, i == accum - 1):
-            loss, stats_i, p = forward_loss(cfg, model, _micro(batch, accum, i), d)
-            (loss / accum).backward()
+            with tracing.span("csts.train_step.forward"):
+                loss, stats_i, p = forward_loss(cfg, model, _micro(batch, accum, i), d)
+            with tracing.span("csts.train_step.backward"):
+                (loss / accum).backward()
         for k, v in stats_i.items():
             sums[k] = sums.get(k, 0.0) + v.detach()
         preds.append(p.detach())
@@ -243,8 +254,8 @@ def make_train_step(cfg: Config, spec: CSTSSpec, steps_per_epoch: int,
     ema_decay = cfg.SOLVER.EMA_DECAY
     use_nce = "nce" in cfg.MODEL.LOSS_FUNC
 
-    def train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
-                   generator: Optional[torch.Generator], drop=None):
+    def step(state: TrainState, batch: Mapping[str, torch.Tensor],
+             generator: Optional[torch.Generator], drop=None):
         net = state.net if state.net is not None else state.model
         lr = get_lr_at_epoch(cfg.SOLVER, state.step / steps_per_epoch)
         world = collectives.world_size()
@@ -262,26 +273,36 @@ def make_train_step(cfg: Config, spec: CSTSSpec, steps_per_epoch: int,
             drop = _local_masks(drop, collectives.rank() * rows, rows, accum_steps)
         state.optimizer.zero_grad()
         if accum_steps == 1:
-            _, stats, preds = forward_loss(cfg, net, batch, drop[0])
-            stats["loss"].backward()
+            with tracing.span("csts.train_step.forward"):
+                _, stats, preds = forward_loss(cfg, net, batch, drop[0])
         elif use_nce:
             stats, preds = _grad_cache(cfg, net, batch, drop, accum_steps)
         else:
             stats, preds = _grad_mean(cfg, net, batch, drop, accum_steps)
-        mesh.sync_grads()  # the model axes' gradients computed in part
-        grad_norm = state.optimizer.step(lr)
-        state.step += 1
-        if state.ema is not None:
-            with torch.no_grad():
-                for name, p in state.model.named_parameters():
-                    state.ema[name].mul_(ema_decay).add_(p.detach().float(), alpha=1.0 - ema_decay)
-        stats = {k: v.detach() for k, v in stats.items()}
-        if world > 1:  # the ranks' mean of the main loss; EgoNCE is already global
-            stats["kldiv_loss"] = collectives.all_reduce_sum(stats["kldiv_loss"]) / world
-            stats["loss"] = stats["kldiv_loss"] + (cfg.MODEL.LOSS_ALPHA * stats["egonce_loss"]
-                                                   if use_nce else 0.0)
-        stats.update(lr=lr, grad_norm=grad_norm)
+        with tracing.span("csts.train_step.backward"):
+            if accum_steps == 1:
+                stats["loss"].backward()
+            mesh.sync_grads()  # the model axes' gradients computed in part
+        with tracing.span("csts.train_step.update"):
+            grad_norm = state.optimizer.step(lr)
+            state.step += 1
+            if state.ema is not None:
+                with torch.no_grad():
+                    for name, p in state.model.named_parameters():
+                        state.ema[name].mul_(ema_decay).add_(p.detach().float(),
+                                                             alpha=1.0 - ema_decay)
+            stats = {k: v.detach() for k, v in stats.items()}
+            if world > 1:  # the ranks' mean of the main loss; EgoNCE is already global
+                stats["kldiv_loss"] = collectives.all_reduce_sum(stats["kldiv_loss"]) / world
+                stats["loss"] = stats["kldiv_loss"] + (cfg.MODEL.LOSS_ALPHA * stats["egonce_loss"]
+                                                       if use_nce else 0.0)
+            stats.update(lr=lr, grad_norm=grad_norm)
         return stats, preds.detach()
+
+    def train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
+                   generator: Optional[torch.Generator], drop=None):
+        with tracing.span("csts.train_step"):
+            return step(state, batch, generator, drop)
 
     return train_step
 

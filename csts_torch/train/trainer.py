@@ -306,7 +306,10 @@ def _start_profile(device) -> torch.profiler.profile:
 
 def _stop_profile(prof: torch.profiler.profile, cfg, cur_epoch: int) -> None:
     """Ends the TRAIN.PROFILE_* window and writes its trace (Chrome format)
-    to OUTPUT_DIR/profile."""
+    to OUTPUT_DIR/profile. The profiler turns on the program's spans
+    (``utils/tracing.py``), so the trace carries ``csts.train_step`` and its
+    forward, backward and update, and the model's encoders, fusion and
+    decoder, as user annotations around their operations and kernels."""
     prof.stop()
     out = os.path.join(cfg.OUTPUT_DIR, "profile")
     os.makedirs(out, exist_ok=True)

@@ -559,7 +559,8 @@ def test_trainer_refuses_what_is_not_ported(split, tmp_path, monkeypatch):
 def test_run_net_trains_then_tests(split, tmp_path):
     """``run_net`` with a YAML, TRAIN.ENABLE and TEST.ENABLE on the CPU (two
     loader workers, GRAD_ACCUM_STEPS 2, ACT_CHECKPOINT, the profile of one
-    iteration): it trains 2 epochs, writes an epoch npz each, and the test
+    iteration): it trains 2 epochs, writes an epoch npz each, the profile's
+    Chrome trace carries the step's and the model's spans, and the test
     scores the newest exactly as ``tester.test`` scores that file."""
     prefix, splits = split
     yaml_path = tmp_path / "cfg.yaml"
@@ -583,7 +584,12 @@ def test_run_net_trains_then_tests(split, tmp_path):
     got = run_net.main(["--device", "cpu", "--cfg", str(yaml_path), "OUTPUT_DIR", out])
     names = sorted(n for n in os.listdir(tcu.checkpoint_dir(out)) if n.endswith(".npz"))
     assert names == ["checkpoint_epoch_00001.npz", "checkpoint_epoch_00002.npz"]
-    assert os.listdir(os.path.join(out, "profile"))
+    (trace,) = os.listdir(os.path.join(out, "profile"))
+    with open(os.path.join(out, "profile", trace)) as f:
+        traced = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"csts.train_step", "csts.train_step.forward", "csts.train_step.backward",
+            "csts.train_step.update", "csts.model.encoders", "csts.model.fusion",
+            "csts.model.decoder"} <= traced
     assert len(_json_log(out, "train_epoch")) == 2 and len(_json_log(out, "val_epoch")) == 1
     from csts_torch.config import load_config
 
